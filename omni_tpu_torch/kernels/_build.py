@@ -1,0 +1,89 @@
+"""Build and bind the port's CUDA kernels.
+
+Each `csrc/*.cu` file has a plain C interface and includes no PyTorch
+header, so `nvcc` builds it in seconds. The sources are compiled at first
+use, all at once (one `nvcc` process per source, started together), into
+`omni_tpu_torch/build/<hash of sources and flags>/`, and loaded with
+`ctypes`. A later process with the same sources reuses the libraries.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+PKG = Path(__file__).resolve().parent.parent
+CSRC = PKG / "csrc"
+BUILD = PKG / "build"
+SOURCES = ("q4k_gemv.cu", "q4k_gemm.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+# every kernel entry point: (x, q, sc, mn, d, dm, out, m, n, k, out_f32,
+# stream) -> cudaError_t as int
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler: $CUDA_HOME/bin/nvcc, else on PATH."""
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.access(cand, os.X_OK):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def build_dir() -> Path:
+    """Where this version of the sources builds: BUILD/<hash of sources and
+    flags>."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return BUILD / h.hexdigest()[:16]
+
+
+@functools.cache
+def load() -> dict[str, ctypes.CDLL]:
+    """Compile (if needed) and load every kernel library; returns
+    {source stem: CDLL}. Raises RuntimeError with nvcc's output on a
+    failed build."""
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in SOURCES:
+        so = out_dir / (Path(name).stem + ".so")
+        if so.exists():
+            continue
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / name)]
+        procs[so] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    errors = []
+    for so, (tmp, p) in procs.items():
+        log, _ = p.communicate()
+        if p.returncode != 0:
+            errors.append(f"{so.name}: nvcc exit {p.returncode}\n"
+                          f"{log.decode(errors='replace')}")
+        else:
+            os.replace(tmp, so)  # atomic: a concurrent build sees a whole file
+    if errors:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
+    libs = {}
+    for name in SOURCES:
+        stem = Path(name).stem
+        lib = ctypes.CDLL(str(out_dir / (stem + ".so")))
+        fn = getattr(lib, stem)
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+        libs[stem] = lib
+    return libs
+

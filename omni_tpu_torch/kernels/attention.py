@@ -1,0 +1,83 @@
+"""Attention over the unified KV cell pool (counterpart of
+omni_tpu/kernels/attention.py): a masked softmax over every cell with GQA
+head grouping. The JAX package leaves this to XLA on the bf16 pool, so the
+port leaves it to plain PyTorch. Operands are rounded to bf16 on the card
+(f32 on the CPU, as the JAX package does off the TPU) and every product is
+accumulated in f32: bf16 products are exact in f32, so a float32 matmul of
+the rounded operands is the `preferred_element_type=float32` dot."""
+
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with operands rounded to the compute dtype, f32 result."""
+    c = torch.bfloat16 if a.is_cuda else torch.float32
+    return torch.matmul(a.to(c).to(torch.float32), b.to(c).to(torch.float32))
+
+
+def _heads_major(q: torch.Tensor, hkv: int) -> torch.Tensor:
+    """[T, Hq, D] -> [Hkv, T*G, D] (row r = t*G + g)."""
+    t, hq, d = q.shape
+    g = hq // hkv
+    return q.reshape(t, hkv, g, d).permute(1, 0, 2, 3).reshape(hkv, t * g, d)
+
+
+def _tokens_major(out: torch.Tensor, t: int) -> torch.Tensor:
+    """[Hkv, T*G, Dv] -> [T, Hq, Dv]."""
+    hkv, tg, dv = out.shape
+    g = tg // t
+    return out.reshape(hkv, t, g, dv).permute(1, 0, 2, 3).reshape(t, hkv * g, dv)
+
+
+def mixed_attention(q: torch.Tensor,  # [T, Hq, D]
+                    k_pool: torch.Tensor,  # [Hkv, S, D]
+                    v_pool: torch.Tensor,
+                    k_cur: torch.Tensor,  # [T, Hkv, D] not yet in the pool
+                    v_cur: torch.Tensor,
+                    mask_pool: torch.Tensor,  # [T, S] bool
+                    mask_cur: torch.Tensor,  # [T, T] bool
+                    scale: float | None = None) -> torch.Tensor:
+    """Attention over pool ∪ current batch with ONE joint softmax — the
+    deferred-write path: the pool is read before this ubatch is written,
+    and the batch's own keys ride along as extra columns. Returns
+    [T, Hq, D] f32."""
+    t, hq, d = q.shape
+    hkv = k_pool.shape[0]
+    g = hq // hkv
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    qh = _heads_major(q, hkv)
+    kc = k_cur.transpose(0, 1)  # [Hkv, T, D]
+    vc = v_cur.transpose(0, 1)
+    sc_pool = _mm(qh, k_pool.transpose(1, 2)) * scale
+    sc_cur = _mm(qh, kc.transpose(1, 2)) * scale
+    mp = mask_pool.repeat_interleave(g, dim=0)  # [T*G, S]
+    mc = mask_cur.repeat_interleave(g, dim=0)  # [T*G, T]
+    sc_pool = torch.where(mp[None], sc_pool, NEG_INF)
+    sc_cur = torch.where(mc[None], sc_cur, NEG_INF)
+    p = torch.softmax(torch.cat([sc_pool, sc_cur], dim=-1), dim=-1)
+    s = k_pool.shape[1]
+    out = _mm(p[..., :s], v_pool) + _mm(p[..., s:], vc)
+    return _tokens_major(out, t)
+
+
+def cache_attention(q: torch.Tensor,  # [T, Hq, D]
+                    k: torch.Tensor,  # [Hkv, S, D]
+                    v: torch.Tensor,
+                    mask: torch.Tensor,  # [T, S] bool
+                    scale: float | None = None) -> torch.Tensor:
+    """Attention of q over one layer of the pool. Returns [T, Hq, D] f32."""
+    t, hq, d = q.shape
+    hkv = k.shape[0]
+    g = hq // hkv
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    scores = _mm(_heads_major(q, hkv), k.transpose(1, 2)) * scale
+    scores = torch.where(mask.repeat_interleave(g, dim=0)[None], scores,
+                         NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    return _tokens_major(_mm(p, v), t)

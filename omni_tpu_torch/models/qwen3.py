@@ -1,0 +1,130 @@
+"""Qwen3 dense decoder (the LLM of MiniCPM-o 4.5) — the dense branch of
+omni_tpu/models/qwen3.py: pre-RMSNorm blocks, GQA attention with per-head
+q/k RMSNorm, NeoX RoPE, SwiGLU FFN, a separate or tied output head.
+
+The forward runs a flat ubatch of T tokens, each with its own position and
+sequence id, against the unified KV cell pool. Parameters are a dict of
+tensors and QTensors with the JAX package's names.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.attention import mixed_attention
+from ..kernels.dequant_matmul import matmul
+from ..kernels.norms import rms_norm
+from ..kernels.qformats import QTensor, concat_qtensors
+from ..kernels.rope import apply_rope
+from ..runtime.kv_cache import KVCache, primary_seq_bit, seq_bits_of
+
+
+@dataclasses.dataclass(frozen=True)
+class Qwen3Config:
+    """The dense fields of omni_tpu's Qwen3Config."""
+
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    n_vocab: int
+    rope_base: float = 1000000.0
+    rms_eps: float = 1e-6
+
+
+def fuse_layer(layer: dict) -> dict:
+    """Fuse QKV and gate+up into single weights (one kernel launch each)."""
+    def cat(ws):
+        if isinstance(ws[0], QTensor):
+            return concat_qtensors(ws)
+        return torch.cat(ws, dim=0)  # dense [N, K]
+
+    out = dict(layer)
+    out["wqkv"] = cat([layer["wq"], layer["wk"], layer["wv"]])
+    out["w_gateup"] = cat([layer["w_gate"], layer["w_up"]])
+    for k in ("wq", "wk", "wv", "w_gate", "w_up"):
+        del out[k]
+    return out
+
+
+def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """Token ids -> embeddings [T, d] (bf16)."""
+    return params["token_embd"][tokens].to(torch.bfloat16)
+
+
+def _qkv(lp: dict, cfg: Qwen3Config, hn: torch.Tensor):
+    t = hn.shape[0]
+    qd = cfg.n_heads * cfg.head_dim
+    kvd = cfg.n_kv_heads * cfg.head_dim
+    if "wqkv" in lp:
+        qkv = matmul(hn, lp["wqkv"])
+        q, k, v = qkv[:, :qd], qkv[:, qd:qd + kvd], qkv[:, qd + kvd:]
+    else:
+        q, k, v = (matmul(hn, lp[w]) for w in ("wq", "wk", "wv"))
+    return (q.reshape(t, cfg.n_heads, cfg.head_dim),
+            k.reshape(t, cfg.n_kv_heads, cfg.head_dim),
+            v.reshape(t, cfg.n_kv_heads, cfg.head_dim))
+
+
+def _ffn(lp: dict, cfg: Qwen3Config, hn: torch.Tensor) -> torch.Tensor:
+    if "w_gateup" in lp:
+        gu = matmul(hn, lp["w_gateup"])
+        gate, up = gu[:, :cfg.d_ff], gu[:, cfg.d_ff:]
+    else:
+        gate, up = matmul(hn, lp["w_gate"]), matmul(hn, lp["w_up"])
+    h_ff = F.silu(gate.to(torch.float32)).to(torch.bfloat16) * up
+    return matmul(h_ff, lp["w_down"])
+
+
+def forward(params: dict, cfg: Qwen3Config,
+            x: torch.Tensor,  # [T, d_model] input embeddings
+            pos: torch.Tensor,  # [T] int
+            seq_id: torch.Tensor,  # [T] int
+            cache: KVCache,
+            slots: torch.Tensor,  # [T] cell indices from cache.find_slots
+            write_mask: torch.Tensor | None = None,  # [T] bool; False = pad
+            kv_limit: int | None = None,  # attend over cells [0, kv_limit)
+            ) -> tuple[torch.Tensor, torch.Tensor, KVCache]:
+    """One decode/prefill step. Returns (logits [T, vocab] f32, hidden
+    [T, d_model] f32 — the tap the omni TTS projector reads, the cache).
+
+    Deferred write: every layer attends over the pool as it was before this
+    ubatch plus the ubatch's own K/V as extra columns; all layers' K/V land
+    in the pool with one scatter at the end. The cache is updated in place.
+    """
+    t = x.shape[0]
+    h = x.to(torch.bfloat16)
+    if write_mask is None:
+        write_mask = torch.ones((t,), dtype=torch.bool, device=x.device)
+    mask = cache.attn_mask(pos, seq_id, limit=kv_limit)  # pool only
+    mask_cur = ((seq_bits_of(seq_id)[None, :]
+                 & primary_seq_bit(seq_id)[:, None]) != 0)
+    mask_cur = mask_cur & (pos[None, :] <= pos[:, None]) & write_mask[None, :]
+    new_ks, new_vs = [], []
+    for li, lp in enumerate(params["layers"]):
+        hn = rms_norm(h, lp["attn_norm"], cfg.rms_eps)
+        q, k, v = _qkv(lp, cfg, hn)
+        if lp.get("q_norm") is not None:
+            q = rms_norm(q, lp["q_norm"], cfg.rms_eps)
+        if lp.get("k_norm") is not None:
+            k = rms_norm(k, lp["k_norm"], cfg.rms_eps)
+        q = apply_rope(q, pos, cfg.rope_base)
+        k = apply_rope(k, pos, cfg.rope_base)
+        kc, vc = cache.read_layer(li, limit=kv_limit)
+        attn = mixed_attention(q, kc, vc, k, v, mask, mask_cur)
+        new_ks.append(k)
+        new_vs.append(v)
+        h = h + matmul(attn.reshape(t, -1), lp["wo"])
+        h = h + _ffn(lp, cfg, rms_norm(h, lp["ffn_norm"], cfg.rms_eps))
+    cache.write_all(slots, torch.stack(new_ks), torch.stack(new_vs))
+    cache.commit(slots, pos, seq_id, valid=write_mask)
+    hidden = rms_norm(h, params["output_norm"], cfg.rms_eps)
+    head = params["output"] if params.get("output") is not None \
+        else params["token_embd"]
+    logits = matmul(hidden, head, out_dtype=torch.float32)
+    return logits, hidden.to(torch.float32), cache

@@ -1,0 +1,157 @@
+"""Decode engine (counterpart of omni_tpu/runtime/context.py, itself the
+counterpart of llama_context): owns the parameters, the unified KV cache
+and the ubatch / kv-read buckets. A `Batch` mirrors llama_batch: token ids
+or embeddings, with explicit positions and sequence ids. Every step returns
+logits and the last hidden states."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from .kv_cache import KVCache
+from .sampler import SamplerParams
+
+# ubatch padding buckets (the JAX package compiles one step per bucket; the
+# port keeps them so both pad, and so place cells, identically)
+BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)
+
+
+def _bucket(n: int, buckets: tuple[int, ...] = BUCKETS) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    step = max(buckets[-1], 1)
+    return ((n + step - 1) // step) * step
+
+
+@dataclasses.dataclass
+class Batch:
+    """Token-or-embedding ubatch (contract of llama_batch)."""
+
+    tokens: np.ndarray | None = None  # [T] int
+    embeds: np.ndarray | torch.Tensor | None = None  # [T, d] float
+    pos: np.ndarray | None = None  # [T] int; default = continue the seq
+    seq_id: np.ndarray | None = None  # [T] int; default = 0
+
+    def __len__(self) -> int:
+        return len(self.tokens) if self.tokens is not None else len(self.embeds)
+
+
+class KVCacheFull(RuntimeError):
+    """A decode would exceed the KV cell pool (silent cell aliasing is
+    never acceptable)."""
+
+
+class Context:
+    """One model instance + its KV cache."""
+
+    def __init__(self, cfg, params: dict, forward_fn: Callable,
+                 embed_fn: Callable, n_ctx: int = 4096,
+                 sampler: SamplerParams | None = None,
+                 buckets: tuple[int, ...] = BUCKETS, device=None):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = params
+        self._forward = forward_fn
+        self._embed = embed_fn
+        self.n_ctx = n_ctx
+        self.cache = KVCache.create(cfg.n_layers, n_ctx, cfg.n_kv_heads,
+                                    cfg.head_dim, self.device)
+        self.sampler = sampler or SamplerParams()
+        self.prev_tokens = torch.full((max(self.sampler.penalty_last_n, 1),),
+                                      -1, dtype=torch.int64,
+                                      device=self.device)
+        self.n_past: dict[int, int] = {}  # per-seq position high-water mark
+        # host shadow of the occupied-cell count: guards pool overflow with
+        # no device sync on the hot path
+        self.cells_used = 0
+        self.buckets = tuple(sorted(buckets))
+        # ragged-KV read bound: with low-first find_slots the highest
+        # occupied cell stays below max(kv_high, cells_used)
+        self.kv_high = 0
+        self.kv_buckets = tuple(
+            b for b in (512, 1024, 2048, 4096, 8192, 16384, 32768)
+            if b < n_ctx) + (n_ctx,)
+
+    def kv_bucket(self, need: int) -> int | None:
+        """Smallest kv-read bucket covering `need` cells (None = the whole
+        pool)."""
+        for b in self.kv_buckets:
+            if b >= need:
+                return b if b < self.cache.size else None
+        return None
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def decode(self, batch: Batch, return_hidden: bool = False,
+               block: bool = True):
+        """Run one ubatch. Returns (logits [T, vocab], hidden or None).
+        block=False returns without waiting for the device."""
+        t = len(batch)
+        tb = _bucket(t, self.buckets)
+        free = self.cache.size - self.cells_used
+        if tb > free:
+            raise KVCacheFull(
+                f"KV pool exhausted: batch of {t} (padded to {tb}) needs "
+                f"{tb} free cells, have {free} of {self.cache.size}; "
+                f"shift or seq_rm first")
+        pos = batch.pos if batch.pos is not None else self._auto_pos(batch)
+        seq = (batch.seq_id if batch.seq_id is not None
+               else np.zeros(t, np.int32))
+        dev = self.device
+        if batch.tokens is not None:
+            toks = np.pad(np.asarray(batch.tokens, np.int64), (0, tb - t))
+            x = self._embed(self.params, torch.as_tensor(toks, device=dev))
+        else:
+            e = torch.as_tensor(batch.embeds, device=dev).to(torch.bfloat16)
+            x = torch.nn.functional.pad(e, (0, 0, 0, tb - t))
+        pos_p = torch.as_tensor(np.pad(np.asarray(pos, np.int64), (0, tb - t)),
+                                device=dev)
+        seq_p = torch.as_tensor(np.pad(np.asarray(seq, np.int64), (0, tb - t)),
+                                device=dev)
+        wmask = torch.as_tensor(np.arange(tb) < t, device=dev)
+        # the full pool: ragged reads are the decode loop's (as in the JAX
+        # package, where they are opt-in for the bucketed steps)
+        slots = self.cache.find_slots(tb)
+        logits, hidden, self.cache = self._forward(
+            self.params, self.cfg, x, pos_p, seq_p, self.cache, slots, wmask)
+        if block:
+            self._sync()
+        self.cells_used += t  # valid rows only; padding cells stay free
+        self.kv_high = max(self.kv_high, self.cells_used)
+        seq_np, pos_np = np.asarray(seq), np.asarray(pos)
+        for s in np.unique(seq_np):
+            if s < 0:  # packed multi-membership rows keep their own books
+                continue
+            mx = int(np.max(pos_np[seq_np == s]))
+            self.n_past[int(s)] = max(self.n_past.get(int(s), 0), mx + 1)
+        if return_hidden:
+            return logits[:t], hidden[:t]
+        return logits[:t], None
+
+    def _auto_pos(self, batch: Batch) -> np.ndarray:
+        seq = (batch.seq_id if batch.seq_id is not None
+               else np.zeros(len(batch), np.int32))
+        pos = np.zeros(len(batch), np.int32)
+        counters = dict(self.n_past)
+        for i, s in enumerate(np.asarray(seq)):
+            pos[i] = counters.get(int(s), 0)
+            counters[int(s)] = pos[i] + 1
+        return pos
+
+    def prefill(self, tokens, seq_id: int = 0, chunk: int = 256):
+        """Chunked prompt ingestion; returns logits of the last position."""
+        tokens = np.asarray(tokens, np.int32)
+        logits = None
+        for i in range(0, len(tokens), chunk):
+            part = tokens[i:i + chunk]
+            logits, _ = self.decode(Batch(
+                tokens=part, seq_id=np.full(len(part), seq_id, np.int32)))
+        return logits[-1] if logits is not None else None

@@ -1,0 +1,67 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card. Every test here is marked `cuda` and skips with a reason where there
+is no CUDA device; run them on the card with
+
+    python -m pytest tests/test_torch_cuda.py -m cuda -q
+
+This file imports no JAX (the card's machine has none)."""
+
+import pytest
+import torch
+
+from chip_smoke import limit_ratio
+from omni_tpu_torch.kernels import dequant_matmul as dm
+from omni_tpu_torch.models import qwen3
+from omni_tpu_torch.runtime import Batch, Context, SamplerParams
+from omni_tpu_torch.testing_synth import synth_q4k, synth_qwen3_params
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (run on the card)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,m", [("q4k_gemv", 1), ("q4k_gemv", 8),
+                                      ("q4k_gemm", 9), ("q4k_gemm", 130)])
+def test_cuda_kernel_matches_plain(card, kernel, m):
+    """Each kernel against its plain version on a ragged N (1000 rows),
+    K = 6144 and both output dtypes; each launch is counted once."""
+    gen = torch.Generator(device=card).manual_seed(m)
+    qt = synth_q4k(1000, 6144, card, gen)
+    x = torch.randn((m, 6144), device=card, generator=gen).to(torch.bfloat16)
+    wrapper = getattr(dm, kernel)
+    plain = getattr(dm, kernel + "_plain")
+    for out_dtype in (torch.bfloat16, torch.float32):
+        n0 = dm.launches[kernel]
+        got = wrapper(x, qt, out_dtype).float()
+        want = plain(x, qt, out_dtype).float()
+        torch.cuda.synchronize()
+        assert dm.launches[kernel] == n0 + 1
+        # one law, f32 sums in another order: chip_smoke.py's limit
+        assert torch.isfinite(got).all() and limit_ratio(got, want) <= 1.0
+
+
+@pytest.mark.cuda
+def test_cuda_forward_goes_through_both_kernels(card):
+    """A small Q4_K Qwen3 (K multiples of 2048) prefills and decodes on the
+    card through both kernels, with finite logits."""
+    cfg = qwen3.Qwen3Config(n_layers=2, d_model=2048, n_heads=16,
+                            n_kv_heads=4, head_dim=128, d_ff=4096,
+                            n_vocab=1000)
+    params = synth_qwen3_params(cfg, card,
+                                torch.Generator(device=card).manual_seed(0))
+    ctx = Context(cfg, params, qwen3.forward, qwen3.embed, n_ctx=256,
+                  sampler=SamplerParams(greedy=True), device=card)
+    dm.reset_launches()
+    logits = ctx.prefill(list(range(20)))  # one ubatch of 32 rows: kernel B
+    assert torch.isfinite(logits).all()
+    for _ in range(3):  # single tokens: kernel A
+        tok = int(torch.argmax(logits))
+        logits, _ = ctx.decode(Batch(tokens=[tok]))
+        logits = logits[0]
+        assert torch.isfinite(logits).all()
+    per_step = 4 * cfg.n_layers + 1
+    assert dm.launches == {"q4k_gemm": per_step, "q4k_gemv": 3 * per_step}

@@ -1,0 +1,142 @@
+"""The port's isolation from JAX, its kernel build, and chip_smoke.py's
+refusal to run off the card. The machine with the card has no JAX, so
+nothing under omni_tpu_torch/ nor chip_smoke.py may import `jax` or any of
+`omni_tpu` (whose package __init__ runs JAX set-up)."""
+
+import ast
+import ctypes
+import os
+import subprocess
+import sys
+from pathlib import Path
+from unittest import mock
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted(
+    p for p in (ROOT / "omni_tpu_torch").rglob("*.py")
+    if "build" not in p.relative_to(ROOT / "omni_tpu_torch").parts) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _run(code, cwd=ROOT, env_extra=None):
+    env = dict(os.environ, PYTHONPATH=str(ROOT), **(env_extra or {}))
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_port_imports_with_jax_and_omni_tpu_blocked():
+    code = """
+import sys
+for name in ("jax", "jaxlib", "omni_tpu"):
+    sys.modules[name] = None  # any import of them raises ImportError
+import importlib, pkgutil
+import omni_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(omni_tpu_torch.__path__,
+                                               "omni_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+assert not any(k == "jax" or k.startswith(("jax.", "omni_tpu."))
+               for k, v in sys.modules.items() if v is not None)
+print(len(names))
+"""
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.split()[-1]) >= 16
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_cpp_extension_imports(path):
+    """No import of jax/omni_tpu at any level, and no
+    torch.utils.cpp_extension (the kernels build with nvcc + ctypes)."""
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods = [node.module or ""]
+        else:
+            continue
+        for mod in mods:
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "omni_tpu"), (path, mod)
+            assert not mod.startswith("torch.utils.cpp_extension"), (path, mod)
+    assert "cpp_extension" not in path.read_text()
+
+
+def test_chip_smoke_fails_without_cuda():
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                       env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    """In a directory holding chip_smoke.py and nothing else of the repo it
+    fails (even where a card is present) and prints no result."""
+    (tmp_path / "chip_smoke.py").write_text((ROOT / "chip_smoke.py").read_text())
+    code = """
+import runpy, sys, torch
+torch.cuda.is_available = lambda: True  # as on the machine with the card
+sys.argv = ["chip_smoke.py"]
+runpy.run_path("chip_smoke.py", run_name="__main__")
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert "omni_tpu_torch" in r.stderr
+    assert '"ok"' not in r.stdout
+
+
+def test_kernel_build_runs_nvcc_per_source_in_parallel(tmp_path):
+    """One nvcc per source, all started before any is waited on, for sm_90a,
+    into a directory keyed by the sources' hash; loaded with ctypes with
+    void* pointers and stream."""
+    from omni_tpu_torch.kernels import _build
+
+    started, waited = [], []
+
+    class FakeProc:
+        def __init__(self, cmd, **kw):
+            started.append(cmd)
+            self.out = Path(cmd[cmd.index("-o") + 1])
+            self.returncode = 0
+
+        def communicate(self):
+            waited.append(len(started))
+            self.out.write_bytes(b"")
+            return b"", b""
+
+    class FakeLib:
+        def __init__(self, path):
+            self.path = path
+            stem = Path(path).stem
+            setattr(self, stem, mock.Mock())
+
+    _build.load.cache_clear()
+    try:
+        with mock.patch.object(_build, "BUILD", tmp_path), \
+                mock.patch.object(_build, "nvcc", return_value="nvcc"), \
+                mock.patch.object(_build.subprocess, "Popen", FakeProc), \
+                mock.patch.object(_build.ctypes, "CDLL", FakeLib):
+            libs = _build.load()
+            want_dir = _build.build_dir()
+    finally:
+        _build.load.cache_clear()
+    assert len(started) == len(_build.SOURCES) == 2
+    assert waited[0] == len(started)  # all started before the first wait
+    for cmd in started:
+        assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
+    out_dirs = {Path(c[c.index("-o") + 1]).parent for c in started}
+    assert out_dirs == {want_dir} and want_dir.parent == tmp_path
+    for stem, lib in libs.items():
+        fn = getattr(lib, stem)
+        assert fn.argtypes[:7] == [ctypes.c_void_p] * 7
+        assert fn.argtypes[-1] == ctypes.c_void_p and fn.restype == ctypes.c_int
+    assert sorted(p.name for p in want_dir.iterdir()) == [
+        "q4k_gemm.so", "q4k_gemv.so"]
