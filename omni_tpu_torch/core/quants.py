@@ -1,15 +1,18 @@
-"""Numpy Q4_K dequantiser: the bit-exact oracle inside the port.
+"""Numpy dequantisers: the bit-exact oracle inside the port.
 
-A copy of the Q4_K path of `omni_tpu/core/quants.py` (ggml-quants.c
-dequantize_row_q4_K semantics): the effective group scale is the single
-f32 product d*sc, and w = q*(d*sc) - dmin*mn.
+A copy of the Q4_K and Q6_K paths of `omni_tpu/core/quants.py`
+(ggml-quants.c dequantize_row_q4_K / _q6_K semantics), plus the widening
+of the plain float types. The effective group scale is the single f32
+product d*sc:
+- Q4_K: w = q*(d*sc) - dmin*mn per 32-element group, q in 0..15;
+- Q6_K: w = (d*sc)*(q - 32) per 16-element group, q in 0..63.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from .dtypes import QK_K, Q4K_TRAITS
+from .dtypes import QK_K, GGMLType, type_traits
 
 
 def _f16(b: np.ndarray) -> np.ndarray:
@@ -26,6 +29,16 @@ def _split_nibbles(qs: np.ndarray, group: int) -> np.ndarray:
                     axis=2).reshape(n, -1)
 
 
+def _expand_bits(b: np.ndarray, shifts: list[int], group: int,
+                 mask: int) -> np.ndarray:
+    """Each `group`-byte run yields, for each shift in order, `group`
+    values of (byte >> shift) & mask."""
+    n = b.shape[0]
+    q = b.reshape(n, -1, 1, group)
+    sh = np.array(shifts, dtype=np.uint8).reshape(1, 1, len(shifts), 1)
+    return ((q >> sh) & np.uint8(mask)).reshape(n, -1)
+
+
 def _unpack_scale_min_k4(scales: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """12-byte packed 6-bit scales/mins -> (8 scales, 8 mins) per
     superblock (ggml-quants.c get_scale_min_k4)."""
@@ -35,16 +48,61 @@ def _unpack_scale_min_k4(scales: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return sc, mn
 
 
-def dequantize_q4k(blocks: np.ndarray,
-                   shape: tuple[int, ...] | None = None) -> np.ndarray:
-    """Q4_K block bytes -> float32 array (reshaped to `shape` if given)."""
-    b = np.ascontiguousarray(blocks, dtype=np.uint8).reshape(
-        -1, Q4K_TRAITS.type_size)
+def _deq_q4_k(b: np.ndarray) -> np.ndarray:
     n = b.shape[0]
     d, dmin = _f16(b[:, :2]), _f16(b[:, 2:4])
     sc, mn = _unpack_scale_min_k4(b[:, 4:16])
     dl = (d * sc.astype(np.float32)).reshape(n, 8, 1)
     ml = (dmin * mn.astype(np.float32)).reshape(n, 8, 1)
     q = _split_nibbles(b[:, 16:], 32).reshape(n, 8, 32).astype(np.float32)
-    out = (dl * q - ml).reshape(n * QK_K)
-    return out.reshape(shape) if shape is not None else out
+    return (dl * q - ml).reshape(n, QK_K)
+
+
+def q6k_values(b: np.ndarray) -> np.ndarray:
+    """Q6_K blocks [n, 210] -> the 6-bit values q - 32 as int8 [n, 256] in
+    element order. Per 128-element half: the low nibbles of ql bytes 0..63
+    are groups 0 and 1 (32 each), their high nibbles groups 2 and 3; qh
+    byte l holds the two high bits of group j's element l at shift 2j."""
+    n = b.shape[0]
+    lo = _split_nibbles(b[:, :128], 64)
+    hi = _expand_bits(b[:, 128:192], [0, 2, 4, 6], 32, 3)
+    return ((lo | (hi << np.uint8(4))).astype(np.int8)
+            - np.int8(32)).reshape(n, QK_K)
+
+
+def _deq_q6_k(b: np.ndarray) -> np.ndarray:
+    n = b.shape[0]
+    d = _f16(b[:, 208:210])
+    dl = (d * b[:, 192:208].view(np.int8).astype(np.float32)).reshape(n, 16, 1)
+    q = q6k_values(b).astype(np.float32)
+    return (dl * q.reshape(n, 16, 16)).reshape(n, QK_K)
+
+
+_DEQUANT = {GGMLType.Q4_K: _deq_q4_k, GGMLType.Q6_K: _deq_q6_k}
+
+
+def dequantize(blocks: np.ndarray, ggml_type: GGMLType | int,
+               shape: tuple[int, ...] | None = None) -> np.ndarray:
+    """Block bytes (or a plain F32/F16/BF16 array) -> float32, reshaped to
+    `shape` if given. Other formats are not ported and raise."""
+    t = GGMLType(ggml_type)
+    if t == GGMLType.F32:
+        out = np.asarray(blocks, dtype=np.float32)
+    elif t == GGMLType.F16:
+        out = np.asarray(blocks).astype(np.float32)
+    elif t == GGMLType.BF16:
+        bits = np.asarray(blocks).view(np.uint16).astype(np.uint32) << 16
+        out = bits.view(np.float32)
+    elif t in _DEQUANT:
+        b = np.ascontiguousarray(blocks, dtype=np.uint8).reshape(
+            -1, type_traits(t).type_size)
+        out = _DEQUANT[t](b)
+    else:
+        raise NotImplementedError(f"dequantize: {t.name} is not ported")
+    return out.reshape(shape) if shape is not None else out.reshape(-1)
+
+
+def dequantize_q4k(blocks: np.ndarray,
+                   shape: tuple[int, ...] | None = None) -> np.ndarray:
+    """Q4_K block bytes -> float32 array (reshaped to `shape` if given)."""
+    return dequantize(blocks, GGMLType.Q4_K, shape)

@@ -21,6 +21,9 @@
 // - the residual ml - t*dl (zero except on dl == 0 guard groups and f32
 //   rounding) is folded back as a side term sum_g xs[m, g] * ml_res[n, g],
 //   as the TPU kernel's side dot does;
+// - each superblock's products are summed by the tensor cores in fresh
+//   accumulators and added to the running f32 sums with IEEE adds, so the
+//   long-K sums round as an f32 sum does;
 // - ragged M and N edges are masked; 64-bit offsets throughout.
 // 70 KB of dynamic shared memory, above the 48 KB default, so the launcher
 // raises the limit with cudaFuncSetAttribute. wgmma, TMA, a multi-stage
@@ -177,6 +180,15 @@ q4k_gemm_kernel(const __nv_bfloat16* __restrict__ x,
       for (int j = 0; j < 32; ++j) sum += __bfloat162float(xr[j]);
       xsum[r * LDG + gi] = sum;
     }
+    // this superblock's products in fresh accumulators, then added to the
+    // running sums with IEEE f32 adds: the tensor cores' own accumulation
+    // is not rounded to nearest, and chained over all of K it flipped 25x
+    // more bf16 outputs than an f32 sum does
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> part[2][2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) wmma::fill_fragment(part[i][j], 0.f);
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
@@ -190,8 +202,14 @@ q4k_gemm_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+        for (int j = 0; j < 2; ++j) wmma::mma_sync(part[i][j], a[i], b[j], part[i][j]);
     }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int t = 0; t < part[i][j].num_elements; ++t) acc[i][j].x[t] += part[i][j].x[t];
     __syncthreads();
 
 #pragma unroll

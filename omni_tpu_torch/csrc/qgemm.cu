@@ -1,0 +1,328 @@
+// qgemm: out[m, n] = sum_k bf16(x)[m, k] * bf16(dequant(W))[n, k], any M,
+// W in Q4_K or Q6_K — the generic fused dequant x matmul.
+//
+// Replaces omni_tpu/kernels/dequant_matmul.py::qmatmul_pallas (:103, body
+// _make_kernel :55-76, law qformats.dequant_tile :289-360) for Q4_K and
+// Q6_K. On a Q4_K_M checkpoint it runs the prefill (M > 8) of the Q6_K
+// tensors (attn_v and ffn_down on the promoted layers, the output head),
+// and every Q4_K weight whose K is not a multiple of 2048, at any M.
+//
+// The law is the TPU kernel's: each weight element is dequantised in f32
+// and rounded once to bf16, then multiplied against bf16 x with f32
+// accumulation:
+// - Q4_K: w = bf16(q * dl - ml), the UNCENTERED law of dequant_tile (not
+//   kernel B's centered one: the two round differently), dl = d * sc and
+//   ml = dm * mn per 32-group;
+// - Q6_K: w = bf16((q - 32) * dl), dl = d * sc per 16-group.
+// The products and the difference are rounded one at a time (__fmul_rn,
+// __fsub_rn: no fused multiply-add), so the bf16 weights equal the plain
+// version's bit for bit.
+//
+// Bound on the H100: at prefill M (64..512) the bf16 tensor-core work per
+// weight byte nears the card's ~295 operations per byte; at M = 1 it is
+// bytes. This first version is simple and right rather than fast:
+// - a 2-D grid of 64 x 64 output tiles, 4 warps, each a 32 x 32 sub-tile of
+//   2 x 2 WMMA m16n16k16 bf16 products with f32 accumulators;
+// - per K step of one 256-element superblock, the x tile [64, 256] (cp.async)
+//   and the weight tile [64, 256], dequantised on the way in by the
+//   format's own device function, are staged in shared memory; every
+//   global load of the step is issued before any is used;
+// - each superblock's products are summed by the tensor cores in fresh
+//   accumulators and added to the running f32 sums with IEEE adds, so the
+//   long-K sums round as an f32 sum does;
+// - ragged M and N edges are masked; 64-bit offsets throughout (the head's
+//   Q6_K plane is 621.6 MB).
+// 66 KB of dynamic shared memory, above the 48 KB default, so the launcher
+// raises the limit with cudaFuncSetAttribute. A later format adds one
+// device function and one branch.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stdint.h>
+
+namespace {
+
+using namespace nvcuda;
+
+constexpr int kQ4K = 12, kQ6K = 14;  // GGML type ids
+constexpr int BM = 64, BN = 64, BK = 256;
+constexpr int LD = BK + 8;   // bf16 row pitch of the staged tiles
+constexpr int LDC = BN + 4;  // f32 row pitch of the epilogue tile
+constexpr int kThreads = 128;
+constexpr int kPairs = BM * BN / kThreads;
+constexpr int kXLoads = BM * (BK / 8) / kThreads;  // x chunks per thread
+constexpr size_t kTileBytes = (size_t)BM * LD * sizeof(__nv_bfloat16);
+constexpr size_t kSmem = 2 * kTileBytes;
+static_assert((size_t)BM * LDC * sizeof(float) <= kTileBytes, "epilogue tile");
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool live) {
+  const unsigned dptr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dptr), "l"(src),
+               "r"(live ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// two floats -> two round-to-nearest bf16 in one 32-bit word (a first)
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+struct Planes {
+  const void* q;
+  const int8_t* sc;
+  const int8_t* mn;
+  const float* d;
+  const float* dm;
+};
+
+// Q4_K weight tile of superblock s: BN rows x 8 chunks of 16 packed bytes;
+// chunk c holds the low nibbles of elements 16c.. (group c/2) and the high
+// nibbles of elements 128+16c.. (group 4+c/2).
+__device__ __forceinline__ void stage_w_q4k(const Planes& p, __nv_bfloat16* ws_t,
+                                            int n0, int N, int K, int s, int tid) {
+  constexpr int kLoads = BN * 8 / kThreads;
+  const size_t half = (size_t)(K >> 1);
+  const int n_groups = K >> 5, n_sb = K >> 8;
+  uint4 qv[kLoads];
+  float dsv[kLoads], dmsv[kLoads];
+  int scv[kLoads][2], mnv[kLoads][2];
+#pragma unroll
+  for (int i = 0; i < kLoads; ++i) {
+    const int idx = tid + kThreads * i;
+    const int r = idx >> 3, c = idx & 7;
+    const int gn = n0 + r;
+    qv[i] = make_uint4(0, 0, 0, 0);
+    dsv[i] = dmsv[i] = 0.f;
+    scv[i][0] = scv[i][1] = mnv[i][0] = mnv[i][1] = 0;
+    if (gn < N) {
+      const uint8_t* qrow = static_cast<const uint8_t*>(p.q) + (size_t)gn * half;
+      qv[i] = __ldg(reinterpret_cast<const uint4*>(qrow + (size_t)s * 128) + c);
+      dsv[i] = __ldg(p.d + (size_t)gn * n_sb + s);
+      dmsv[i] = __ldg(p.dm + (size_t)gn * n_sb + s);
+      const size_t g = (size_t)gn * n_groups + s * 8 + (c >> 1);
+      scv[i][0] = __ldg(p.sc + g);
+      scv[i][1] = __ldg(p.sc + g + 4);
+      mnv[i][0] = __ldg(p.mn + g);
+      mnv[i][1] = __ldg(p.mn + g + 4);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kLoads; ++i) {
+    const int idx = tid + kThreads * i;
+    const int r = idx >> 3, c = idx & 7;
+    // rows past N have d = dm = 0: zero weights
+    const float dl_lo = __fmul_rn(dsv[i], (float)scv[i][0]);
+    const float ml_lo = __fmul_rn(dmsv[i], (float)mnv[i][0]);
+    const float dl_hi = __fmul_rn(dsv[i], (float)scv[i][1]);
+    const float ml_hi = __fmul_rn(dmsv[i], (float)mnv[i][1]);
+    const uint32_t w32[4] = {qv[i].x, qv[i].y, qv[i].z, qv[i].w};
+    __nv_bfloat16* wrow = ws_t + r * LD;
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      uint32_t lo[4], hi[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t word = w32[v * 2 + (e >> 1)];
+        const int sh = (e & 1) * 16;  // bytes 2e, 2e+1 of this 8-byte run
+        const uint32_t q0 = (word >> sh) & 0xFFu, q1 = (word >> (sh + 8)) & 0xFFu;
+        lo[e] = pack_bf16(__fsub_rn(__fmul_rn((float)(q0 & 15u), dl_lo), ml_lo),
+                          __fsub_rn(__fmul_rn((float)(q1 & 15u), dl_lo), ml_lo));
+        hi[e] = pack_bf16(__fsub_rn(__fmul_rn((float)(q0 >> 4), dl_hi), ml_hi),
+                          __fsub_rn(__fmul_rn((float)(q1 >> 4), dl_hi), ml_hi));
+      }
+      *reinterpret_cast<uint4*>(wrow + c * 16 + v * 8) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      *reinterpret_cast<uint4*>(wrow + 128 + c * 16 + v * 8) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    }
+  }
+}
+
+// Q6_K weight tile of superblock s: BN rows x 16 chunks of 16 int8 values;
+// chunk c is group s*16 + c, elements 16c.. of the superblock.
+__device__ __forceinline__ void stage_w_q6k(const Planes& p, __nv_bfloat16* ws_t,
+                                            int n0, int N, int K, int s, int tid) {
+  constexpr int kLoads = BN * 16 / kThreads;
+  const int n_groups = K >> 4, n_sb = K >> 8;
+  uint4 qv[kLoads];
+  float dsv[kLoads];
+  int scv[kLoads];
+#pragma unroll
+  for (int i = 0; i < kLoads; ++i) {
+    const int idx = tid + kThreads * i;
+    const int r = idx >> 4, c = idx & 15;
+    const int gn = n0 + r;
+    qv[i] = make_uint4(0, 0, 0, 0);
+    dsv[i] = 0.f;
+    scv[i] = 0;
+    if (gn < N) {
+      const int8_t* qrow = static_cast<const int8_t*>(p.q) + (size_t)gn * K;
+      qv[i] = __ldg(reinterpret_cast<const uint4*>(qrow + (size_t)s * BK) + c);
+      dsv[i] = __ldg(p.d + (size_t)gn * n_sb + s);
+      scv[i] = __ldg(p.sc + (size_t)gn * n_groups + s * 16 + c);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kLoads; ++i) {
+    const int idx = tid + kThreads * i;
+    const int r = idx >> 4, c = idx & 15;
+    const float dl = __fmul_rn(dsv[i], (float)scv[i]);  // 0 past N
+    const uint32_t w32[4] = {qv[i].x, qv[i].y, qv[i].z, qv[i].w};
+    uint32_t wv[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const uint32_t word = w32[e >> 1];
+      const int sh = (e & 1) * 16;
+      const float v0 = (float)(int8_t)((word >> sh) & 0xFFu);
+      const float v1 = (float)(int8_t)((word >> (sh + 8)) & 0xFFu);
+      wv[e] = pack_bf16(__fmul_rn(v0, dl), __fmul_rn(v1, dl));
+    }
+    __nv_bfloat16* dst = ws_t + r * LD + c * 16;
+    *reinterpret_cast<uint4*>(dst) = make_uint4(wv[0], wv[1], wv[2], wv[3]);
+    *reinterpret_cast<uint4*>(dst + 8) = make_uint4(wv[4], wv[5], wv[6], wv[7]);
+  }
+}
+
+template <int QT>
+__global__ void __launch_bounds__(kThreads)
+qgemm_kernel(const __nv_bfloat16* __restrict__ x, Planes p, void* __restrict__ out,
+             int M, int N, int K, int out_f32) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* xs_t = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* ws_t = reinterpret_cast<__nv_bfloat16*>(smem + kTileBytes);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int n_sb = K >> 8;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  for (int s = 0; s < n_sb; ++s) {
+    // x tile (BM rows x 32 chunks of 8 bf16), rows past M zero-filled
+#pragma unroll
+    for (int i = 0; i < kXLoads; ++i) {
+      const int idx = tid + kThreads * i;
+      const int r = idx >> 5, c = idx & 31;
+      const bool live = m0 + r < M;
+      const __nv_bfloat16* src = x + (live ? (size_t)(m0 + r) * K + (size_t)s * BK + c * 8 : 0);
+      cp_async16(xs_t + r * LD + c * 8, src, live);
+    }
+    cp_async_commit();
+    if constexpr (QT == kQ4K)
+      stage_w_q4k(p, ws_t, n0, N, K, s, tid);
+    else
+      stage_w_q6k(p, ws_t, n0, N, K, s, tid);
+    cp_async_wait_all();
+    __syncthreads();
+    // this superblock's products in fresh accumulators, then added to the
+    // running sums with IEEE f32 adds: the tensor cores' own accumulation
+    // is not rounded to nearest, and chained over all of K (48 steps at
+    // K = 12288) it flipped 25x more bf16 outputs than an f32 sum does
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> part[2][2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) wmma::fill_fragment(part[i][j], 0.f);
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(a[i], xs_t + (wm + 16 * i) * LD + kk, LD);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(b[j], ws_t + (wn + 16 * j) * LD + kk, LD);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) wmma::mma_sync(part[i][j], a[i], b[j], part[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int t = 0; t < part[i][j].num_elements; ++t) acc[i][j].x[t] += part[i][j].x[t];
+    __syncthreads();
+  }
+
+  // epilogue: accumulators -> shared f32 tile -> masked global store
+  float* ctile = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(ctile + (wm + 16 * i) * LDC + wn + 16 * j, acc[i][j], LDC,
+                              wmma::mem_row_major);
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kPairs; ++i) {
+    const int pi = tid + kThreads * i;
+    const int r = pi / BN, c = pi % BN;
+    const int gm = m0 + r, gn = n0 + c;
+    if (gm < M && gn < N) {
+      const float v = ctile[r * LDC + c];
+      const size_t o = (size_t)gm * N + gn;
+      if (out_f32)
+        static_cast<float*>(out)[o] = v;
+      else
+        static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16(v);
+    }
+  }
+}
+
+template <int QT>
+int launch(const void* x, Planes p, void* out, int m, int n, int k, int out_f32,
+           void* stream) {
+  if (m < 1 || n < 1 || k < 256 || k % 256 != 0 || (m + BM - 1) / BM > 65535)
+    return (int)cudaErrorInvalidValue;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        qgemm_kernel<QT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM), block(kThreads);
+  qgemm_kernel<QT><<<grid, block, kSmem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), p, out, m, n, k, out_f32);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// One entry point per format, each with the signature of the other kernels
+// (Q6_K has no min planes: mn and dm are unused). Each returns the first
+// CUDA error of the attribute call or the launch (0 = launched).
+extern "C" int qgemm_q4k(const void* x, const void* q, const void* sc,
+                         const void* mn, const void* d, const void* dm,
+                         void* out, int m, int n, int k, int out_f32,
+                         void* stream) {
+  const Planes p{q, static_cast<const int8_t*>(sc), static_cast<const int8_t*>(mn),
+                 static_cast<const float*>(d), static_cast<const float*>(dm)};
+  return launch<kQ4K>(x, p, out, m, n, k, out_f32, stream);
+}
+
+extern "C" int qgemm_q6k(const void* x, const void* q, const void* sc,
+                         const void* mn, const void* d, const void* dm,
+                         void* out, int m, int n, int k, int out_f32,
+                         void* stream) {
+  (void)mn;
+  (void)dm;
+  const Planes p{q, static_cast<const int8_t*>(sc), nullptr,
+                 static_cast<const float*>(d), nullptr};
+  return launch<kQ6K>(x, p, out, m, n, k, out_f32, stream);
+}

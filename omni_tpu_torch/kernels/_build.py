@@ -16,11 +16,14 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Callable
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
-SOURCES = ("q4k_gemv.cu", "q4k_gemm.cu")
+# each source and its C entry points, one per kernel or per format
+SOURCES = {"q4k_gemv.cu": ("q4k_gemv",), "q4k_gemm.cu": ("q4k_gemm",),
+           "q6k_gemv.cu": ("q6k_gemv",), "qgemm.cu": ("qgemm_q4k", "qgemm_q6k")}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -52,10 +55,10 @@ def build_dir() -> Path:
 
 
 @functools.cache
-def load() -> dict[str, ctypes.CDLL]:
+def load() -> dict[str, Callable[..., int]]:
     """Compile (if needed) and load every kernel library; returns
-    {source stem: CDLL}. Raises RuntimeError with nvcc's output on a
-    failed build."""
+    {entry point name: its C function}. Raises RuntimeError with nvcc's
+    output on a failed build."""
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -77,13 +80,13 @@ def load() -> dict[str, ctypes.CDLL]:
             os.replace(tmp, so)  # atomic: a concurrent build sees a whole file
     if errors:
         raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
-    libs = {}
-    for name in SOURCES:
-        stem = Path(name).stem
-        lib = ctypes.CDLL(str(out_dir / (stem + ".so")))
-        fn = getattr(lib, stem)
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-        libs[stem] = lib
-    return libs
+    fns = {}
+    for name, entries in SOURCES.items():
+        lib = ctypes.CDLL(str(out_dir / (Path(name).stem + ".so")))
+        for entry in entries:
+            fn = getattr(lib, entry)
+            fn.argtypes = _ARGTYPES
+            fn.restype = ctypes.c_int
+            fns[entry] = fn
+    return fns
 

@@ -1,13 +1,20 @@
-"""Quantized matmul: the `matmul` dispatcher and the two Q4_K kernels.
+"""Quantized matmul: the `matmul` dispatcher and the port's four kernels.
 
 Counterpart of `omni_tpu/kernels/dequant_matmul.py`. On a CUDA tensor a
-Q4_K weight goes to a kernel written by hand for Hopper
-(`csrc/q4k_gemv.cu` at M <= 8, `csrc/q4k_gemm.cu` above), the conditions of
-`gp_supported` / `sh_supported` (dequant_matmul.py:321-326, :449-454) with
-K % 2048 == 0. Each kernel has a plain PyTorch version of the same law
+weight goes to a kernel written by hand for Hopper, chosen as the JAX
+dispatcher chooses its Pallas kernel (`matmul`, dequant_matmul.py:665-672):
+- `gp_supported` (M = 1..8, K % 2048 == 0): kernel A `q4k_gemv` for Q4_K,
+  kernel C `q6k_gemv` for Q6_K (both replace qmatmul_gp_pallas);
+- `sh_supported` (M > 8, Q4_K, K % 2048 == 0): kernel B `q4k_gemm`
+  (replaces qmatmul_splith_pallas);
+- every other Q4_K or Q6_K weight, at any M: kernel D `qgemm`, the generic
+  dequant-GEMM (replaces qmatmul_pallas).
+Other formats raise NotImplementedError on the card, naming the TPU kernel
+still to port. Each kernel has a plain PyTorch version of the same law
 beside it: the wrapper runs it only for a tensor that lies on the CPU, and
-on a CUDA tensor it launches the kernel or raises. `qmatmul_plain` plays
-the role of `qmatmul_xla`: the dispatcher's path off the card.
+on a CUDA tensor it launches the kernel or raises. Off the card the
+dispatcher runs kernel D's plain law, which is `qmatmul_xla`'s: dequantise
+to bf16, then a dot with f32 accumulation.
 """
 
 from __future__ import annotations
@@ -15,13 +22,17 @@ from __future__ import annotations
 import torch
 
 from ..core.dtypes import GGMLType
-from .qformats import QTensor, check_q4k, dequant, q4k_group_scales, unpack_sb_halves
+from .qformats import (QTensor, check_qtensor, dequant, q4k_group_scales,
+                       q6k_group_scales, unpack_sb_halves)
 
-GP_MAX_M = 8  # decode rows kernel A takes (the TPU kernel's _GP_MAX_M)
-MIN_K = 2048  # the K granule both TPU kernels need for Q4_K (_gp_min_tk)
+GP_MAX_M = 8  # decode rows kernels A and C take (the TPU kernel's _GP_MAX_M)
+MIN_K = 2048  # the K granule of the K-quants' TPU kernels (_gp_min_tk)
 
 # kernel launches, one count per wrapper; a run resets and reads them
-launches = {"q4k_gemv": 0, "q4k_gemm": 0}
+launches = {"q4k_gemv": 0, "q4k_gemm": 0, "q6k_gemv": 0, "qgemm": 0}
+
+# the C entry point of kernel D for each format
+_QGEMM_ENTRY = {GGMLType.Q4_K: "qgemm_q4k", GGMLType.Q6_K: "qgemm_q6k"}
 
 
 def reset_launches() -> None:
@@ -33,36 +44,53 @@ def _on_cuda(x: torch.Tensor) -> bool:
     return x.is_cuda
 
 
-def _check(x: torch.Tensor, qt: QTensor, out_dtype) -> None:
-    check_q4k(qt)
+def _check(x: torch.Tensor, qt: QTensor, out_dtype, *types: GGMLType) -> None:
+    check_qtensor(qt, *types)
     if x.dim() != 2 or x.shape[1] != qt.shape[1]:
         raise ValueError(f"x {tuple(x.shape)} does not match weight {qt.shape}")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"out_dtype {out_dtype}: want bfloat16 or float32")
 
 
-def _launch(name: str, x: torch.Tensor, qt: QTensor, out_dtype) -> torch.Tensor:
-    """Launch kernel `name` on the current stream (CUDA tensors only)."""
+def _launch(name: str, entry: str, x: torch.Tensor, qt: QTensor,
+            out_dtype) -> torch.Tensor:
+    """Launch C entry point `entry` of kernel `name` on the current stream
+    (CUDA tensors only). Planes a format lacks go as null pointers."""
     if x.dtype != torch.bfloat16 or not x.is_contiguous():
         raise ValueError(f"{name}: x must be contiguous bfloat16, got {x.dtype}")
     planes = (qt.q, qt.sc, qt.mn, qt.d, qt.dm)
-    if any(p.device != x.device for p in planes):
+    if any(p is not None and p.device != x.device for p in planes):
         raise ValueError(f"{name}: x and weight planes on different devices")
     if x.data_ptr() % 16 or qt.q.data_ptr() % 16:
         raise ValueError(f"{name}: x and q must be 16-byte aligned")
     from . import _build
 
-    fn = getattr(_build.load()[name], name)
+    fn = _build.load()[entry]
     m, k = x.shape
     n = qt.shape[0]
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    rc = fn(x.data_ptr(), *(p.data_ptr() for p in planes), out.data_ptr(),
-            m, n, k, int(out_dtype == torch.float32),
+    rc = fn(x.data_ptr(), *(0 if p is None else p.data_ptr() for p in planes),
+            out.data_ptr(), m, n, k, int(out_dtype == torch.float32),
             torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     launches[name] += 1
     return out
+
+
+def _run(name: str, entry: str, plain, x: torch.Tensor, qt: QTensor,
+         out_dtype) -> torch.Tensor:
+    """The kernel on a CUDA tensor, its plain version on a CPU one."""
+    if _on_cuda(x):
+        return _launch(name, entry, x, qt, out_dtype)
+    if x.device.type != "cpu":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    return plain(x, qt, out_dtype)
+
+
+def _check_gemv_m(name: str, x: torch.Tensor) -> None:
+    if not 1 <= x.shape[0] <= GP_MAX_M:
+        raise ValueError(f"{name} takes M = 1..{GP_MAX_M}, got {x.shape[0]}")
 
 
 def q4k_gemv_plain(x: torch.Tensor, qt: QTensor,
@@ -82,74 +110,115 @@ def q4k_gemv_plain(x: torch.Tensor, qt: QTensor,
     return out.to(out_dtype)
 
 
-def q4k_gemm_plain(x: torch.Tensor, qt: QTensor,
-                   out_dtype=torch.bfloat16) -> torch.Tensor:
-    """Kernel B's law in plain PyTorch (the centered law of
-    qmatmul_splith_pallas): w = bf16((q − t)·dl) with t = ml/dl, a bf16 dot
-    with f32 accumulation, and the residual ml − t·dl folded back through
-    the group sums of x."""
-    m, k = x.shape
-    n = qt.shape[0]
+def q4k_centered(qt: QTensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B's weights: (w = bf16((q − t)·dl) [N, K] with t = ml/dl, the
+    residual ml − t·dl [N, K/32] in f32)."""
     dl, ml = q4k_group_scales(qt)
     nz = dl != 0
     t = torch.where(nz, ml / torch.where(nz, dl, torch.ones_like(dl)),
                     torch.zeros_like(dl))
-    ml_res = ml - t * dl
     q = unpack_sb_halves(qt.q).to(torch.float32)
     w = ((q - t.repeat_interleave(32, 1)) * dl.repeat_interleave(32, 1)
-         ).to(torch.bfloat16).to(torch.float32)
-    acc = x.to(torch.bfloat16).to(torch.float32) @ w.T
+         ).to(torch.bfloat16)
+    return w, ml - t * dl
+
+
+def q4k_gemm_plain(x: torch.Tensor, qt: QTensor,
+                   out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Kernel B's law in plain PyTorch (the centered law of
+    qmatmul_splith_pallas): the centered bf16 weights in a dot with f32
+    accumulation, and the residual ml − t·dl folded back through the group
+    sums of x."""
+    m, k = x.shape
+    w, ml_res = q4k_centered(qt)
+    acc = x.to(torch.bfloat16).to(torch.float32) @ w.to(torch.float32).T
     xs = x.to(torch.float32).reshape(m, k // 32, 32).sum(-1)
     return (acc - xs @ ml_res.T).to(out_dtype)
+
+
+def q6k_gemv_plain(x: torch.Tensor, qt: QTensor,
+                   out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Kernel C's law in plain PyTorch (the Q6_K group law of
+    qmatmul_gp_pallas, `_gp_slice`): per 16-group P = x_bf16 · (q − 32),
+    out = Σ_g (d·sc)·P, all in f32."""
+    m, k = x.shape
+    n = qt.shape[0]
+    g = k // 16
+    xb = x.to(torch.bfloat16).to(torch.float32).reshape(m, g, 16)
+    q = qt.q.to(torch.float32).reshape(n, g, 16)
+    p = torch.einsum("mgk,ngk->mng", xb, q)  # [M, N, G]
+    return (q6k_group_scales(qt)[None] * p).sum(-1).to(out_dtype)
+
+
+def qgemm_plain(x: torch.Tensor, qt: QTensor,
+                out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Kernel D's law in plain PyTorch (qmatmul_pallas with dequant_tile):
+    each weight dequantised in f32 and rounded once to bf16 (uncentered for
+    Q4_K: bf16(q·dl − ml)), then a dot with bf16 x in f32."""
+    w = dequant(qt, torch.bfloat16).to(torch.float32)
+    return (x.to(torch.bfloat16).to(torch.float32) @ w.T).to(out_dtype)
 
 
 def q4k_gemv(x: torch.Tensor, qt: QTensor,
              out_dtype=torch.bfloat16) -> torch.Tensor:
     """Kernel A (replaces qmatmul_gp_pallas for Q4_K): M = 1..8."""
-    _check(x, qt, out_dtype)
-    if not 1 <= x.shape[0] <= GP_MAX_M:
-        raise ValueError(f"q4k_gemv takes M = 1..{GP_MAX_M}, got {x.shape[0]}")
-    if _on_cuda(x):
-        return _launch("q4k_gemv", x, qt, out_dtype)
-    if x.device.type != "cpu":
-        raise ValueError(f"q4k_gemv: unsupported device {x.device}")
-    return q4k_gemv_plain(x, qt, out_dtype)
+    _check(x, qt, out_dtype, GGMLType.Q4_K)
+    _check_gemv_m("q4k_gemv", x)
+    return _run("q4k_gemv", "q4k_gemv", q4k_gemv_plain, x, qt, out_dtype)
 
 
 def q4k_gemm(x: torch.Tensor, qt: QTensor,
              out_dtype=torch.bfloat16) -> torch.Tensor:
     """Kernel B (replaces qmatmul_splith_pallas for Q4_K): M > 8."""
-    _check(x, qt, out_dtype)
+    _check(x, qt, out_dtype, GGMLType.Q4_K)
     if x.shape[0] <= GP_MAX_M:
         raise ValueError(f"q4k_gemm takes M > {GP_MAX_M}, got {x.shape[0]}")
-    if _on_cuda(x):
-        return _launch("q4k_gemm", x, qt, out_dtype)
-    if x.device.type != "cpu":
-        raise ValueError(f"q4k_gemm: unsupported device {x.device}")
-    return q4k_gemm_plain(x, qt, out_dtype)
+    return _run("q4k_gemm", "q4k_gemm", q4k_gemm_plain, x, qt, out_dtype)
 
 
-def qmatmul_plain(x: torch.Tensor, qt: QTensor,
-                  out_dtype=torch.bfloat16) -> torch.Tensor:
-    """The path off the card (qmatmul_xla's role): dequant to bf16, then a
-    dot with f32 accumulation."""
-    w = dequant(qt, torch.bfloat16).to(torch.float32)
-    return (x.to(torch.bfloat16).to(torch.float32) @ w.T).to(out_dtype)
+def q6k_gemv(x: torch.Tensor, qt: QTensor,
+             out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Kernel C (replaces qmatmul_gp_pallas for Q6_K): M = 1..8."""
+    _check(x, qt, out_dtype, GGMLType.Q6_K)
+    _check_gemv_m("q6k_gemv", x)
+    return _run("q6k_gemv", "q6k_gemv", q6k_gemv_plain, x, qt, out_dtype)
+
+
+def qgemm(x: torch.Tensor, qt: QTensor,
+          out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Kernel D (replaces qmatmul_pallas for Q4_K and Q6_K): any M, any K
+    that holds whole superblocks."""
+    _check(x, qt, out_dtype, *_QGEMM_ENTRY)
+    return _run("qgemm", _QGEMM_ENTRY[qt.ggml_type], qgemm_plain, x, qt,
+                out_dtype)
+
+
+def kernel_for(m: int, qt: QTensor):
+    """The kernel wrapper the card runs for an [m, K] x and weight `qt`
+    (the JAX dispatcher's order: gp, then sh, then the generic kernel), or
+    None where no kernel is ported."""
+    if qt.ggml_type not in _QGEMM_ENTRY:
+        return None
+    if qt.shape[1] % MIN_K == 0:
+        if m <= GP_MAX_M:
+            return q4k_gemv if qt.ggml_type == GGMLType.Q4_K else q6k_gemv
+        if qt.ggml_type == GGMLType.Q4_K:
+            return q4k_gemm
+    return qgemm
 
 
 def matmul(x: torch.Tensor, w, out_dtype=torch.bfloat16) -> torch.Tensor:
     """Unified linear: `w` is a QTensor or a plain [N, K] tensor."""
     if isinstance(w, QTensor):
         if not _on_cuda(x):
-            return qmatmul_plain(x, w, out_dtype)
-        if w.ggml_type == GGMLType.Q4_K and w.shape[1] % MIN_K == 0:
-            xb = x.to(torch.bfloat16).contiguous()
-            if x.shape[0] <= GP_MAX_M:
-                return q4k_gemv(xb, w, out_dtype)
-            return q4k_gemm(xb, w, out_dtype)
-        raise NotImplementedError(
-            f"no CUDA kernel for {GGMLType(w.ggml_type).name} K={w.shape[1]}: "
-            "qmatmul_pallas (the generic fused dequant x matmul, "
-            "omni_tpu/kernels/dequant_matmul.py:103) is not ported yet")
+            return qgemm_plain(x, w, out_dtype)
+        kernel = kernel_for(x.shape[0], w)
+        if kernel is None:
+            raise NotImplementedError(
+                f"no CUDA kernel for {GGMLType(w.ggml_type).name}: "
+                "qmatmul_pallas (the generic fused dequant x matmul, "
+                "omni_tpu/kernels/dequant_matmul.py:103) is ported for Q4_K "
+                "and Q6_K only")
+        return kernel(x.to(torch.bfloat16).contiguous(), w, out_dtype)
     return (x.to(w.dtype).to(torch.float32) @ w.to(torch.float32).T
             ).to(out_dtype)

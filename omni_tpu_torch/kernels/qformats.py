@@ -1,4 +1,4 @@
-"""Quantized weight planes for the port.
+"""Quantized weight planes for the port, and the load policy.
 
 Counterpart of `omni_tpu/kernels/qformats.py`. The JAX package stores a
 weight W[N, K] K-major (planes [K', N]) because the TPU's sublane rules want
@@ -16,19 +16,30 @@ Q4_K planes (rows × K'):
 - d  f32  [N, K/256] super-scale
 - dm f32  [N, K/256] super-min-scale
 
-Other formats keep whatever planes the converter gives them; only Q4_K has
-a dequantiser and kernels in this slice.
+Q6_K planes:
+- q  int8 [N, K]     the 6-bit value q − 32, sign-extended, element order
+                     (8 bits where the file has 6.56: byte loads, no shifts)
+- sc int8 [N, K/16]  group scales
+- d  f32  [N, K/256] super-scale
+
+`repack` builds these planes from GGUF block bytes ON THE DEVICE, as torch
+ops on the uploaded blocks: a host pass over a 5 GB checkpoint would take
+minutes. Only Q4_K and Q6_K have planes, dequantisers and kernels in the
+port so far.
 """
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass, fields
 
+import numpy as np
 import torch
 
-from ..core.dtypes import QK_K, GGMLType
+from ..core.dtypes import QK_K, GGMLType, type_traits
 
 PLANES = ("q", "sc", "mn", "d", "dm", "qh")
+QUANTIZED = (GGMLType.Q4_K, GGMLType.Q6_K)
 
 
 @dataclass
@@ -53,6 +64,45 @@ class QTensor:
         return sum(a.numel() * a.element_size() for a in self.planes().values())
 
 
+def plane_specs(t: GGMLType, n: int, k: int) -> dict[str, tuple[tuple, torch.dtype]]:
+    """The planes of an [n, k] weight of type `t`: name -> (shape, dtype)."""
+    if t == GGMLType.Q4_K:
+        return {"q": ((n, k // 2), torch.uint8), "sc": ((n, k // 32), torch.int8),
+                "mn": ((n, k // 32), torch.int8),
+                "d": ((n, k // QK_K), torch.float32),
+                "dm": ((n, k // QK_K), torch.float32)}
+    if t == GGMLType.Q6_K:
+        return {"q": ((n, k), torch.int8), "sc": ((n, k // 16), torch.int8),
+                "d": ((n, k // QK_K), torch.float32)}
+    raise NotImplementedError(f"{GGMLType(t).name} has no planes in the port")
+
+
+def check_qtensor(qt: QTensor, *types: GGMLType) -> None:
+    """Raise ValueError unless `qt` is a well-formed QTensor of one of
+    `types`: K whole superblocks, every plane of its format contiguous with
+    the right shape and dtype, no other plane."""
+    if qt.ggml_type not in types:
+        raise ValueError(f"expected {' or '.join(t.name for t in types)}, "
+                         f"got {GGMLType(qt.ggml_type).name}")
+    n, k = qt.shape
+    if k % QK_K:
+        raise ValueError(f"{qt.ggml_type.name} K={k} is not a multiple of {QK_K}")
+    want = plane_specs(qt.ggml_type, n, k)
+    for nm in PLANES:
+        a = getattr(qt, nm)
+        if nm not in want:
+            if a is not None:
+                raise ValueError(f"{qt.ggml_type.name} has no plane {nm}")
+            continue
+        shape, dtype = want[nm]
+        if a is None or tuple(a.shape) != shape or a.dtype != dtype:
+            raise ValueError(f"{qt.ggml_type.name} plane {nm}: want {shape} "
+                             f"{dtype}, got "
+                             f"{None if a is None else (tuple(a.shape), a.dtype)}")
+        if not a.is_contiguous():
+            raise ValueError(f"{qt.ggml_type.name} plane {nm} is not contiguous")
+
+
 def _expand(a: torch.Tensor, r: int) -> torch.Tensor:
     """[N, G] -> [N, G*r], each column repeated r times."""
     return a.repeat_interleave(r, dim=1)
@@ -74,23 +124,33 @@ def q4k_group_scales(qt: QTensor) -> tuple[torch.Tensor, torch.Tensor]:
     return dl, ml
 
 
+def q6k_group_scales(qt: QTensor) -> torch.Tensor:
+    """Per-16-group dl = d·sc as f32 [N, K/16]."""
+    return _expand(qt.d, 16) * qt.sc.to(torch.float32)
+
+
 def dequant(qt: QTensor, dtype=torch.float32) -> torch.Tensor:
     """Full dequantization -> logical [N, K] (bit-exact with the reference
-    in f32)."""
-    if qt.ggml_type != GGMLType.Q4_K:
-        raise NotImplementedError(
-            f"dequant: {GGMLType(qt.ggml_type).name} is not ported yet")
-    q = unpack_sb_halves(qt.q).to(torch.float32)
-    dl, ml = q4k_group_scales(qt)
-    return (q * _expand(dl, 32) - _expand(ml, 32)).to(dtype)
+    in f32): the law of `dequant_tile`, rounded once to `dtype`."""
+    if qt.ggml_type == GGMLType.Q4_K:
+        q = unpack_sb_halves(qt.q).to(torch.float32)
+        dl, ml = q4k_group_scales(qt)
+        return (q * _expand(dl, 32) - _expand(ml, 32)).to(dtype)
+    if qt.ggml_type == GGMLType.Q6_K:
+        return (qt.q.to(torch.float32) * _expand(q6k_group_scales(qt), 16)
+                ).to(dtype)
+    raise NotImplementedError(
+        f"dequant: {GGMLType(qt.ggml_type).name} is not ported yet")
 
 
 def concat_qtensors(qts: list[QTensor]) -> QTensor:
     """Concatenate same-K QTensors along the output-feature axis (plane
-    rows) — fuses QKV and gate+up into one launch each."""
+    rows) — fuses QKV and gate+up into one launch each. Mixed formats are
+    refused, as the JAX package refuses them."""
     t, k = qts[0].ggml_type, qts[0].shape[1]
     if not all(q.ggml_type == t and q.shape[1] == k for q in qts):
-        raise ValueError("concat_qtensors: mixed formats or K")
+        raise ValueError("concat_qtensors: mixed formats or K: "
+                         + ", ".join(f"{q.ggml_type.name} {q.shape}" for q in qts))
     cat = {}
     for f in fields(QTensor):
         if f.name in PLANES:
@@ -99,21 +159,104 @@ def concat_qtensors(qts: list[QTensor]) -> QTensor:
     return QTensor(t, (sum(q.shape[0] for q in qts), k), **cat)
 
 
-def check_q4k(qt: QTensor) -> None:
-    """Raise unless `qt` is a well-formed Q4_K QTensor."""
-    if qt.ggml_type != GGMLType.Q4_K:
-        raise ValueError(f"expected Q4_K, got {GGMLType(qt.ggml_type).name}")
-    n, k = qt.shape
+# --------------------------------------------------------------------------
+# GGUF blocks -> planes, on the device
+# --------------------------------------------------------------------------
+
+def _f16_field(b: torch.Tensor, lo: int) -> torch.Tensor:
+    """Bytes [..., lo:lo+2] of each block, read as a little-endian f16, as
+    f32 [...]."""
+    return b[..., lo:lo + 2].contiguous().view(torch.float16)[..., 0].to(torch.float32)
+
+
+def repack(blocks: torch.Tensor, ggml_type: GGMLType,
+           shape: tuple[int, int]) -> QTensor:
+    """GGUF block bytes (uint8 [N·K/256, type_size], on any device) -> the
+    port's N-major planes on the same device. A pure permutation of the
+    bytes (scales unpacked to one byte each); the transpose of
+    `omni_tpu.kernels.qformats.repack`."""
+    t = GGMLType(ggml_type)
+    n, k = shape
+    if t not in QUANTIZED:
+        raise NotImplementedError(f"repack: {t.name} is not ported")
     if k % QK_K:
-        raise ValueError(f"Q4_K K={k} is not a multiple of {QK_K}")
-    want = {"q": ((n, k // 2), torch.uint8), "sc": ((n, k // 32), torch.int8),
-            "mn": ((n, k // 32), torch.int8),
-            "d": ((n, k // QK_K), torch.float32),
-            "dm": ((n, k // QK_K), torch.float32)}
-    for nm, (shape, dtype) in want.items():
-        a = getattr(qt, nm)
-        if a is None or tuple(a.shape) != shape or a.dtype != dtype:
-            raise ValueError(f"Q4_K plane {nm}: want {shape} {dtype}, got "
-                             f"{None if a is None else (tuple(a.shape), a.dtype)}")
-        if not a.is_contiguous():
-            raise ValueError(f"Q4_K plane {nm} is not contiguous")
+        raise ValueError(f"repack: K={k} is not a multiple of {QK_K}")
+    nsb = k // QK_K
+    b = blocks.reshape(n, nsb, type_traits(t).type_size)
+    if t == GGMLType.Q4_K:
+        s = b[..., 4:16]
+        a, bb, c = s[..., 0:4], s[..., 4:8], s[..., 8:12]
+        sc = torch.cat([a & 0x3F, (c & 0x0F) | ((a >> 2) & 0x30)], dim=-1)
+        mn = torch.cat([bb & 0x3F, (c >> 4) | ((bb >> 2) & 0x30)], dim=-1)
+        # 4 runs of 32 bytes: low nibbles are elements 64j..64j+31, high
+        # nibbles 64j+32..64j+63; then byte r = element r | element 128+r
+        qs = b[..., 16:].reshape(n, nsb, 4, 1, 32)
+        v = torch.cat([qs & 0xF, qs >> 4], dim=3).reshape(n, nsb, 2, 128)
+        q = (v[:, :, 0] | (v[:, :, 1] << 4)).reshape(n, k // 2)
+        return QTensor(t, (n, k), q=q,
+                       sc=sc.to(torch.int8).reshape(n, nsb * 8),
+                       mn=mn.to(torch.int8).reshape(n, nsb * 8),
+                       d=_f16_field(b, 0), dm=_f16_field(b, 2))
+    # Q6_K: per 128-element half, ql bytes 0..63 give groups 0, 1 (low
+    # nibbles) and 2, 3 (high nibbles); qh byte l gives group j's two high
+    # bits at shift 2j
+    ql = b[..., :128].reshape(n, nsb, 2, 1, 64)
+    lo = torch.cat([ql & 0xF, ql >> 4], dim=3).reshape(n, nsb, 2, 128)
+    qh = b[..., 128:192].reshape(n, nsb, 2, 1, 32)
+    sh = torch.tensor([0, 2, 4, 6], dtype=torch.uint8,
+                      device=b.device).reshape(1, 1, 1, 4, 1)
+    hi = ((qh >> sh) & 3).reshape(n, nsb, 2, 128)
+    q = ((lo | (hi << 4)).to(torch.int8) - 32).reshape(n, k)
+    sc = b[..., 192:208].contiguous().view(torch.int8).reshape(n, nsb * 16)
+    return QTensor(t, (n, k), q=q, sc=sc, mn=None, d=_f16_field(b, 208),
+                   dm=None)
+
+
+def upload(a: np.ndarray, device) -> torch.Tensor:
+    """A copy of numpy array `a` (a read-only mmap view is fine) on
+    `device`."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*not writable.*")
+        t = torch.from_numpy(a)
+    return t.to(device, copy=True)
+
+
+def _widen(a: np.ndarray, t: GGMLType, device) -> torch.Tensor:
+    """Plain F32/F16/BF16 data -> f32 on `device` (widened there)."""
+    if t == GGMLType.BF16:
+        return upload(a.view(np.int16), device).view(torch.bfloat16).to(torch.float32)
+    if t in (GGMLType.F32, GGMLType.F16):
+        return upload(a, device).to(torch.float32)
+    raise NotImplementedError(f"load_quantized: {t.name} tensors are not ported")
+
+
+def load_quantized(blocks: np.ndarray, ggml_type: GGMLType,
+                   shape: tuple[int, ...], keep_quantized: bool = True,
+                   device=None):
+    """The JAX package's load policy (`load_quantized`), for the formats the
+    port has:
+    - a 2-D Q4_K or Q6_K tensor stays quantized (a QTensor on `device`),
+      unless keep_quantized=False: then it is dequantised there to bf16;
+    - F32, F16 and BF16 widen;
+    - 1-D tensors (norms, biases) become f32, 2-D dense ones bf16;
+    - every other format raises NotImplementedError naming it: the JAX
+      package keeps those quantized, so the port must not quietly widen
+      them."""
+    from .. import resolve_device
+
+    t = GGMLType(ggml_type)
+    device = resolve_device(device)
+    out_dtype = torch.float32 if len(shape) == 1 else torch.bfloat16
+    if not type_traits(t).is_quantized:
+        return _widen(np.asarray(blocks), t, device).reshape(shape).to(out_dtype)
+    if t not in QUANTIZED:
+        raise NotImplementedError(
+            f"load_quantized: {t.name} weights are not ported (only "
+            f"{', '.join(q.name for q in QUANTIZED)} are)")
+    if len(shape) not in (1, 2):
+        raise NotImplementedError(f"load_quantized: {len(shape)}-D {t.name} tensor")
+    n, k = (1, shape[0]) if len(shape) == 1 else shape
+    qt = repack(upload(np.asarray(blocks), device), t, (n, k))
+    if keep_quantized and len(shape) == 2:
+        return qt
+    return dequant(qt, out_dtype).reshape(shape)

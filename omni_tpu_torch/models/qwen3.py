@@ -4,12 +4,14 @@ q/k RMSNorm, NeoX RoPE, SwiGLU FFN, a separate or tied output head.
 
 The forward runs a flat ubatch of T tokens, each with its own position and
 sequence id, against the unified KV cell pool. Parameters are a dict of
-tensors and QTensors with the JAX package's names.
+tensors and QTensors with the JAX package's names; `load_params` reads them
+from a GGUF file.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 import torch.nn.functional as F
@@ -17,7 +19,7 @@ import torch.nn.functional as F
 from ..kernels.attention import mixed_attention
 from ..kernels.dequant_matmul import matmul
 from ..kernels.norms import rms_norm
-from ..kernels.qformats import QTensor, concat_qtensors
+from ..kernels.qformats import QTensor, concat_qtensors, load_quantized
 from ..kernels.rope import apply_rope
 from ..runtime.kv_cache import KVCache, primary_seq_bit, seq_bits_of
 
@@ -36,6 +38,67 @@ class Qwen3Config:
     rope_base: float = 1000000.0
     rms_eps: float = 1e-6
 
+    @staticmethod
+    def from_gguf(kv: dict[str, Any]) -> "Qwen3Config":
+        """The dense `qwen3` fields of a GGUF's metadata (the qwen3 branch
+        of omni_tpu's Qwen3Config.from_gguf). Raises NotImplementedError,
+        naming the architecture or the key, for anything the dense branch
+        does not run."""
+        arch = kv.get("general.architecture")
+        if arch != "qwen3":
+            raise NotImplementedError(
+                f"architecture {arch!r}: only the dense 'qwen3' is ported")
+        for key in _UNPORTED_KEYS:
+            v = kv.get(f"{arch}.{key}")
+            if isinstance(v, str):
+                on = v != "none"
+            elif hasattr(v, "__len__"):
+                on = any(float(e) for e in v)
+            else:
+                on = bool(v)
+            if on:
+                raise NotImplementedError(
+                    f"{arch}.{key} = {v!r}: the dense branch does not run it")
+
+        def g(key, default=None):
+            v = kv.get(f"{arch}.{key}", default)
+            if hasattr(v, "__len__") and not isinstance(v, str):
+                raise NotImplementedError(
+                    f"{arch}.{key}: per-layer values are not ported")
+            return v
+
+        d_model, n_heads = int(g("embedding_length")), int(g("attention.head_count"))
+        head_dim = int(g("attention.key_length", d_model // n_heads))
+        rope_dim = g("rope.dimension_count")
+        if rope_dim is not None and int(rope_dim) != head_dim:
+            raise NotImplementedError(
+                f"{arch}.rope.dimension_count = {rope_dim}: partial rotary "
+                "is not ported")
+        return Qwen3Config(
+            n_layers=int(g("block_count")), d_model=d_model, n_heads=n_heads,
+            n_kv_heads=int(g("attention.head_count_kv", n_heads)),
+            head_dim=head_dim, d_ff=int(g("feed_forward_length")),
+            n_vocab=(len(kv["tokenizer.ggml.tokens"])
+                     if "tokenizer.ggml.tokens" in kv else int(g("vocab_size"))),
+            rope_base=float(g("rope.freq_base", 10000.0)),
+            rms_eps=float(g("attention.layer_norm_rms_epsilon", 1e-6)))
+
+
+# metadata the JAX package reads into branches the port has not ported: MoE,
+# MLA, sliding windows, ALiBi, softcaps, rope scaling
+_UNPORTED_KEYS = (
+    "expert_count", "attention.kv_lora_rank", "attention.sliding_window",
+    "attention.max_alibi_bias", "attn_logit_softcapping",
+    "final_logit_softcapping", "rope.scaling.type", "rope.dimension_sections")
+
+# the tensors of one dense Qwen3 layer: GGUF name -> parameter name
+_LAYER_TENSORS = {
+    "attn_norm": "attn_norm", "attn_q": "wq", "attn_k": "wk", "attn_v": "wv",
+    "attn_output": "wo", "attn_q_norm": "q_norm", "attn_k_norm": "k_norm",
+    "ffn_norm": "ffn_norm", "ffn_gate": "w_gate", "ffn_up": "w_up",
+    "ffn_down": "w_down"}
+_OPTIONAL = ("q_norm", "k_norm")
+
 
 def fuse_layer(layer: dict) -> dict:
     """Fuse QKV and gate+up into single weights (one kernel launch each)."""
@@ -50,6 +113,44 @@ def fuse_layer(layer: dict) -> dict:
     for k in ("wq", "wk", "wv", "w_gate", "w_up"):
         del out[k]
     return out
+
+
+def load_params(reader, fuse: bool = False, device=None) -> dict:
+    """GGUF tensors -> the dense Qwen3 parameter dict on `device` (the
+    dense subset of omni_tpu's `qwen3.load_params`): Q4_K and Q6_K weights
+    stay quantized, the token embedding is dequantised to dense bf16 (as
+    keep_q=False does), norms are f32, and `output` is None when the head
+    is tied to the embedding. Raises NotImplementedError for a tensor the
+    dense branch would not read. fuse=True merges QKV and gate+up, which
+    needs one format per group: on a Q4_K_M layer (Q4_K wq, Q6_K wv) it
+    raises, as the JAX package's does."""
+    from .. import resolve_device
+
+    device = resolve_device(device)
+    n_layers = int(reader.kv[f"{reader.kv['general.architecture']}.block_count"])
+    read = {"token_embd.weight", "output_norm.weight", "output.weight"} | {
+        f"blk.{i}.{gg}.weight" for i in range(n_layers) for gg in _LAYER_TENSORS}
+    extra = sorted(set(reader.tensors) - read)
+    if extra:
+        raise NotImplementedError(
+            f"tensors the dense qwen3 branch does not read: {extra[:8]}")
+
+    def get(name: str, keep_q: bool = True, required: bool = True):
+        ti = reader.tensors.get(name)
+        if ti is None:
+            if required:
+                raise KeyError(f"missing tensor {name}")
+            return None
+        return load_quantized(ti.data, ti.ggml_type, ti.shape, keep_q, device)
+
+    params = {"token_embd": get("token_embd.weight", keep_q=False),
+              "output_norm": get("output_norm.weight"),
+              "output": get("output.weight", required=False), "layers": []}
+    for i in range(n_layers):
+        layer = {nm: get(f"blk.{i}.{gg}.weight", required=nm not in _OPTIONAL)
+                 for gg, nm in _LAYER_TENSORS.items()}
+        params["layers"].append(fuse_layer(layer) if fuse else layer)
+    return params
 
 
 def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:

@@ -1,17 +1,33 @@
-"""Synthetic full-size Qwen3 parameters (counterpart of
-omni_tpu/testing_synth.py): random but numerically tame Q4_K planes, made
-ON THE DEVICE from a `torch.Generator`, so no multi-GB host-to-device copy
-happens. The value ranges are the JAX package's: nibbles 0..255 per byte,
-sc 20..63, mn 0..39, d and dm uniform in [1e-5, 1.1e-4), a bf16 embedding
-uniform in [-0.02, 0.02). Dense decode speed does not depend on the
-values."""
+"""Synthetic full-size Qwen3 weights (counterpart of
+omni_tpu/testing_synth.py), made ON THE DEVICE from a `torch.Generator`, so
+no multi-GB host-to-device copy happens. Two forms:
+
+- `synth_qwen3_params`: an all-Q4_K parameter dict in the port's planes.
+  The value ranges are the JAX package's: nibbles 0..255 per byte,
+  sc 20..63, mn 0..39, d and dm uniform in [1e-5, 1.1e-4), a bf16 embedding
+  uniform in [-0.02, 0.02). It streams 4.49 GB per decode token, less than
+  a real Q4_K_M checkpoint (5.27 GB: its Q6_K tensors are larger).
+- `write_qwen3_gguf`: a GGUF file whose tensors take the types of a
+  quantization recipe (Q4_K_M: llama.cpp's rules, the port's copy of
+  `omni_tpu/cli/quantize.py`), with random block bytes: Q4_K in the ranges
+  above; Q6_K with its 6-bit values over their full signed range
+  (q - 32 in -32..31, as a real file's are), scales 20..63 and d uniform
+  in [5e-6, 5.5e-5), so that its weights have about the Q4_K weights' RMS
+  (0.027 against 0.025). The Q4_K weights in these ranges have a common
+  part (mean 0.017, 91 % positive); the Q6_K weights have none (mean
+  ~0), so a Q6_K output head gives logits of max ~11 where the all-Q4_K
+  model's reach ~110.
+
+Dense decode speed does not depend on the values."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .core.dtypes import GGMLType
-from .kernels.qformats import QTensor
+from .core.gguf import GGUFWriter
+from .kernels.qformats import QTensor, repack
 from .models.qwen3 import Qwen3Config, fuse_layer
 
 QWEN3_8B = Qwen3Config(
@@ -35,6 +51,140 @@ def synth_q4k(n: int, k: int, device, generator: torch.Generator) -> QTensor:
                    sc=ints(20, 64, (n, k // 32), torch.int8),
                    mn=ints(0, 40, (n, k // 32), torch.int8),
                    d=unif((n, k // 256)), dm=unif((n, k // 256)))
+
+
+def _unif_f16_bytes(nb: int, lo: float, hi: float, device,
+                    generator: torch.Generator) -> torch.Tensor:
+    """nb f16 values uniform in [lo, hi) as little-endian bytes [nb, 2]."""
+    v = torch.empty((nb, 1), dtype=torch.float32, device=device).uniform_(
+        lo, hi, generator=generator)
+    return v.to(torch.float16).view(torch.uint8)
+
+
+def _ints(lo: int, hi: int, shape, device, generator) -> torch.Tensor:
+    return torch.randint(lo, hi, shape, dtype=torch.uint8, device=device,
+                         generator=generator)
+
+
+def q4k_blocks(nb: int, device, generator: torch.Generator) -> torch.Tensor:
+    """nb random Q4_K blocks [nb, 144]: d, dmin, the 6-bit scales and mins
+    packed as ggml packs them (get_scale_min_k4's inverse), nibbles."""
+    sc = _ints(20, 64, (nb, 8), device, generator)
+    mn = _ints(0, 40, (nb, 8), device, generator)
+    a = sc[:, :4] | ((sc[:, 4:] >> 4) << 6)
+    bb = mn[:, :4] | ((mn[:, 4:] >> 4) << 6)
+    c = (sc[:, 4:] & 0x0F) | ((mn[:, 4:] & 0x0F) << 4)
+    return torch.cat([_unif_f16_bytes(nb, 1e-5, 1.1e-4, device, generator),
+                      _unif_f16_bytes(nb, 1e-5, 1.1e-4, device, generator),
+                      a, bb, c, _ints(0, 256, (nb, 128), device, generator)],
+                     dim=1)
+
+
+def q6k_blocks(nb: int, device, generator: torch.Generator) -> torch.Tensor:
+    """nb random Q6_K blocks [nb, 210]: low nibbles, high bits (values
+    q - 32 over -32..31), int8 scales 20..63, d in [5e-6, 5.5e-5)."""
+    return torch.cat([_ints(0, 256, (nb, 192), device, generator),
+                      _ints(20, 64, (nb, 16), device, generator),
+                      _unif_f16_bytes(nb, 5e-6, 5.5e-5, device, generator)],
+                     dim=1)
+
+
+def synth_q6k(n: int, k: int, device, generator: torch.Generator) -> QTensor:
+    """Random Q6_K QTensor [n, k] in the port's layout (random blocks,
+    repacked where they were made)."""
+    return repack(q6k_blocks(n * k // 256, device, generator), GGMLType.Q6_K,
+                  (n, k))
+
+
+# ---- quantization recipes: the port's copy of omni_tpu/cli/quantize.py ----
+
+def use_more_bits(i_layer: int, n_layers: int) -> bool:
+    """llama-quant.cpp:185: the layers whose attn_v and ffn_down Q4_K_M
+    promotes to Q6_K."""
+    return (i_layer < n_layers // 8 or i_layer >= 7 * n_layers // 8
+            or (i_layer - n_layers // 8) % 3 == 2)
+
+
+# recipe -> its default type
+RECIPES = {"Q4_K_M": GGMLType.Q4_K}
+
+
+def pick_type(name: str, ftype: str, default: GGMLType,
+              n_layers: int) -> GGMLType:
+    """Per-tensor type rules (the Q4_K_M schedule): the output head is
+    Q6_K, the token embedding keeps the default, and Q4_K_M promotes
+    attn_v and ffn_down on the use_more_bits layers."""
+    i_layer = int(name.split(".")[1]) if name.startswith("blk.") else -1
+    if name == "output.weight":
+        return GGMLType.Q6_K
+    if name == "token_embd.weight":
+        return default
+    if ftype == "Q4_K_M" and i_layer >= 0:
+        if ((".attn_v.weight" in name or ".ffn_down.weight" in name)
+                and use_more_bits(i_layer, n_layers)):
+            return GGMLType.Q6_K
+    return default
+
+
+def write_qwen3_gguf(path, cfg: Qwen3Config, recipe: str,
+                     generator: torch.Generator) -> dict[str, GGMLType]:
+    """Write a random `qwen3` GGUF of `cfg` (separate output head) whose
+    2-D tensors take the types of `recipe`; norms are F32 ones. The block
+    bytes are made on `generator`'s device, one tensor at a time, and
+    streamed to the file. Returns {tensor name: type}."""
+    default = RECIPES[recipe]
+    device = generator.device
+    arch = "qwen3"
+    w = GGUFWriter(path)
+    for key, v in (("block_count", cfg.n_layers),
+                   ("context_length", 40960),
+                   ("embedding_length", cfg.d_model),
+                   ("feed_forward_length", cfg.d_ff),
+                   ("attention.head_count", cfg.n_heads),
+                   ("attention.head_count_kv", cfg.n_kv_heads),
+                   ("attention.key_length", cfg.head_dim),
+                   ("attention.value_length", cfg.head_dim),
+                   ("attention.layer_norm_rms_epsilon", float(cfg.rms_eps)),
+                   ("rope.freq_base", float(cfg.rope_base))):
+        w.add_kv(f"{arch}.{key}", v)
+    w.add_kv("general.architecture", arch)
+    w.add_kv("tokenizer.ggml.model", "gpt2")
+    w.add_kv("tokenizer.ggml.tokens", [f"<t{i}>" for i in range(cfg.n_vocab)])
+    types = {}
+
+    def blocks(t: GGMLType, nb: int) -> np.ndarray:
+        if t == GGMLType.Q4_K:
+            return q4k_blocks(nb, device, generator).cpu().numpy()
+        return q6k_blocks(nb, device, generator).cpu().numpy()
+
+    def quant(name: str, n: int, k: int) -> None:
+        t = types[name] = pick_type(name, recipe, default, cfg.n_layers)
+        w.add_tensor(name, lambda: blocks(t, n * k // 256), t, (n, k))
+
+    def norm(name: str, n: int) -> None:
+        types[name] = GGMLType.F32
+        w.add_tensor(name, np.ones(n, np.float32))
+
+    d, ff = cfg.d_model, cfg.d_ff
+    qd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    quant("token_embd.weight", cfg.n_vocab, d)
+    norm("output_norm.weight", d)
+    quant("output.weight", cfg.n_vocab, d)
+    for i in range(cfg.n_layers):
+        p = f"blk.{i}."
+        norm(p + "attn_norm.weight", d)
+        quant(p + "attn_q.weight", qd, d)
+        quant(p + "attn_k.weight", kvd, d)
+        quant(p + "attn_v.weight", kvd, d)
+        quant(p + "attn_output.weight", d, qd)
+        norm(p + "attn_q_norm.weight", cfg.head_dim)
+        norm(p + "attn_k_norm.weight", cfg.head_dim)
+        norm(p + "ffn_norm.weight", d)
+        quant(p + "ffn_gate.weight", ff, d)
+        quant(p + "ffn_up.weight", ff, d)
+        quant(p + "ffn_down.weight", d, ff)
+    w.write()
+    return types
 
 
 def synth_qwen3_params(cfg: Qwen3Config = QWEN3_8B, device=None,

@@ -13,7 +13,9 @@ from chip_smoke import limit_ratio
 from omni_tpu_torch.kernels import dequant_matmul as dm
 from omni_tpu_torch.models import qwen3
 from omni_tpu_torch.runtime import Batch, Context, SamplerParams
-from omni_tpu_torch.testing_synth import synth_q4k, synth_qwen3_params
+from omni_tpu_torch.core.gguf import GGUFReader
+from omni_tpu_torch.testing_synth import (synth_q4k, synth_q6k,
+                                          synth_qwen3_params, write_qwen3_gguf)
 
 
 @pytest.fixture
@@ -23,15 +25,24 @@ def card():
     return torch.device("cuda")
 
 
+CASES = [("q4k_gemv", synth_q4k, 1, 6144), ("q4k_gemv", synth_q4k, 8, 6144),
+         ("q4k_gemm", synth_q4k, 9, 6144), ("q4k_gemm", synth_q4k, 130, 6144),
+         ("q6k_gemv", synth_q6k, 1, 6144), ("q6k_gemv", synth_q6k, 8, 6144),
+         ("qgemm", synth_q6k, 1, 6144), ("qgemm", synth_q6k, 130, 6144),
+         ("qgemm", synth_q4k, 3, 1280), ("qgemm", synth_q4k, 64, 1280)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel,m", [("q4k_gemv", 1), ("q4k_gemv", 8),
-                                      ("q4k_gemm", 9), ("q4k_gemm", 130)])
-def test_cuda_kernel_matches_plain(card, kernel, m):
-    """Each kernel against its plain version on a ragged N (1000 rows),
-    K = 6144 and both output dtypes; each launch is counted once."""
+@pytest.mark.parametrize("kernel,synth,m,k", CASES,
+                         ids=[f"{c[0]}-{c[1].__name__[-3:]}-m{c[2]}-k{c[3]}"
+                              for c in CASES])
+def test_cuda_kernel_matches_plain(card, kernel, synth, m, k):
+    """Each kernel against its plain version on a ragged N (1000 rows), at
+    a K of whole superblocks and both output dtypes; each launch is counted
+    once."""
     gen = torch.Generator(device=card).manual_seed(m)
-    qt = synth_q4k(1000, 6144, card, gen)
-    x = torch.randn((m, 6144), device=card, generator=gen).to(torch.bfloat16)
+    qt = synth(1000, k, card, gen)
+    x = torch.randn((m, k), device=card, generator=gen).to(torch.bfloat16)
     wrapper = getattr(dm, kernel)
     plain = getattr(dm, kernel + "_plain")
     for out_dtype in (torch.bfloat16, torch.float32):
@@ -64,4 +75,30 @@ def test_cuda_forward_goes_through_both_kernels(card):
         logits = logits[0]
         assert torch.isfinite(logits).all()
     per_step = 4 * cfg.n_layers + 1
-    assert dm.launches == {"q4k_gemm": per_step, "q4k_gemv": 3 * per_step}
+    assert dm.launches == {"q4k_gemm": per_step, "q4k_gemv": 3 * per_step,
+                           "q6k_gemv": 0, "qgemm": 0}
+
+
+@pytest.mark.cuda
+def test_cuda_q4km_gguf_goes_through_all_four_kernels(card, tmp_path):
+    """A small Q4_K_M Qwen3 (K multiples of 2048) written and loaded as a
+    GGUF prefills and decodes on the card: Q4_K through kernels A and B,
+    Q6_K through C and D, with finite logits."""
+    cfg = qwen3.Qwen3Config(n_layers=8, d_model=2048, n_heads=16,
+                            n_kv_heads=4, head_dim=128, d_ff=4096,
+                            n_vocab=1000)
+    path = tmp_path / "q4km.gguf"
+    write_qwen3_gguf(path, cfg, "Q4_K_M", torch.Generator(device=card).manual_seed(0))
+    params = qwen3.load_params(GGUFReader(path), device=card)
+    ctx = Context(cfg, params, qwen3.forward, qwen3.embed, n_ctx=256,
+                  sampler=SamplerParams(greedy=True), device=card)
+    dm.reset_launches()
+    logits = ctx.prefill(list(range(20)))  # one ubatch of 32 rows: B and D
+    assert torch.isfinite(logits).all()
+    tok = int(torch.argmax(logits))
+    logits, _ = ctx.decode(Batch(tokens=[tok]))  # one token: A and C
+    assert torch.isfinite(logits).all()
+    # layers 0, 3, 6 and 7 of 8 have Q6_K attn_v and ffn_down, and the
+    # head is Q6_K: 9 Q6_K and 7 * 8 + 1 - 9 = 48 Q4_K weights
+    assert dm.launches == {"q4k_gemm": 48, "qgemm": 9, "q4k_gemv": 48,
+                           "q6k_gemv": 9}

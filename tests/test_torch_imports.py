@@ -115,8 +115,8 @@ def test_kernel_build_runs_nvcc_per_source_in_parallel(tmp_path):
     class FakeLib:
         def __init__(self, path):
             self.path = path
-            stem = Path(path).stem
-            setattr(self, stem, mock.Mock())
+            for entry in _build.SOURCES[Path(path).stem + ".cu"]:
+                setattr(self, entry, mock.Mock())
 
     _build.load.cache_clear()
     try:
@@ -124,19 +124,20 @@ def test_kernel_build_runs_nvcc_per_source_in_parallel(tmp_path):
                 mock.patch.object(_build, "nvcc", return_value="nvcc"), \
                 mock.patch.object(_build.subprocess, "Popen", FakeProc), \
                 mock.patch.object(_build.ctypes, "CDLL", FakeLib):
-            libs = _build.load()
+            fns = _build.load()
             want_dir = _build.build_dir()
     finally:
         _build.load.cache_clear()
-    assert len(started) == len(_build.SOURCES) == 2
+    assert len(started) == len(_build.SOURCES) == 4
     assert waited[0] == len(started)  # all started before the first wait
     for cmd in started:
         assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
     out_dirs = {Path(c[c.index("-o") + 1]).parent for c in started}
     assert out_dirs == {want_dir} and want_dir.parent == tmp_path
-    for stem, lib in libs.items():
-        fn = getattr(lib, stem)
+    assert sorted(fns) == ["q4k_gemm", "q4k_gemv", "q6k_gemv", "qgemm_q4k",
+                           "qgemm_q6k"]
+    for fn in fns.values():
         assert fn.argtypes[:7] == [ctypes.c_void_p] * 7
         assert fn.argtypes[-1] == ctypes.c_void_p and fn.restype == ctypes.c_int
     assert sorted(p.name for p in want_dir.iterdir()) == [
-        "q4k_gemm.so", "q4k_gemv.so"]
+        "q4k_gemm.so", "q4k_gemv.so", "q6k_gemv.so", "qgemm.so"]

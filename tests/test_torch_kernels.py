@@ -1,5 +1,5 @@
-"""The port's Q4_K weights and matmul kernels (omni_tpu_torch) against the
-JAX package on the same inputs.
+"""The port's Q4_K and Q6_K weights and matmul kernels (omni_tpu_torch)
+against the JAX package on the same inputs.
 
 Inputs come from numpy seeds and go through both packages; the JAX side
 runs its Pallas kernels in interpret mode, as tests/test_qkernels.py does.
@@ -19,10 +19,11 @@ from jax._src import compilation_cache
 from omni_tpu.core import GGMLType, quants
 from omni_tpu.kernels import dequant as jax_dequant
 from omni_tpu.kernels import qmatmul_xla, repack
-from omni_tpu.kernels.dequant_matmul import (qmatmul_gp_pallas,
+from omni_tpu.kernels.dequant_matmul import (qmatmul_gp_pallas, qmatmul_pallas,
                                              qmatmul_splith_pallas)
 from omni_tpu.kernels.qformats import concat_qtensors as jax_concat
 from omni_tpu_torch.convert import from_jax_params
+from omni_tpu_torch.core import quants as port_quants
 from omni_tpu_torch.core.quants import dequantize_q4k
 from omni_tpu_torch.kernels import dequant_matmul as dm
 from omni_tpu_torch.kernels import qformats
@@ -89,6 +90,47 @@ def test_concat_matches_jax():
                                   np.asarray(jax_dequant(jcat)))
 
 
+@pytest.mark.parametrize("n,k", [(16, 512), (24, 4096 + 2048), (7, 256)])
+def test_q6k_dequant_bit_exact(n, k):
+    """Q6_K: the port's numpy oracle and its torch dequant of the repacked
+    planes equal omni_tpu's block dequantiser bit for bit."""
+    jqt, pqt, blocks = _pair(n + k, qtype=GGMLType.Q6_K, n=n, k=k)
+    ref = quants.dequantize(blocks, GGMLType.Q6_K, (n, k))
+    np.testing.assert_array_equal(
+        port_quants.dequantize(blocks, GGMLType.Q6_K, (n, k)), ref)
+    np.testing.assert_array_equal(qformats.dequant(pqt).numpy(), ref)
+    np.testing.assert_array_equal(np.asarray(jax_dequant(jqt)), ref)
+
+
+@pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q6_K],
+                         ids=lambda t: t.name)
+@pytest.mark.parametrize("n,k", [(5, 256), (24, 4096 + 2048)])
+def test_repack_is_the_transpose_of_jax_repack(qtype, n, k):
+    """The port's torch repack of GGUF blocks gives the transposes of the
+    JAX package's planes, and dequantises to the reference bit for bit."""
+    jqt, _, blocks = _pair(3 * n + k, qtype=qtype, n=n, k=k)
+    pqt = qformats.repack(torch.from_numpy(blocks.copy()), qtype, (n, k))
+    qformats.check_qtensor(pqt, qtype)
+    assert set(pqt.planes()) == set(jqt.planes())
+    for nm, a in pqt.planes().items():
+        np.testing.assert_array_equal(a.numpy(), np.asarray(getattr(jqt, nm)).T)
+    np.testing.assert_array_equal(qformats.dequant(pqt).numpy(),
+                                  quants.dequantize(blocks, qtype, (n, k)))
+
+
+@pytest.mark.parametrize("qtype", [GGMLType.Q5_K, GGMLType.Q8_0, GGMLType.F32],
+                         ids=lambda t: t.name)
+def test_unported_formats_raise_naming_them(qtype):
+    blocks = np.zeros((1, 256), np.float32) if qtype == GGMLType.F32 else \
+        quants.quantize(np.zeros((1, 256), np.float32), qtype)
+    with pytest.raises(NotImplementedError, match=qtype.name):
+        qformats.repack(torch.from_numpy(np.asarray(blocks).view(np.uint8).copy()),
+                        qtype, (1, 256))
+    if qtype != GGMLType.F32:
+        with pytest.raises(NotImplementedError, match=qtype.name):
+            port_quants.dequantize(blocks, qtype)
+
+
 # the tolerances of tests/test_qkernels.py:82-87: both sides accumulate
 # bf16 products over K (up to 6144 here) in f32. The port's plain version
 # follows the same law as each Pallas kernel, so it is also held to a much
@@ -127,6 +169,40 @@ def test_plain_gemm_matches_splith_pallas(m, k):
     np.testing.assert_allclose(got, want, rtol=0, atol=ORDER_ATOL)
 
 
+@pytest.mark.parametrize("k", [2048, 4096], ids=lambda k: f"k{k}")
+@pytest.mark.parametrize("m", [1, 2, 3, 8], ids=lambda m: f"m{m}")
+def test_plain_q6k_gemv_matches_gp_pallas(m, k):
+    """Kernel C's plain law == qmatmul_gp_pallas (interpret) for Q6_K on a
+    ragged N."""
+    jqt, pqt, _ = _pair(10 * m + k + 1, qtype=GGMLType.Q6_K, k=k)
+    x = _x(m + 7, m, k)
+    want = np.asarray(qmatmul_gp_pallas(jnp.asarray(x), jqt, block_n=16,
+                                        out_dtype=jnp.float32,
+                                        interpret=True))
+    got = dm.q6k_gemv(torch.from_numpy(x).to(torch.bfloat16), pqt,
+                      torch.float32).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got, want, rtol=0, atol=ORDER_ATOL)
+
+
+@pytest.mark.parametrize("k", [1280, 2048], ids=lambda k: f"k{k}")
+@pytest.mark.parametrize("m", [1, 16, 64], ids=lambda m: f"m{m}")
+@pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q6_K],
+                         ids=lambda t: t.name)
+def test_plain_qgemm_matches_qmatmul_pallas(qtype, m, k):
+    """Kernel D's plain law (uncentered for Q4_K) == qmatmul_pallas
+    (interpret) on a ragged N."""
+    jqt, pqt, _ = _pair(10 * m + k + 2, qtype=qtype, k=k)
+    x = _x(m + 11, m, k)
+    want = np.asarray(qmatmul_pallas(jnp.asarray(x), jqt, block_m=64,
+                                     block_n=16, out_dtype=jnp.float32,
+                                     interpret=True))
+    got = dm.qgemm(torch.from_numpy(x).to(torch.bfloat16), pqt,
+                   torch.float32).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got, want, rtol=0, atol=ORDER_ATOL)
+
+
 @pytest.mark.parametrize("m", [1, 4, 48], ids=lambda m: f"m{m}")
 def test_qmatmul_plain_matches_xla(m):
     """The dispatcher's path off the card (qmatmul_plain) == qmatmul_xla:
@@ -155,15 +231,38 @@ def test_chip_smoke_limit_catches_a_dropped_min_term(n, k):
     assert limit_ratio(no_min, want) > 1.0
 
 
+@pytest.mark.parametrize("name,qtype,m", [
+    ("q4k_gemv", GGMLType.Q4_K, 3), ("q4k_gemm", GGMLType.Q4_K, 16),
+    ("q6k_gemv", GGMLType.Q6_K, 3), ("qgemm", GGMLType.Q6_K, 16),
+    ("qgemm", GGMLType.Q4_K, 16)], ids=lambda v: getattr(v, "name", str(v)))
+def test_chip_smoke_f64_law_is_the_kernels_law(name, qtype, m):
+    """chip_smoke.py's law_f64, the reference of its Q4_K_M teacher-forced
+    check, evaluates each kernel's own law: in f32 it equals the plain
+    version to f32 summation noise, and rounded to bf16 it is within the
+    kernel-vs-plain limit."""
+    from chip_smoke import law_f64, limit_ratio
+
+    _, pqt, _ = _pair(m + 7, qtype=qtype, n=40, k=2048)
+    x = torch.from_numpy(_x(m, m, 2048)).to(torch.bfloat16)
+    plain = getattr(dm, name + "_plain")
+    want = plain(x, pqt, torch.float32)
+    got = law_f64(name, x, pqt, torch.float32)
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    assert limit_ratio(law_f64(name, x, pqt, torch.bfloat16).float(),
+                       plain(x, pqt).float()) <= 1.0
+
+
 def test_cpu_dispatch_launches_no_kernel():
-    _, pqt, _ = _pair(0, k=2048)
     dm.reset_launches()
-    for m in (1, 16):
-        dm.matmul(torch.from_numpy(_x(m, m, 2048)), pqt)
-    assert dm.launches == {"q4k_gemv": 0, "q4k_gemm": 0}
+    for qtype in (GGMLType.Q4_K, GGMLType.Q6_K):
+        _, pqt, _ = _pair(0, qtype=qtype, k=2048)
+        for m in (1, 16):
+            dm.matmul(torch.from_numpy(_x(m, m, 2048)), pqt)
+    assert dm.launches == {"q4k_gemv": 0, "q4k_gemm": 0, "q6k_gemv": 0,
+                           "qgemm": 0}
 
 
-@pytest.mark.parametrize("qtype", [GGMLType.Q6_K, GGMLType.Q8_0],
+@pytest.mark.parametrize("qtype", [GGMLType.Q5_K, GGMLType.Q8_0],
                          ids=lambda t: t.name)
 def test_cuda_path_raises_for_unported_formats(qtype):
     """On the card a format without a ported kernel raises, naming the TPU
@@ -177,36 +276,87 @@ def test_cuda_path_raises_for_unported_formats(qtype):
             with pytest.raises(ValueError, match="Q4_K"):
                 wrapper(torch.from_numpy(_x(0, m, 2048)).to(torch.bfloat16),
                         pqt)
+        for wrapper in (dm.q6k_gemv, dm.qgemm):
+            with pytest.raises(ValueError, match="Q6_K"):
+                wrapper(torch.from_numpy(_x(0, 1, 2048)).to(torch.bfloat16),
+                        pqt)
+
+
+def _routed(pqt, m):
+    """The (kernel, C entry point) the card path launches for [m, K] x."""
+    seen = []
+
+    def launch(name, entry, x, qt, out_dtype):
+        seen.append((name, entry))
+        assert x.dtype == torch.bfloat16 and qt is pqt
+        return torch.zeros((x.shape[0], qt.shape[0]), dtype=out_dtype)
+
+    with mock.patch.object(dm, "_on_cuda", return_value=True), \
+            mock.patch.object(dm, "_launch", launch):
+        dm.matmul(torch.from_numpy(_x(0, m, pqt.shape[1])), pqt)
+    assert len(seen) == 1
+    return seen[0]
 
 
 def test_cuda_path_raises_for_small_k():
-    """K % 2048 != 0 has no kernel (the TPU kernels' plane granule)."""
+    """K % 2048 != 0 has no A or B kernel (the TPU kernels' plane granule):
+    a Q4_K weight at K = 512 goes to kernel D at every M."""
     _, pqt, _ = _pair(2, k=512)
-    with mock.patch.object(dm, "_on_cuda", return_value=True):
-        with pytest.raises(NotImplementedError, match="qmatmul_pallas"):
-            dm.matmul(torch.from_numpy(_x(0, 1, 512)), pqt)
+    for m in (1, 8, 9, 64):
+        assert _routed(pqt, m) == ("qgemm", "qgemm_q4k")
 
 
-def test_cuda_wrapper_launches_or_raises():
-    """A Q4_K weight on the card path goes to the kernel launcher: where
-    the kernel cannot be built (no nvcc here) the call raises rather than
-    running the plain version, and no launch is counted."""
-    _, pqt, _ = _pair(4, k=2048)
+# the JAX dispatcher's order (dequant_matmul.py:665-672): gp (M <= 8,
+# K % 2048), then sh (M > 8, Q4_K, K % 2048), then the generic kernel
+ROUTES = [
+    (GGMLType.Q4_K, 1, 2048, ("q4k_gemv", "q4k_gemv")),
+    (GGMLType.Q4_K, 8, 4096, ("q4k_gemv", "q4k_gemv")),
+    (GGMLType.Q4_K, 9, 2048, ("q4k_gemm", "q4k_gemm")),
+    (GGMLType.Q4_K, 64, 6144, ("q4k_gemm", "q4k_gemm")),
+    (GGMLType.Q4_K, 1, 1280, ("qgemm", "qgemm_q4k")),
+    (GGMLType.Q4_K, 64, 1280, ("qgemm", "qgemm_q4k")),
+    (GGMLType.Q6_K, 1, 2048, ("q6k_gemv", "q6k_gemv")),
+    (GGMLType.Q6_K, 8, 4096, ("q6k_gemv", "q6k_gemv")),
+    (GGMLType.Q6_K, 9, 2048, ("qgemm", "qgemm_q6k")),
+    (GGMLType.Q6_K, 256, 4096, ("qgemm", "qgemm_q6k")),
+    (GGMLType.Q6_K, 1, 256, ("qgemm", "qgemm_q6k")),
+    (GGMLType.Q6_K, 3, 1280, ("qgemm", "qgemm_q6k")),
+]
+
+
+@pytest.mark.parametrize("qtype,m,k,want", ROUTES,
+                         ids=[f"{t.name}-m{m}-k{k}" for t, m, k, _ in ROUTES])
+def test_dispatch_routing_on_a_mocked_card(qtype, m, k, want):
+    _, pqt, _ = _pair(m + k, qtype=qtype, n=8, k=k)
+    assert _routed(pqt, m) == want
+
+
+@pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q6_K],
+                         ids=lambda t: t.name)
+def test_cuda_wrapper_launches_or_raises(qtype):
+    """A Q4_K or Q6_K weight on the card path goes to a kernel launcher:
+    where the kernel cannot be built (no nvcc here) the call raises rather
+    than running the plain version, and no launch is counted."""
     dm.reset_launches()
+    plains = ("q4k_gemv_plain", "q4k_gemm_plain", "q6k_gemv_plain",
+              "qgemm_plain")
     with mock.patch.object(dm, "_on_cuda", return_value=True), \
             mock.patch("omni_tpu_torch.kernels._build.load",
                        side_effect=RuntimeError("nvcc not found")), \
-            mock.patch.object(dm, "q4k_gemv_plain") as plain_a, \
-            mock.patch.object(dm, "q4k_gemm_plain") as plain_b:
-        for m in (1, 16):
-            with pytest.raises(RuntimeError, match="nvcc"):
-                dm.matmul(torch.from_numpy(_x(0, m, 2048)), pqt)
-    assert not plain_a.called and not plain_b.called
-    assert dm.launches == {"q4k_gemv": 0, "q4k_gemm": 0}
+            mock.patch.multiple(dm, **{p: mock.DEFAULT for p in plains}) as mocks:
+        for k in (2048, 1280):
+            _, pqt, _ = _pair(4, qtype=qtype, k=k)
+            for m in (1, 16):
+                with pytest.raises(RuntimeError, match="nvcc"):
+                    dm.matmul(torch.from_numpy(_x(0, m, k)), pqt)
+    assert not any(p.called for p in mocks.values())
+    assert dm.launches == {"q4k_gemv": 0, "q4k_gemm": 0, "q6k_gemv": 0,
+                           "qgemm": 0}
 
 
 @pytest.mark.parametrize("case", ["m_too_big", "m_too_small", "k_mismatch",
-                                  "out_dtype", "bad_plane"])
+                                  "out_dtype", "bad_plane", "q6k_m_too_big",
+                                  "q6k_bad_plane", "qgemm_extra_plane"])
 def test_wrapper_argument_checks(case):
     _, pqt, _ = _pair(5, k=2048)
     x1 = torch.zeros((1, 2048), dtype=torch.bfloat16)
@@ -219,6 +369,16 @@ def test_wrapper_argument_checks(case):
             dm.q4k_gemv(torch.zeros((1, 1024), dtype=torch.bfloat16), pqt)
         elif case == "out_dtype":
             dm.q4k_gemv(x1, pqt, torch.float16)
+        elif case.startswith(("q6k", "qgemm")):
+            _, q6, _ = _pair(5, qtype=GGMLType.Q6_K, k=2048)
+            if case == "q6k_m_too_big":
+                dm.q6k_gemv(torch.zeros((9, 2048), dtype=torch.bfloat16), q6)
+            elif case == "q6k_bad_plane":
+                q6.sc = q6.sc[:, :-1].contiguous()
+                dm.q6k_gemv(x1, q6)
+            else:
+                q6.mn = q6.sc
+                dm.qgemm(x1, q6)
         else:
             pqt.sc = pqt.sc[:, :-1]
             dm.q4k_gemv(x1, pqt)

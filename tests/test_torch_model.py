@@ -22,6 +22,7 @@ from omni_tpu.kernels.rope import apply_rope as jax_apply_rope
 from omni_tpu.models import qwen3 as jq
 from omni_tpu.omni.pipeline import OmniPipeline as JaxPipeline
 from omni_tpu.omni.pipeline import SessionConfig as JaxSessionConfig
+from omni_tpu.runtime import Batch as JaxBatch
 from omni_tpu.runtime import Context as JaxContext
 from omni_tpu.runtime import SamplerParams as JaxSamplerParams
 from omni_tpu.runtime.kv_cache import KVCache as JaxKVCache
@@ -34,8 +35,10 @@ from omni_tpu_torch.kernels.norms import rms_norm
 from omni_tpu_torch.kernels.qformats import QTensor
 from omni_tpu_torch.kernels.rope import apply_rope
 from omni_tpu_torch.models import qwen3 as tq
-from omni_tpu_torch.omni.pipeline import OmniPipeline, SessionConfig
-from omni_tpu_torch.runtime import Context, KVCache, SamplerParams
+from omni_tpu_torch.omni.pipeline import (SIMPLEX_ASSISTANT_PROMPT,
+                                          SIMPLEX_TURN_END, OmniPipeline,
+                                          SessionConfig)
+from omni_tpu_torch.runtime import Batch, Context, KVCache, SamplerParams
 from omni_tpu_torch.runtime.sampler import sample
 from omni_tpu_torch.testing_synth import synth_qwen3_params
 
@@ -311,6 +314,105 @@ def test_greedy_turn_token_identical(tiny):
     assert sum(len(e["content"].split()) for e in got) >= 10
     assert got == want
     assert tctx.n_past == jctx.n_past and tctx.cells_used == jctx.cells_used
+
+
+# the JAX package serves through jitted steps, and XLA's fused compile of
+# the forward moves its logits by up to ~0.05 against its own op-by-op
+# forward (measured 0.042 on the first prefill of the fixture below, where
+# the port and the op-by-op forward agree to 1.2e-6); over two turns the
+# port stays within 0.052 of the jitted steps
+JIT_LOGITS_ATOL = 0.1
+SYSTEM_PROMPT = "you are a tiny test model"
+
+
+def _turn_tokens(events):
+    """Each turn's fed tokens, from the events of a pipeline whose text
+    filter passes every token."""
+    turns, cur = [], []
+    for e in events:
+        cur += [int(t) for t in e["content"].split()]
+        if e.get("stop"):
+            turns.append(cur)
+            cur = []
+    return turns
+
+
+def test_second_turn_divergence_is_a_rounding_flip(tiny):
+    """A second greedy turn of the port departs from omni_tpu's where
+    omni_tpu's top-2 margin is smaller than the logit noise between the
+    two: a rounding flip, not a fault.
+
+    Both pipelines serve two 16-token turns. Then both contexts are fed
+    omni_tpu's own token stream (teacher-forced, the pipeline's feed order)
+    and their logits compared row by row: they agree within JIT_LOGITS_ATOL,
+    and at the first token where the free-running turns differ (the 4th of
+    the second turn on this fixture), omni_tpu's margin between its top two
+    logits is below the logit difference measured there. The first prefill
+    also goes through omni_tpu's forward op by op, which the port matches to
+    1e-4: the noise is the jitted compile's, not the port's."""
+    jcfg, jparams, tcfg, tparams = tiny
+    pass_all = mock.patch.object(JaxPipeline, "is_valid_tts_token",
+                                 lambda self, t: True)
+    with pass_all, mock.patch.object(OmniPipeline, "is_valid_tts_token",
+                                     lambda self, t: True):
+        jctx = JaxContext(jcfg, jparams, jq.forward, jq.embed, n_ctx=512,
+                          sampler=JaxSamplerParams(greedy=True))
+        jpipe = JaxPipeline(llm=jctx, tokenizer=WordTokenizer(),
+                            config=JaxSessionConfig(duplex=False, use_tts=False,
+                                                    max_preserved_context=512))
+        try:
+            want = _turn_tokens(_serve(jpipe, 2))
+        finally:
+            jpipe.shutdown()
+        tpipe = OmniPipeline(
+            Context(tcfg, tparams, tq.forward, tq.embed, n_ctx=512,
+                    sampler=SamplerParams(greedy=True), device="cpu"),
+            WordTokenizer(), SessionConfig(max_preserved_context=512))
+        got = _turn_tokens(_serve(tpipe, 2))
+    assert len(want) == len(got) == 2 and got[0] == want[0]
+
+    tok = WordTokenizer()
+    feeds = [tok.encode("<|im_start|>system\n" + SYSTEM_PROMPT
+                        + "\n<|audio_start|>"),
+             tok.encode("<|audio_end|><|im_end|>\n<|im_start|>user\n")]
+    rows = {}  # (turn, index) -> feed whose last logits sample that token
+    for r, turn in enumerate(want):
+        feeds.append(tok.encode(SIMPLEX_ASSISTANT_PROMPT))
+        for i, t in enumerate(turn):
+            rows[(r, i)] = len(feeds) - 1
+            feeds.append([t])
+        feeds.append(tok.encode(SIMPLEX_TURN_END))
+    jctx = JaxContext(jcfg, jparams, jq.forward, jq.embed, n_ctx=512,
+                      sampler=JaxSamplerParams(greedy=True))
+    tctx = Context(tcfg, tparams, tq.forward, tq.embed, n_ctx=512,
+                   sampler=SamplerParams(greedy=True), device="cpu")
+    jl, tl = [], []
+    for ids in feeds:
+        jl.append(_np(jctx.decode(JaxBatch(tokens=np.asarray(ids)))[0])[-1])
+        tl.append(tctx.decode(Batch(tokens=np.asarray(ids)))[0][-1].numpy())
+    jl, tl = np.stack(jl), np.stack(tl)
+    diff = np.abs(jl - tl).max(-1)
+    assert diff.max() <= JIT_LOGITS_ATOL
+
+    diverged = [i for i, (a, b) in enumerate(zip(want[1], got[1])) if a != b]
+    if diverged:
+        row = rows[(1, diverged[0])]
+        top2 = np.sort(jl[row])[-2:]
+        assert int(np.argmax(jl[row])) == want[1][diverged[0]]
+        assert int(np.argmax(tl[row])) == got[1][diverged[0]]
+        assert top2[1] - top2[0] < diff[row] <= JIT_LOGITS_ATOL
+
+    # the first prefill, op by op through omni_tpu's forward
+    ids = np.asarray(feeds[0])
+    n, tb = len(ids), 16
+    toks = np.pad(ids, (0, tb - n))
+    pos, wmask = np.pad(np.arange(n), (0, tb - n)), np.arange(tb) < n
+    jc = JaxKVCache.create(jcfg.n_layers, 64, jcfg.n_kv_heads, jcfg.head_dim,
+                           rope_base=jcfg.rope_base)
+    eager, _, _ = jq.forward(jparams, jcfg, jq.embed(jparams, jnp.asarray(toks)),
+                             jnp.asarray(pos, jnp.int32), jnp.zeros(tb, jnp.int32),
+                             jc, jc.find_slots(tb), jnp.asarray(wmask))
+    np.testing.assert_allclose(tl[0], _np(eager)[n - 1], rtol=0, atol=1e-4)
 
 
 def test_synth_params_layout():
