@@ -1,9 +1,10 @@
 """Numpy dequantisers: the bit-exact oracle inside the port.
 
-A copy of the Q4_K and Q6_K paths of `omni_tpu/core/quants.py`
-(ggml-quants.c dequantize_row_q4_K / _q6_K semantics), plus the widening
-of the plain float types. The effective group scale is the single f32
-product d*sc:
+A copy of the Q8_0, Q4_K and Q6_K paths of `omni_tpu/core/quants.py`
+(ggml-quants.c dequantize_row_q8_0 / _q4_K / _q6_K semantics), plus the
+widening of the plain float types. The effective group scale is the single
+f32 product d*sc:
+- Q8_0: w = q*d per 32-element block (34 bytes: f16 d, then 32 int8 q);
 - Q4_K: w = q*(d*sc) - dmin*mn per 32-element group, q in 0..15;
 - Q6_K: w = (d*sc)*(q - 32) per 16-element group, q in 0..63.
 """
@@ -48,6 +49,12 @@ def _unpack_scale_min_k4(scales: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return sc, mn
 
 
+def _deq_q8_0(b: np.ndarray) -> np.ndarray:
+    d = _f16(b[:, :2])
+    q = b[:, 2:].view(np.int8).astype(np.float32)
+    return q * d
+
+
 def _deq_q4_k(b: np.ndarray) -> np.ndarray:
     n = b.shape[0]
     d, dmin = _f16(b[:, :2]), _f16(b[:, 2:4])
@@ -78,7 +85,8 @@ def _deq_q6_k(b: np.ndarray) -> np.ndarray:
     return (dl * q.reshape(n, 16, 16)).reshape(n, QK_K)
 
 
-_DEQUANT = {GGMLType.Q4_K: _deq_q4_k, GGMLType.Q6_K: _deq_q6_k}
+_DEQUANT = {GGMLType.Q8_0: _deq_q8_0, GGMLType.Q4_K: _deq_q4_k,
+            GGMLType.Q6_K: _deq_q6_k}
 
 
 def dequantize(blocks: np.ndarray, ggml_type: GGMLType | int,

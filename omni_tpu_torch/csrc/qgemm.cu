@@ -1,11 +1,13 @@
 // qgemm: out[m, n] = sum_k bf16(x)[m, k] * bf16(dequant(W))[n, k], any M,
-// W in Q4_K or Q6_K — the generic fused dequant x matmul.
+// W in Q4_K, Q6_K or Q8_0 — the generic fused dequant x matmul.
 //
 // Replaces omni_tpu/kernels/dequant_matmul.py::qmatmul_pallas (:103, body
-// _make_kernel :55-76, law qformats.dequant_tile :289-360) for Q4_K and
-// Q6_K. On a Q4_K_M checkpoint it runs the prefill (M > 8) of the Q6_K
+// _make_kernel :55-76, law qformats.dequant_tile :289-360) for Q4_K, Q6_K
+// and Q8_0. On a Q4_K_M checkpoint it runs the prefill (M > 8) of the Q6_K
 // tensors (attn_v and ffn_down on the promoted layers, the output head),
-// and every Q4_K weight whose K is not a multiple of 2048, at any M.
+// and every Q4_K weight whose K is not a multiple of 2048, at any M. On a
+// Q8_0 checkpoint it runs the prefill of every weight, and any Q8_0 weight
+// whose K is not a multiple of 256.
 //
 // The law is the TPU kernel's: each weight element is dequantised in f32
 // and rounded once to bf16, then multiplied against bf16 x with f32
@@ -13,7 +15,8 @@
 // - Q4_K: w = bf16(q * dl - ml), the UNCENTERED law of dequant_tile (not
 //   kernel B's centered one: the two round differently), dl = d * sc and
 //   ml = dm * mn per 32-group;
-// - Q6_K: w = bf16((q - 32) * dl), dl = d * sc per 16-group.
+// - Q6_K: w = bf16((q - 32) * dl), dl = d * sc per 16-group;
+// - Q8_0: w = bf16(q * d), d per 32-group.
 // The products and the difference are rounded one at a time (__fmul_rn,
 // __fsub_rn: no fused multiply-add), so the bf16 weights equal the plain
 // version's bit for bit.
@@ -23,7 +26,9 @@
 // bytes. This first version is simple and right rather than fast:
 // - a 2-D grid of 64 x 64 output tiles, 4 warps, each a 32 x 32 sub-tile of
 //   2 x 2 WMMA m16n16k16 bf16 products with f32 accumulators;
-// - per K step of one 256-element superblock, the x tile [64, 256] (cp.async)
+// - per K step of 256 elements (one superblock; for Q8_0, eight 32-blocks,
+//   the last step ragged where K % 256 != 0, its missing chunks staged as
+//   zeros in x and w), the x tile [64, 256] (cp.async)
 //   and the weight tile [64, 256], dequantised on the way in by the
 //   format's own device function, are staged in shared memory; every
 //   global load of the step is issued before any is used;
@@ -45,7 +50,7 @@ namespace {
 
 using namespace nvcuda;
 
-constexpr int kQ4K = 12, kQ6K = 14;  // GGML type ids
+constexpr int kQ8_0 = 8, kQ4K = 12, kQ6K = 14;  // GGML type ids
 constexpr int BM = 64, BN = 64, BK = 256;
 constexpr int LD = BK + 8;   // bf16 row pitch of the staged tiles
 constexpr int LDC = BN + 4;  // f32 row pitch of the epilogue tile
@@ -189,6 +194,49 @@ __device__ __forceinline__ void stage_w_q6k(const Planes& p, __nv_bfloat16* ws_t
   }
 }
 
+// Q8_0 weight tile of K step s: BN rows x 16 chunks of 16 int8 values;
+// chunk c is half of 32-group s*8 + c/2, elements s*256 + 16c... Chunks past
+// K (K % 32 == 0, so a chunk is wholly in or out) and rows past N are zero.
+__device__ __forceinline__ void stage_w_q8_0(const Planes& p, __nv_bfloat16* ws_t,
+                                             int n0, int N, int K, int s, int tid) {
+  constexpr int kLoads = BN * 16 / kThreads;
+  const int n_groups = K >> 5;
+  uint4 qv[kLoads];
+  float dv[kLoads];
+#pragma unroll
+  for (int i = 0; i < kLoads; ++i) {
+    const int idx = tid + kThreads * i;
+    const int r = idx >> 4, c = idx & 15;
+    const int gn = n0 + r;
+    const int k0 = s * BK + c * 16;
+    qv[i] = make_uint4(0, 0, 0, 0);
+    dv[i] = 0.f;
+    if (gn < N && k0 < K) {
+      const int8_t* qrow = static_cast<const int8_t*>(p.q) + (size_t)gn * K;
+      qv[i] = __ldg(reinterpret_cast<const uint4*>(qrow + k0));
+      dv[i] = __ldg(p.d + (size_t)gn * n_groups + (k0 >> 5));
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kLoads; ++i) {
+    const int idx = tid + kThreads * i;
+    const int r = idx >> 4, c = idx & 15;
+    const uint32_t w32[4] = {qv[i].x, qv[i].y, qv[i].z, qv[i].w};
+    uint32_t wv[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const uint32_t word = w32[e >> 1];
+      const int sh = (e & 1) * 16;
+      const float v0 = (float)(int8_t)((word >> sh) & 0xFFu);
+      const float v1 = (float)(int8_t)((word >> (sh + 8)) & 0xFFu);
+      wv[e] = pack_bf16(__fmul_rn(v0, dv[i]), __fmul_rn(v1, dv[i]));
+    }
+    __nv_bfloat16* dst = ws_t + r * LD + c * 16;
+    *reinterpret_cast<uint4*>(dst) = make_uint4(wv[0], wv[1], wv[2], wv[3]);
+    *reinterpret_cast<uint4*>(dst + 8) = make_uint4(wv[4], wv[5], wv[6], wv[7]);
+  }
+}
+
 template <int QT>
 __global__ void __launch_bounds__(kThreads)
 qgemm_kernel(const __nv_bfloat16* __restrict__ x, Planes p, void* __restrict__ out,
@@ -201,7 +249,7 @@ qgemm_kernel(const __nv_bfloat16* __restrict__ x, Planes p, void* __restrict__ o
   const int warp = tid >> 5;
   const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int n_sb = K >> 8;
+  const int n_steps = (K + BK - 1) / BK;  // whole superblocks but for Q8_0
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
 #pragma unroll
@@ -209,21 +257,24 @@ qgemm_kernel(const __nv_bfloat16* __restrict__ x, Planes p, void* __restrict__ o
 #pragma unroll
     for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
 
-  for (int s = 0; s < n_sb; ++s) {
-    // x tile (BM rows x 32 chunks of 8 bf16), rows past M zero-filled
+  for (int s = 0; s < n_steps; ++s) {
+    // x tile (BM rows x 32 chunks of 8 bf16), rows past M and chunks past K
+    // zero-filled
 #pragma unroll
     for (int i = 0; i < kXLoads; ++i) {
       const int idx = tid + kThreads * i;
       const int r = idx >> 5, c = idx & 31;
-      const bool live = m0 + r < M;
+      const bool live = m0 + r < M && s * BK + c * 8 < K;
       const __nv_bfloat16* src = x + (live ? (size_t)(m0 + r) * K + (size_t)s * BK + c * 8 : 0);
       cp_async16(xs_t + r * LD + c * 8, src, live);
     }
     cp_async_commit();
     if constexpr (QT == kQ4K)
       stage_w_q4k(p, ws_t, n0, N, K, s, tid);
-    else
+    else if constexpr (QT == kQ6K)
       stage_w_q6k(p, ws_t, n0, N, K, s, tid);
+    else
+      stage_w_q8_0(p, ws_t, n0, N, K, s, tid);
     cp_async_wait_all();
     __syncthreads();
     // this superblock's products in fresh accumulators, then added to the
@@ -287,7 +338,8 @@ qgemm_kernel(const __nv_bfloat16* __restrict__ x, Planes p, void* __restrict__ o
 template <int QT>
 int launch(const void* x, Planes p, void* out, int m, int n, int k, int out_f32,
            void* stream) {
-  if (m < 1 || n < 1 || k < 256 || k % 256 != 0 || (m + BM - 1) / BM > 65535)
+  constexpr int granule = QT == kQ8_0 ? 32 : 256;  // K multiple of the planes
+  if (m < 1 || n < 1 || k < granule || k % granule != 0 || (m + BM - 1) / BM > 65535)
     return (int)cudaErrorInvalidValue;
   static bool attr_set = false;
   if (!attr_set) {
@@ -305,7 +357,7 @@ int launch(const void* x, Planes p, void* out, int m, int n, int k, int out_f32,
 }  // namespace
 
 // One entry point per format, each with the signature of the other kernels
-// (Q6_K has no min planes: mn and dm are unused). Each returns the first
+// (Q6_K has no min planes: mn and dm are unused; Q8_0 has only q and d). Each returns the first
 // CUDA error of the attribute call or the launch (0 = launched).
 extern "C" int qgemm_q4k(const void* x, const void* q, const void* sc,
                          const void* mn, const void* d, const void* dm,
@@ -325,4 +377,15 @@ extern "C" int qgemm_q6k(const void* x, const void* q, const void* sc,
   const Planes p{q, static_cast<const int8_t*>(sc), nullptr,
                  static_cast<const float*>(d), nullptr};
   return launch<kQ6K>(x, p, out, m, n, k, out_f32, stream);
+}
+
+extern "C" int qgemm_q8_0(const void* x, const void* q, const void* sc,
+                          const void* mn, const void* d, const void* dm,
+                          void* out, int m, int n, int k, int out_f32,
+                          void* stream) {
+  (void)sc;
+  (void)mn;
+  (void)dm;
+  const Planes p{q, nullptr, nullptr, static_cast<const float*>(d), nullptr};
+  return launch<kQ8_0>(x, p, out, m, n, k, out_f32, stream);
 }

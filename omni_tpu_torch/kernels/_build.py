@@ -23,7 +23,8 @@ CSRC = PKG / "csrc"
 BUILD = PKG / "build"
 # each source and its C entry points, one per kernel or per format
 SOURCES = {"q4k_gemv.cu": ("q4k_gemv",), "q4k_gemm.cu": ("q4k_gemm",),
-           "q6k_gemv.cu": ("q6k_gemv",), "qgemm.cu": ("qgemm_q4k", "qgemm_q6k")}
+           "q6k_gemv.cu": ("q6k_gemv",), "q8_0_gemv.cu": ("q8_0_gemv",),
+           "qgemm.cu": ("qgemm_q4k", "qgemm_q6k", "qgemm_q8_0")}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

@@ -1,22 +1,32 @@
 """Attention over the unified KV cell pool (counterpart of
 omni_tpu/kernels/attention.py): a masked softmax over every cell with GQA
 head grouping. The JAX package leaves this to XLA on the bf16 pool, so the
-port leaves it to plain PyTorch. Operands are rounded to bf16 on the card
-(f32 on the CPU, as the JAX package does off the TPU) and every product is
-accumulated in f32: bf16 products are exact in f32, so a float32 matmul of
-the rounded operands is the `preferred_element_type=float32` dot."""
+port leaves it to plain PyTorch. Every product is accumulated in f32: on
+the card the operands are rounded to bf16 and go to cuBLAS as they are,
+with f32 outputs and K split into chunks (`dequant_matmul.bmm_f32`, the
+`preferred_element_type=float32` dot; the bf16 pool is never copied); on
+the CPU, which has no kernel for that overload, they stay f32, as the JAX
+package computes them off the TPU."""
 
 from __future__ import annotations
 
 import torch
 
+from .dequant_matmul import bmm_f32
+
 NEG_INF = -1e30
 
 
+def _on_cuda(a: torch.Tensor) -> bool:
+    return a.is_cuda
+
+
 def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b with operands rounded to the compute dtype, f32 result."""
-    c = torch.bfloat16 if a.is_cuda else torch.float32
-    return torch.matmul(a.to(c).to(torch.float32), b.to(c).to(torch.float32))
+    """Batched a @ b ([B, M, K] @ [B, K, N]) with f32 accumulation and an f32
+    result: bf16 operands on the card, f32 ones on the CPU."""
+    if _on_cuda(a):
+        return bmm_f32(a.to(torch.bfloat16), b.to(torch.bfloat16))
+    return torch.matmul(a.to(torch.float32), b.to(torch.float32))
 
 
 def _heads_major(q: torch.Tensor, hkv: int) -> torch.Tensor:

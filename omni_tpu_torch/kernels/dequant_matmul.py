@@ -1,20 +1,28 @@
-"""Quantized matmul: the `matmul` dispatcher and the port's four kernels.
+"""Quantized matmul: the `matmul` dispatcher and the port's five kernels.
 
 Counterpart of `omni_tpu/kernels/dequant_matmul.py`. On a CUDA tensor a
 weight goes to a kernel written by hand for Hopper, chosen as the JAX
 dispatcher chooses its Pallas kernel (`matmul`, dequant_matmul.py:665-672):
-- `gp_supported` (M = 1..8, K % 2048 == 0): kernel A `q4k_gemv` for Q4_K,
-  kernel C `q6k_gemv` for Q6_K (both replace qmatmul_gp_pallas);
+- `gp_supported` (M = 1..8, K % 2048 == 0 for the K-quants, K % 256 == 0
+  for Q8_0: `_gp_min_tk`): kernel A `q4k_gemv` for Q4_K, kernel C
+  `q6k_gemv` for Q6_K, kernel E `q8_0_gemv` for Q8_0 (all replace
+  qmatmul_gp_pallas);
 - `sh_supported` (M > 8, Q4_K, K % 2048 == 0): kernel B `q4k_gemm`
   (replaces qmatmul_splith_pallas);
-- every other Q4_K or Q6_K weight, at any M: kernel D `qgemm`, the generic
-  dequant-GEMM (replaces qmatmul_pallas).
+- every other Q4_K, Q6_K or Q8_0 weight, at any M: kernel D `qgemm`, the
+  generic dequant-GEMM (replaces qmatmul_pallas).
 Other formats raise NotImplementedError on the card, naming the TPU kernel
 still to port. Each kernel has a plain PyTorch version of the same law
 beside it: the wrapper runs it only for a tensor that lies on the CPU, and
 on a CUDA tensor it launches the kernel or raises. Off the card the
 dispatcher runs kernel D's plain law, which is `qmatmul_xla`'s: dequantise
 to bf16, then a dot with f32 accumulation.
+
+A dense weight (bf16) is a plain product, which the JAX package leaves to
+XLA: bf16 operands, f32 accumulation. On the card that is cuBLAS with bf16
+operands and f32 outputs (`bmm_f32`), K split into chunks that each sum
+into fresh f32 outputs, as kernels B and D split theirs; no f32 copy of the
+weight is made.
 """
 
 from __future__ import annotations
@@ -25,14 +33,18 @@ from ..core.dtypes import GGMLType
 from .qformats import (QTensor, check_qtensor, dequant, q4k_group_scales,
                        q6k_group_scales, unpack_sb_halves)
 
-GP_MAX_M = 8  # decode rows kernels A and C take (the TPU kernel's _GP_MAX_M)
-MIN_K = 2048  # the K granule of the K-quants' TPU kernels (_gp_min_tk)
+GP_MAX_M = 8  # decode rows kernels A, C and E take (the TPU's _GP_MAX_M)
+# the K multiple of the gp and sh paths per format (the TPU kernels'
+# `_gp_min_tk`: 2048 where a plane has one row per 256 elements, else 256)
+GP_MIN_K = {GGMLType.Q4_K: 2048, GGMLType.Q6_K: 2048, GGMLType.Q8_0: 256}
 
 # kernel launches, one count per wrapper; a run resets and reads them
-launches = {"q4k_gemv": 0, "q4k_gemm": 0, "q6k_gemv": 0, "qgemm": 0}
+launches = {"q4k_gemv": 0, "q4k_gemm": 0, "q6k_gemv": 0, "qgemm": 0,
+            "q8_0_gemv": 0}
 
 # the C entry point of kernel D for each format
-_QGEMM_ENTRY = {GGMLType.Q4_K: "qgemm_q4k", GGMLType.Q6_K: "qgemm_q6k"}
+_QGEMM_ENTRY = {GGMLType.Q4_K: "qgemm_q4k", GGMLType.Q6_K: "qgemm_q6k",
+                GGMLType.Q8_0: "qgemm_q8_0"}
 
 
 def reset_launches() -> None:
@@ -150,11 +162,26 @@ def q6k_gemv_plain(x: torch.Tensor, qt: QTensor,
     return (q6k_group_scales(qt)[None] * p).sum(-1).to(out_dtype)
 
 
+def q8_0_gemv_plain(x: torch.Tensor, qt: QTensor,
+                    out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Kernel E's law in plain PyTorch (the int8-plane group law of
+    qmatmul_gp_pallas, `_gp_slice`): per 32-group P = x_bf16 · q, exact
+    products summed in f32, then out = Σ_g d·P, all in f32."""
+    m, k = x.shape
+    n = qt.shape[0]
+    g = k // 32
+    xb = x.to(torch.bfloat16).to(torch.float32).reshape(m, g, 32)
+    q = qt.q.to(torch.float32).reshape(n, g, 32)
+    p = torch.einsum("mgk,ngk->mng", xb, q)  # [M, N, G]
+    return (qt.d[None] * p).sum(-1).to(out_dtype)
+
+
 def qgemm_plain(x: torch.Tensor, qt: QTensor,
                 out_dtype=torch.bfloat16) -> torch.Tensor:
     """Kernel D's law in plain PyTorch (qmatmul_pallas with dequant_tile):
     each weight dequantised in f32 and rounded once to bf16 (uncentered for
-    Q4_K: bf16(q·dl − ml)), then a dot with bf16 x in f32."""
+    Q4_K: bf16(q·dl − ml); bf16(q·d) for Q8_0), then a dot with bf16 x in
+    f32."""
     w = dequant(qt, torch.bfloat16).to(torch.float32)
     return (x.to(torch.bfloat16).to(torch.float32) @ w.T).to(out_dtype)
 
@@ -184,13 +211,26 @@ def q6k_gemv(x: torch.Tensor, qt: QTensor,
     return _run("q6k_gemv", "q6k_gemv", q6k_gemv_plain, x, qt, out_dtype)
 
 
+def q8_0_gemv(x: torch.Tensor, qt: QTensor,
+              out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Kernel E (replaces qmatmul_gp_pallas for Q8_0): M = 1..8, K % 32."""
+    _check(x, qt, out_dtype, GGMLType.Q8_0)
+    _check_gemv_m("q8_0_gemv", x)
+    return _run("q8_0_gemv", "q8_0_gemv", q8_0_gemv_plain, x, qt, out_dtype)
+
+
 def qgemm(x: torch.Tensor, qt: QTensor,
           out_dtype=torch.bfloat16) -> torch.Tensor:
-    """Kernel D (replaces qmatmul_pallas for Q4_K and Q6_K): any M, any K
-    that holds whole superblocks."""
+    """Kernel D (replaces qmatmul_pallas for Q4_K, Q6_K and Q8_0): any M,
+    any K that holds whole blocks of the format's granule (256 for the
+    K-quants, 32 for Q8_0)."""
     _check(x, qt, out_dtype, *_QGEMM_ENTRY)
     return _run("qgemm", _QGEMM_ENTRY[qt.ggml_type], qgemm_plain, x, qt,
                 out_dtype)
+
+
+_GEMV = {GGMLType.Q4_K: q4k_gemv, GGMLType.Q6_K: q6k_gemv,
+         GGMLType.Q8_0: q8_0_gemv}
 
 
 def kernel_for(m: int, qt: QTensor):
@@ -199,12 +239,64 @@ def kernel_for(m: int, qt: QTensor):
     None where no kernel is ported."""
     if qt.ggml_type not in _QGEMM_ENTRY:
         return None
-    if qt.shape[1] % MIN_K == 0:
+    if qt.shape[1] % GP_MIN_K[qt.ggml_type] == 0:
         if m <= GP_MAX_M:
-            return q4k_gemv if qt.ggml_type == GGMLType.Q4_K else q6k_gemv
+            return _GEMV[qt.ggml_type]
         if qt.ggml_type == GGMLType.Q4_K:
             return q4k_gemm
     return qgemm
+
+
+# K per cuBLAS product of a dense dot on the card. One tensor-core
+# accumulation over the whole K rounds 7.3e-4-3.8e-3 of the bf16 outputs
+# of Qwen3-8B's dense dots otherwise than the f64 law, the f32 law 0-3.7e-4;
+# chunks of 256 (the split accumulation of kernels B and D) read 0-3.7e-4,
+# chunks of 512 up to 9.8e-4 (`python -m omni_tpu_torch.dense_split_probe`,
+# NVIDIA H100 80GB HBM3, 700.00 W).
+SPLIT_K = 256
+
+
+def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b for bf16 a [B, M, K] and b [B, K, N] on the card, an f32
+    [B, M, N]: cuBLAS sums each SPLIT_K-element chunk of K into a fresh f32
+    output (`out_dtype=torch.float32`: f32 accumulators, whatever
+    allow_bf16_reduced_precision_reduction says, though the tensor cores'
+    adds drift from the f32 law over a long K), and the chunks are added
+    with f32 adds. Where B = 1 and SPLIT_K divides K the chunks are the
+    batch of one product, as views of the operands; otherwise one product
+    per chunk."""
+    k = a.shape[-1]
+    if k <= SPLIT_K:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    if a.shape[0] == 1 and k % SPLIT_K == 0:
+        c = k // SPLIT_K
+        parts = torch.bmm(a[0].unflatten(1, (c, SPLIT_K)).transpose(0, 1),
+                          b[0].unflatten(0, (c, SPLIT_K)), out_dtype=torch.float32)
+        return parts.sum(0, keepdim=True)
+    out = torch.bmm(a[..., :SPLIT_K], b[:, :SPLIT_K], out_dtype=torch.float32)
+    for k0 in range(SPLIT_K, k, SPLIT_K):
+        out += torch.bmm(a[..., k0:k0 + SPLIT_K], b[:, k0:k0 + SPLIT_K],
+                         out_dtype=torch.float32)
+    return out
+
+
+def dense_matmul_plain(x: torch.Tensor, w: torch.Tensor,
+                       out_dtype=torch.bfloat16) -> torch.Tensor:
+    """The dense dot's law in plain PyTorch: both operands widened to f32
+    (bf16 products are exact in f32), summed in f32."""
+    return (x.to(w.dtype).to(torch.float32) @ w.to(torch.float32).T).to(out_dtype)
+
+
+def dense_matmul(x: torch.Tensor, w: torch.Tensor,
+                 out_dtype=torch.bfloat16) -> torch.Tensor:
+    """x @ w.T for a plain [N, K] weight, the JAX package's law:
+    dot_general(x in w's dtype, w, preferred_element_type=f32), cast to
+    out_dtype. On the card the operands go to cuBLAS as they are
+    (`bmm_f32`); nothing is widened. The CPU has no kernel for cuBLAS's
+    f32-output overload, so there the plain version runs."""
+    if not _on_cuda(x):
+        return dense_matmul_plain(x, w, out_dtype)
+    return bmm_f32(x.to(w.dtype)[None], w.T[None])[0].to(out_dtype)
 
 
 def matmul(x: torch.Tensor, w, out_dtype=torch.bfloat16) -> torch.Tensor:
@@ -217,8 +309,7 @@ def matmul(x: torch.Tensor, w, out_dtype=torch.bfloat16) -> torch.Tensor:
             raise NotImplementedError(
                 f"no CUDA kernel for {GGMLType(w.ggml_type).name}: "
                 "qmatmul_pallas (the generic fused dequant x matmul, "
-                "omni_tpu/kernels/dequant_matmul.py:103) is ported for Q4_K "
-                "and Q6_K only")
+                "omni_tpu/kernels/dequant_matmul.py:103) is ported for Q4_K, "
+                "Q6_K and Q8_0 only")
         return kernel(x.to(torch.bfloat16).contiguous(), w, out_dtype)
-    return (x.to(w.dtype).to(torch.float32) @ w.to(torch.float32).T
-            ).to(out_dtype)
+    return dense_matmul(x, w, out_dtype)

@@ -7,6 +7,10 @@ row's K contiguous, so the port stores the same planes N-major: plane
 [N, K'] is the transpose of the JAX plane [K', N], a pure permutation of its
 bytes (and the JAX planes are themselves a permutation of the GGUF blocks).
 
+Q8_0 planes (rows × K'):
+- q  int8 [N, K]     the value, element order
+- d  f32  [N, K/32]  block scale (the file's f16, widened)
+
 Q4_K planes (rows × K'):
 - q  u8   [N, K/2]   superblock-local halves: byte r of superblock s holds
                      element s·256+r in the low nibble, s·256+128+r in the
@@ -24,8 +28,8 @@ Q6_K planes:
 
 `repack` builds these planes from GGUF block bytes ON THE DEVICE, as torch
 ops on the uploaded blocks: a host pass over a 5 GB checkpoint would take
-minutes. Only Q4_K and Q6_K have planes, dequantisers and kernels in the
-port so far.
+minutes. Only Q8_0, Q4_K and Q6_K have planes, dequantisers and kernels
+in the port so far.
 """
 
 from __future__ import annotations
@@ -39,7 +43,16 @@ import torch
 from ..core.dtypes import QK_K, GGMLType, type_traits
 
 PLANES = ("q", "sc", "mn", "d", "dm", "qh")
-QUANTIZED = (GGMLType.Q4_K, GGMLType.Q6_K)
+QUANTIZED = (GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q8_0)
+# int8 value planes with one scale per 32 elements need only whole 32-blocks
+# in K; the packed K-quant planes need whole 256-superblocks (the JAX
+# package's tile_granule)
+_INT8_PLANE = (GGMLType.Q8_0,)
+
+
+def tile_granule(t: GGMLType) -> int:
+    """The K multiple a format's planes need."""
+    return 32 if t in _INT8_PLANE else QK_K
 
 
 @dataclass
@@ -66,6 +79,8 @@ class QTensor:
 
 def plane_specs(t: GGMLType, n: int, k: int) -> dict[str, tuple[tuple, torch.dtype]]:
     """The planes of an [n, k] weight of type `t`: name -> (shape, dtype)."""
+    if t == GGMLType.Q8_0:
+        return {"q": ((n, k), torch.int8), "d": ((n, k // 32), torch.float32)}
     if t == GGMLType.Q4_K:
         return {"q": ((n, k // 2), torch.uint8), "sc": ((n, k // 32), torch.int8),
                 "mn": ((n, k // 32), torch.int8),
@@ -79,14 +94,15 @@ def plane_specs(t: GGMLType, n: int, k: int) -> dict[str, tuple[tuple, torch.dty
 
 def check_qtensor(qt: QTensor, *types: GGMLType) -> None:
     """Raise ValueError unless `qt` is a well-formed QTensor of one of
-    `types`: K whole superblocks, every plane of its format contiguous with
+    `types`: K whole blocks of its granule, every plane of its format contiguous with
     the right shape and dtype, no other plane."""
     if qt.ggml_type not in types:
         raise ValueError(f"expected {' or '.join(t.name for t in types)}, "
                          f"got {GGMLType(qt.ggml_type).name}")
     n, k = qt.shape
-    if k % QK_K:
-        raise ValueError(f"{qt.ggml_type.name} K={k} is not a multiple of {QK_K}")
+    if k % tile_granule(qt.ggml_type):
+        raise ValueError(f"{qt.ggml_type.name} K={k} is not a multiple of "
+                         f"{tile_granule(qt.ggml_type)}")
     want = plane_specs(qt.ggml_type, n, k)
     for nm in PLANES:
         a = getattr(qt, nm)
@@ -132,6 +148,8 @@ def q6k_group_scales(qt: QTensor) -> torch.Tensor:
 def dequant(qt: QTensor, dtype=torch.float32) -> torch.Tensor:
     """Full dequantization -> logical [N, K] (bit-exact with the reference
     in f32): the law of `dequant_tile`, rounded once to `dtype`."""
+    if qt.ggml_type == GGMLType.Q8_0:
+        return (qt.q.to(torch.float32) * _expand(qt.d, 32)).to(dtype)
     if qt.ggml_type == GGMLType.Q4_K:
         q = unpack_sb_halves(qt.q).to(torch.float32)
         dl, ml = q4k_group_scales(qt)
@@ -171,16 +189,23 @@ def _f16_field(b: torch.Tensor, lo: int) -> torch.Tensor:
 
 def repack(blocks: torch.Tensor, ggml_type: GGMLType,
            shape: tuple[int, int]) -> QTensor:
-    """GGUF block bytes (uint8 [N·K/256, type_size], on any device) -> the
-    port's N-major planes on the same device. A pure permutation of the
-    bytes (scales unpacked to one byte each); the transpose of
-    `omni_tpu.kernels.qformats.repack`."""
+    """GGUF block bytes (uint8 [N·K/block_size, type_size], on any device)
+    -> the port's N-major planes on the same device. A pure permutation of
+    the bytes (scales unpacked to one byte each, f16 scales widened to f32);
+    the transpose of `omni_tpu.kernels.qformats.repack`."""
     t = GGMLType(ggml_type)
     n, k = shape
     if t not in QUANTIZED:
         raise NotImplementedError(f"repack: {t.name} is not ported")
-    if k % QK_K:
-        raise ValueError(f"repack: K={k} is not a multiple of {QK_K}")
+    if k % tile_granule(t):
+        raise ValueError(f"repack: K={k} is not a multiple of {tile_granule(t)}")
+    if t == GGMLType.Q8_0:
+        # 34-byte blocks, not 16-byte aligned: the fields are cut from the
+        # uint8 [N, K/32, 34] view, the f16 d in bytes 0-1, then 32 int8
+        b = blocks.reshape(n, k // 32, type_traits(t).type_size)
+        q = b[..., 2:].contiguous().view(torch.int8).reshape(n, k)
+        return QTensor(t, (n, k), q=q, sc=None, mn=None, d=_f16_field(b, 0),
+                       dm=None)
     nsb = k // QK_K
     b = blocks.reshape(n, nsb, type_traits(t).type_size)
     if t == GGMLType.Q4_K:
@@ -235,9 +260,11 @@ def load_quantized(blocks: np.ndarray, ggml_type: GGMLType,
                    device=None):
     """The JAX package's load policy (`load_quantized`), for the formats the
     port has:
-    - a 2-D Q4_K or Q6_K tensor stays quantized (a QTensor on `device`),
+    - a 2-D Q8_0, Q4_K or Q6_K tensor stays quantized (a QTensor on
+      `device`; its blocks always fill K to the format's `tile_granule`),
       unless keep_quantized=False: then it is dequantised there to bf16;
-    - F32, F16 and BF16 widen;
+    - F32, F16 and BF16 widen (an F16 weight becomes bf16, as in the JAX
+      package: 3 mantissa bits fewer than llama.cpp keeps);
     - 1-D tensors (norms, biases) become f32, 2-D dense ones bf16;
     - every other format raises NotImplementedError naming it: the JAX
       package keeps those quantized, so the port must not quietly widen

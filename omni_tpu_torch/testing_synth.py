@@ -1,6 +1,6 @@
 """Synthetic full-size Qwen3 weights (counterpart of
 omni_tpu/testing_synth.py), made ON THE DEVICE from a `torch.Generator`, so
-no multi-GB host-to-device copy happens. Two forms:
+no multi-GB host-to-device copy happens. Three forms:
 
 - `synth_qwen3_params`: an all-Q4_K parameter dict in the port's planes.
   The value ranges are the JAX package's: nibbles 0..255 per byte,
@@ -8,15 +8,20 @@ no multi-GB host-to-device copy happens. Two forms:
   uniform in [-0.02, 0.02). It streams 4.49 GB per decode token, less than
   a real Q4_K_M checkpoint (5.27 GB: its Q6_K tensors are larger).
 - `write_qwen3_gguf`: a GGUF file whose tensors take the types of a
-  quantization recipe (Q4_K_M: llama.cpp's rules, the port's copy of
-  `omni_tpu/cli/quantize.py`), with random block bytes: Q4_K in the ranges
-  above; Q6_K with its 6-bit values over their full signed range
+  quantization recipe (Q4_K_M or Q8_0: llama.cpp's rules, the port's copy
+  of `omni_tpu/cli/quantize.py`), with random block bytes: Q4_K in the
+  ranges above; Q6_K with its 6-bit values over their full signed range
   (q - 32 in -32..31, as a real file's are), scales 20..63 and d uniform
   in [5e-6, 5.5e-5), so that its weights have about the Q4_K weights' RMS
-  (0.027 against 0.025). The Q4_K weights in these ranges have a common
-  part (mean 0.017, 91 % positive); the Q6_K weights have none (mean
-  ~0), so a Q6_K output head gives logits of max ~11 where the all-Q4_K
+  (0.027 against 0.025); Q8_0 with its int8 values over -127..127 (the
+  range llama.cpp's quantizer writes) and d uniform in [2e-4, 4.5e-4), RMS
+  0.025. The Q4_K weights in these ranges have a common part (mean 0.017,
+  91 % positive); the Q6_K and Q8_0 weights have none (mean ~0), so a
+  Q6_K or Q8_0 output head gives logits of max ~10 where the all-Q4_K
   model's reach ~110.
+- `synth_qwen3_dense_params`: the dense parameter dict of an F16 checkpoint
+  as the port loads one (every weight bf16, drawn in F16 first), normal
+  weights of RMS 0.025, unfused.
 
 Dense decode speed does not depend on the values."""
 
@@ -25,7 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .core.dtypes import GGMLType
+from .core.dtypes import GGMLType, type_traits
 from .core.gguf import GGUFWriter
 from .kernels.qformats import QTensor, repack
 from .models.qwen3 import Qwen3Config, fuse_layer
@@ -89,6 +94,22 @@ def q6k_blocks(nb: int, device, generator: torch.Generator) -> torch.Tensor:
                      dim=1)
 
 
+def q8_0_blocks(nb: int, device, generator: torch.Generator) -> torch.Tensor:
+    """nb random Q8_0 blocks [nb, 34]: d in [2e-4, 4.5e-4) as f16 bytes,
+    then 32 int8 values over -127..127."""
+    q = torch.randint(-127, 128, (nb, 32), dtype=torch.int8, device=device,
+                      generator=generator)
+    return torch.cat([_unif_f16_bytes(nb, 2e-4, 4.5e-4, device, generator),
+                      q.view(torch.uint8)], dim=1)
+
+
+def synth_q8_0(n: int, k: int, device, generator: torch.Generator) -> QTensor:
+    """Random Q8_0 QTensor [n, k] in the port's layout (random blocks,
+    repacked where they were made)."""
+    return repack(q8_0_blocks(n * k // 32, device, generator), GGMLType.Q8_0,
+                  (n, k))
+
+
 def synth_q6k(n: int, k: int, device, generator: torch.Generator) -> QTensor:
     """Random Q6_K QTensor [n, k] in the port's layout (random blocks,
     repacked where they were made)."""
@@ -106,17 +127,19 @@ def use_more_bits(i_layer: int, n_layers: int) -> bool:
 
 
 # recipe -> its default type
-RECIPES = {"Q4_K_M": GGMLType.Q4_K}
+RECIPES = {"Q4_K_M": GGMLType.Q4_K, "Q8_0": GGMLType.Q8_0}
 
 
 def pick_type(name: str, ftype: str, default: GGMLType,
               n_layers: int) -> GGMLType:
     """Per-tensor type rules (the Q4_K_M schedule): the output head is
-    Q6_K, the token embedding keeps the default, and Q4_K_M promotes
-    attn_v and ffn_down on the use_more_bits layers."""
+    Q6_K unless the recipe's type is Q8_0 (llama-quant.cpp keeps a Q8_0
+    head; the JAX package's quantizer makes it Q6_K under every recipe),
+    the token embedding keeps the default, and Q4_K_M promotes attn_v and
+    ffn_down on the use_more_bits layers."""
     i_layer = int(name.split(".")[1]) if name.startswith("blk.") else -1
     if name == "output.weight":
-        return GGMLType.Q6_K
+        return default if default == GGMLType.Q8_0 else GGMLType.Q6_K
     if name == "token_embd.weight":
         return default
     if ftype == "Q4_K_M" and i_layer >= 0:
@@ -152,14 +175,14 @@ def write_qwen3_gguf(path, cfg: Qwen3Config, recipe: str,
     w.add_kv("tokenizer.ggml.tokens", [f"<t{i}>" for i in range(cfg.n_vocab)])
     types = {}
 
-    def blocks(t: GGMLType, nb: int) -> np.ndarray:
-        if t == GGMLType.Q4_K:
-            return q4k_blocks(nb, device, generator).cpu().numpy()
-        return q6k_blocks(nb, device, generator).cpu().numpy()
+    make = {GGMLType.Q4_K: q4k_blocks, GGMLType.Q6_K: q6k_blocks,
+            GGMLType.Q8_0: q8_0_blocks}
 
     def quant(name: str, n: int, k: int) -> None:
         t = types[name] = pick_type(name, recipe, default, cfg.n_layers)
-        w.add_tensor(name, lambda: blocks(t, n * k // 256), t, (n, k))
+        nb = n * k // type_traits(t).block_size
+        w.add_tensor(name, lambda: make[t](nb, device, generator).cpu().numpy(),
+                     t, (n, k))
 
     def norm(name: str, n: int) -> None:
         types[name] = GGMLType.F32
@@ -224,4 +247,44 @@ def synth_qwen3_params(cfg: Qwen3Config = QWEN3_8B, device=None,
             "w_gate": q4k(ff, d), "w_up": q4k(ff, d), "w_down": q4k(d, ff),
         }
         params["layers"].append(fuse_layer(layer) if fuse else layer)
+    return params
+
+
+def synth_qwen3_dense_params(cfg: Qwen3Config = QWEN3_8B, device=None,
+                             generator: torch.Generator | None = None) -> dict:
+    """Parameter dict of a random dense Qwen3 (separate output head,
+    unfused) on `device`, as `load_params` makes it from an F16 GGUF: each
+    2-D weight drawn normal with RMS 0.025, rounded to f16 as the file
+    stores it, then to bf16 as `load_quantized` loads an F16 tensor; norms
+    f32 ones. `generator` must live on that device; default: seed 0."""
+    from . import resolve_device
+
+    device = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    d, ff = cfg.d_model, cfg.d_ff
+    qd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+
+    def dense(n, k):
+        w = torch.empty((n, k), dtype=torch.bfloat16, device=device)
+        for r in range(0, n, 16384):  # f32 draws in slices of <= 256 MB
+            rows = min(16384, n - r)
+            v = torch.randn((rows, k), device=device, generator=generator)
+            w[r:r + rows] = (v * 0.025).to(torch.float16).to(torch.float32)
+        return w
+
+    def norm(n):
+        return torch.ones((n,), dtype=torch.float32, device=device)
+
+    params = {"token_embd": dense(cfg.n_vocab, d), "output_norm": norm(d),
+              "output": dense(cfg.n_vocab, d), "layers": []}
+    for _ in range(cfg.n_layers):
+        params["layers"].append({
+            "attn_norm": norm(d),
+            "wq": dense(qd, d), "wk": dense(kvd, d), "wv": dense(kvd, d),
+            "wo": dense(d, qd),
+            "q_norm": norm(cfg.head_dim), "k_norm": norm(cfg.head_dim),
+            "ffn_norm": norm(d),
+            "w_gate": dense(ff, d), "w_up": dense(ff, d),
+            "w_down": dense(d, ff)})
     return params

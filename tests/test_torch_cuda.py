@@ -9,12 +9,13 @@ This file imports no JAX (the card's machine has none)."""
 import pytest
 import torch
 
-from chip_smoke import limit_ratio
+from chip_smoke import flip_limit, limit_ratio
 from omni_tpu_torch.kernels import dequant_matmul as dm
 from omni_tpu_torch.models import qwen3
 from omni_tpu_torch.runtime import Batch, Context, SamplerParams
 from omni_tpu_torch.core.gguf import GGUFReader
-from omni_tpu_torch.testing_synth import (synth_q4k, synth_q6k,
+from omni_tpu_torch.testing_synth import (synth_q4k, synth_q6k, synth_q8_0,
+                                          synth_qwen3_dense_params,
                                           synth_qwen3_params, write_qwen3_gguf)
 
 
@@ -29,7 +30,10 @@ CASES = [("q4k_gemv", synth_q4k, 1, 6144), ("q4k_gemv", synth_q4k, 8, 6144),
          ("q4k_gemm", synth_q4k, 9, 6144), ("q4k_gemm", synth_q4k, 130, 6144),
          ("q6k_gemv", synth_q6k, 1, 6144), ("q6k_gemv", synth_q6k, 8, 6144),
          ("qgemm", synth_q6k, 1, 6144), ("qgemm", synth_q6k, 130, 6144),
-         ("qgemm", synth_q4k, 3, 1280), ("qgemm", synth_q4k, 64, 1280)]
+         ("qgemm", synth_q4k, 3, 1280), ("qgemm", synth_q4k, 64, 1280),
+         ("q8_0_gemv", synth_q8_0, 1, 4096), ("q8_0_gemv", synth_q8_0, 8, 4096),
+         ("q8_0_gemv", synth_q8_0, 3, 1248), ("qgemm", synth_q8_0, 1, 4096),
+         ("qgemm", synth_q8_0, 130, 4096), ("qgemm", synth_q8_0, 64, 1248)]
 
 
 @pytest.mark.cuda
@@ -38,8 +42,8 @@ CASES = [("q4k_gemv", synth_q4k, 1, 6144), ("q4k_gemv", synth_q4k, 8, 6144),
                               for c in CASES])
 def test_cuda_kernel_matches_plain(card, kernel, synth, m, k):
     """Each kernel against its plain version on a ragged N (1000 rows), at
-    a K of whole superblocks and both output dtypes; each launch is counted
-    once."""
+    a K of whole blocks (1248 = 39 Q8_0 blocks: a ragged last K step of
+    kernel D) and both output dtypes; each launch is counted once."""
     gen = torch.Generator(device=card).manual_seed(m)
     qt = synth(1000, k, card, gen)
     x = torch.randn((m, k), device=card, generator=gen).to(torch.bfloat16)
@@ -76,7 +80,7 @@ def test_cuda_forward_goes_through_both_kernels(card):
         assert torch.isfinite(logits).all()
     per_step = 4 * cfg.n_layers + 1
     assert dm.launches == {"q4k_gemm": per_step, "q4k_gemv": 3 * per_step,
-                           "q6k_gemv": 0, "qgemm": 0}
+                           "q6k_gemv": 0, "qgemm": 0, "q8_0_gemv": 0}
 
 
 @pytest.mark.cuda
@@ -101,4 +105,59 @@ def test_cuda_q4km_gguf_goes_through_all_four_kernels(card, tmp_path):
     # layers 0, 3, 6 and 7 of 8 have Q6_K attn_v and ffn_down, and the
     # head is Q6_K: 9 Q6_K and 7 * 8 + 1 - 9 = 48 Q4_K weights
     assert dm.launches == {"q4k_gemm": 48, "qgemm": 9, "q4k_gemv": 48,
-                           "q6k_gemv": 9}
+                           "q6k_gemv": 9, "q8_0_gemv": 0}
+
+
+_SMALL = dict(n_layers=2, d_model=2048, n_heads=16, n_kv_heads=4, head_dim=128,
+              d_ff=4096, n_vocab=1000)
+
+
+@pytest.mark.cuda
+def test_cuda_q8_0_gguf_goes_through_kernels_e_and_d(card, tmp_path):
+    """A small Q8_0 Qwen3 GGUF (every weight Q8_0, the head too) prefills
+    through kernel D and decodes through kernel E, with finite logits."""
+    cfg = qwen3.Qwen3Config(**_SMALL)
+    path = tmp_path / "q8_0.gguf"
+    write_qwen3_gguf(path, cfg, "Q8_0", torch.Generator(device=card).manual_seed(0))
+    params = qwen3.load_params(GGUFReader(path), device=card)
+    ctx = Context(cfg, params, qwen3.forward, qwen3.embed, n_ctx=256,
+                  sampler=SamplerParams(greedy=True), device=card)
+    dm.reset_launches()
+    logits = ctx.prefill(list(range(20)))
+    assert torch.isfinite(logits).all()
+    logits, _ = ctx.decode(Batch(tokens=[int(torch.argmax(logits))]))
+    assert torch.isfinite(logits).all()
+    n = 7 * cfg.n_layers + 1
+    assert dm.launches == {"q4k_gemm": 0, "qgemm": n, "q4k_gemv": 0,
+                           "q6k_gemv": 0, "q8_0_gemv": n}
+
+
+@pytest.mark.cuda
+def test_cuda_dense_dot_matches_the_widened_product(card):
+    """The dense dot on the card (bf16 operands, f32 outputs, K split)
+    equals the widened-f32 product within chip_smoke.py's limit, at both
+    output dtypes, rounds no more bf16 outputs otherwise than the f64 law
+    than flip_limit allows, and a dense model's forward launches no
+    hand-written kernel."""
+    gen = torch.Generator(device=card).manual_seed(0)
+    w = (torch.randn((1000, 4096), device=card, generator=gen) * 0.025).bfloat16()
+    for m in (1, 64):
+        x = torch.randn((m, 4096), device=card, generator=gen).bfloat16()
+        for out_dtype in (torch.bfloat16, torch.float32):
+            got = dm.matmul(x, w, out_dtype)
+            want = dm.dense_matmul_plain(x, w, out_dtype)
+            assert got.dtype == out_dtype
+            assert limit_ratio(got.float(), want.float()) <= 1.0
+        exact = (x.double() @ w.double().T).bfloat16()
+        got, want = dm.matmul(x, w), dm.dense_matmul_plain(x, w)
+        share = [(a != exact).float().mean().item() for a in (got, want)]
+        assert share[0] <= flip_limit(share[1], got.numel()), share
+    cfg = qwen3.Qwen3Config(**_SMALL)
+    params = synth_qwen3_dense_params(cfg, card, gen)
+    ctx = Context(cfg, params, qwen3.forward, qwen3.embed, n_ctx=256,
+                  sampler=SamplerParams(greedy=True), device=card)
+    dm.reset_launches()
+    logits = ctx.prefill(list(range(20)))
+    logits, _ = ctx.decode(Batch(tokens=[int(torch.argmax(logits))]))
+    assert torch.isfinite(logits).all()
+    assert not any(dm.launches.values())

@@ -141,8 +141,10 @@ def test_port_writer_streams_lazy_tensors(tmp_path):
 @pytest.mark.parametrize("qtype,shape,keep", [
     (GGMLType.F32, (64,), True), (GGMLType.F16, (4, 64), True),
     (GGMLType.BF16, (4, 64), True), (GGMLType.Q4_K, (4, 512), False),
-    (GGMLType.Q6_K, (4, 512), False), (GGMLType.Q4_K, (512,), True)],
-    ids=["f32-1d", "f16-2d", "bf16-2d", "q4k-dense", "q6k-dense", "q4k-1d"])
+    (GGMLType.Q6_K, (4, 512), False), (GGMLType.Q4_K, (512,), True),
+    (GGMLType.Q8_0, (4, 96), False), (GGMLType.Q8_0, (96,), True)],
+    ids=["f32-1d", "f16-2d", "bf16-2d", "q4k-dense", "q6k-dense", "q4k-1d",
+         "q8_0-dense", "q8_0-1d"])
 def test_load_quantized_widens_like_jax(qtype, shape, keep):
     """Plain types widen (1-D to f32, 2-D to bf16), and a quantized tensor
     that is not kept quantized dequantises, to the JAX package's values
@@ -156,7 +158,7 @@ def test_load_quantized_widens_like_jax(qtype, shape, keep):
     np.testing.assert_array_equal(got.float().numpy(), want)
 
 
-@pytest.mark.parametrize("qtype", [GGMLType.Q8_0, GGMLType.Q5_K, GGMLType.IQ4_NL],
+@pytest.mark.parametrize("qtype", [GGMLType.Q4_0, GGMLType.Q5_K, GGMLType.IQ4_NL],
                          ids=lambda t: t.name)
 def test_load_quantized_refuses_unported_formats(qtype):
     """The JAX package keeps these quantized; the port raises, naming the

@@ -128,16 +128,16 @@ def test_kernel_build_runs_nvcc_per_source_in_parallel(tmp_path):
             want_dir = _build.build_dir()
     finally:
         _build.load.cache_clear()
-    assert len(started) == len(_build.SOURCES) == 4
+    assert len(started) == len(_build.SOURCES) == 5
     assert waited[0] == len(started)  # all started before the first wait
     for cmd in started:
         assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
     out_dirs = {Path(c[c.index("-o") + 1]).parent for c in started}
     assert out_dirs == {want_dir} and want_dir.parent == tmp_path
-    assert sorted(fns) == ["q4k_gemm", "q4k_gemv", "q6k_gemv", "qgemm_q4k",
-                           "qgemm_q6k"]
+    assert sorted(fns) == ["q4k_gemm", "q4k_gemv", "q6k_gemv", "q8_0_gemv",
+                           "qgemm_q4k", "qgemm_q6k", "qgemm_q8_0"]
     for fn in fns.values():
         assert fn.argtypes[:7] == [ctypes.c_void_p] * 7
         assert fn.argtypes[-1] == ctypes.c_void_p and fn.restype == ctypes.c_int
     assert sorted(p.name for p in want_dir.iterdir()) == [
-        "q4k_gemm.so", "q4k_gemv.so", "q6k_gemv.so", "qgemm.so"]
+        "q4k_gemm.so", "q4k_gemv.so", "q6k_gemv.so", "q8_0_gemv.so", "qgemm.so"]
