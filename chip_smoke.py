@@ -10,7 +10,8 @@ fails where it disagrees with its plain version, or where it rounds
 clearly more bf16 outputs otherwise than the f64 law than its plain
 version does (`flip_limit`). It holds the dense dot of a bf16 weight
 (cuBLAS, K split into chunks) against the widened-f32 product the same
-way. Then it drives four paths at full width and depth (all 36 layers,
+way, and the flash-decode kernels (bf16, int8 and int4 KV cells) against
+their plain versions and the attention law in f64. Then it drives four paths at full width and depth (all 36 layers,
 random weights made on the card from seed S, 0 by default), one model
 resident at a time, each through
 `OmniPipeline.stream_prefill` / `stream_decode`:
@@ -19,7 +20,9 @@ resident at a time, each through
 2. a Q4_K_M Qwen3-8B GGUF written to a temporary directory (about 5 GB,
    deleted before the next path) and loaded back through the port's GGUF
    reader and `qwen3.load_params`, unfused: Q4_K through kernels A and B,
-   Q6_K through kernels C and D;
+   Q6_K through kernels C and D; the same model serves twice more with a
+   quantized KV cache, q8_0 (kernel F, `flash_decode`) and q4_0 (kernel F's
+   int4 branch, `flash_decode4`), every layer's attention in the kernel;
 3. a Q8_0 Qwen3-8B GGUF (about 8.7 GB in $TMPDIR, every weight Q8_0),
    loaded the same way: decode through kernel E, prefill through D;
 4. an F16 Qwen3-8B as `load_params` loads one (dense bf16 weights made on
@@ -30,11 +33,13 @@ per 64-token ubatch, and that its logits agree with the plain path: within
 1e-3 of max|logit| on the all-Q4_K model; on the other three, whose
 logits sit at the bf16 noise floor, within twice the plain path's own
 distance from the same forward with every matmul's law in f64 (over N
-prompts, 3 by default). Every argmax must agree with the plain path's,
+prompts, 3 by default; on the quantized-KV turns the plain path's
+attention is the flash kernel's plain version and the f64 path's is the
+attention law in f64). Every argmax must agree with the plain path's,
 except on the Q8_0 and F16 models, whose logits lie at that floor itself:
 there a row may pick another token only where both the plain path and the
 f64 path have it in a near tie (F64_FACTOR). Last it times each kernel,
-and the dense dot, beside its bound. One flushed line per phase, each with
+the dense dot and the flash kernels beside their bounds. One flushed line per phase, each with
 its seconds and the running total. The second-to-last lines are the card as
 nvidia-smi reports it and a JSON `{"kernels": [...]}` line; the last line
 is {"ok": true, "device": {...}}. Without a CUDA device, or outside a
@@ -132,6 +137,17 @@ N_PROMPTS_Q4KM = 3
 # ratio is held as on the Q4_K_M model.
 
 N_CTX, N_PREFILL, N_DECODE, N_TEACHER = 2048, 64, 128, 8
+# the flash kernels at Qwen3-8B's attention shapes (32 query heads over 8 KV
+# heads of 128): T query tokens over S cells. S = 1000 is no multiple of 512
+# (the Pallas tile halves to 8 cells; the kernel's last split is ragged).
+FLASH_HEADS = (32, 8, 128)
+FLASH_TS, FLASH_SS = (1, 8, 64), (512, 1000, 2048, 8192)
+# the kv-read bucket the served turns decode over (Context.kv_buckets)
+KV_BUCKET = 512
+# times: decode (T = 1) from that bucket up to a 32,768-cell pool, and a
+# 64-token ubatch, which reads the whole N_CTX pool
+FLASH_TIMES = ((1, KV_BUCKET), (1, 2048), (1, 8192), (1, 32768),
+               (N_PREFILL, KV_BUCKET), (N_PREFILL, N_CTX))
 N_LAYERS = 36  # full depth: nothing is cut
 # Q4_K_M Qwen3-8B (llama.cpp's rules): the output head and attn_v, ffn_down
 # of 18 of the 36 layers are Q6_K, the other weights Q4_K
@@ -150,6 +166,17 @@ Q8_0_FILE_BYTES = 8.8e9
 # the pipeline's text filter drops; a sampler emitting special ids fails
 MAX_FILTERED_SHARE = 0.05
 
+# kernel vs plain: both round each p·vs to bf16 (relative error <= 2**-8),
+# but against other running maxima (32-cell tiles in the kernel, the Pallas
+# 512-cell tiles in the plain version), so one term may differ by 2 x 2**-8
+# of p|v|: per output, 2**-7 x Σ p|v| / l (from the f64 law), plus a floor
+# of 1e-6 of its largest value for the f32 sums taken in another order.
+# Measured: 0.15 of the limit at most.
+FLASH_RTOL, FLASH_FLOOR = 2**-7, 1e-6
+# the quantized KV caches the Q4_K_M model serves with: Context kv_dtype ->
+# the flash kernel every layer's attention launches
+KV_TURNS = {"q8_0": "flash_decode", "q4_0": "flash_decode4"}
+
 KERNELS = {
     "q4k_gemv": {"route": "cuda", "source": "omni_tpu_torch/csrc/q4k_gemv.cu",
                  "replaces": "omni_tpu/kernels/dequant_matmul.py:333"},
@@ -161,7 +188,27 @@ KERNELS = {
               "replaces": "omni_tpu/kernels/dequant_matmul.py:103"},
     "q8_0_gemv": {"route": "cuda", "source": "omni_tpu_torch/csrc/q8_0_gemv.cu",
                   "replaces": "omni_tpu/kernels/dequant_matmul.py:333"},
+    "flash_decode": {"route": "cuda", "source": "omni_tpu_torch/csrc/flash_decode.cu",
+                     "replaces": "omni_tpu/kernels/flash_attention.py:141"},
+    "flash_decode4": {"route": "cuda", "source": "omni_tpu_torch/csrc/flash_decode.cu",
+                      "replaces": "omni_tpu/kernels/flash_attention.py:217"},
 }
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count."""
+    from omni_tpu_torch.kernels import dequant_matmul as dm
+    from omni_tpu_torch.kernels import flash_attention as fa
+
+    return {**dm.launches, **fa.launches}
+
+
+def reset_launches() -> None:
+    from omni_tpu_torch.kernels import dequant_matmul as dm
+    from omni_tpu_torch.kernels import flash_attention as fa
+
+    dm.reset_launches()
+    fa.reset_launches()
 
 
 def phase(name: str, t0: float, msg: str = "") -> None:
@@ -305,10 +352,12 @@ def plain_law(name: str, x, w, out_dtype):
 
 
 @contextmanager
-def matmuls_by(qwen3_mod, dm, law):
+def matmuls_by(qwen3_mod, dm, law, attn=None):
     """Run the forward with each kernel, and the dense dot, replaced by
     law(kernel name or "dense_matmul", x, w, out_dtype) under the same dispatch
-    (plain_law or law_f64), for the logits references."""
+    (plain_law or law_f64), and a quantized pool's attention by
+    attn(q, k, v, mask, k_scale, v_scale, scale) on the layer's raw planes
+    (`flash_decode_plain` or `flash_law_f64`), for the logits references."""
     from omni_tpu_torch.kernels.qformats import QTensor
 
     def mm(x, w, out_dtype=None):
@@ -320,8 +369,101 @@ def matmuls_by(qwen3_mod, dm, law):
         return law(dm.kernel_for(x.shape[0], w).__name__,
                    x.to(torch.bfloat16), w, out_dtype)
 
-    with mock.patch.object(qwen3_mod, "matmul", mm):
+    def pool_attn(q, cache, layer, mask, scale=None, kv_limit=None):
+        k, v, ks, vs = cache.layer_planes(layer, limit=kv_limit)
+        return attn(q, k, v, mask, ks, vs, scale)
+
+    with mock.patch.object(qwen3_mod, "matmul", mm), \
+            mock.patch.object(qwen3_mod, "pool_attention", pool_attn):
         yield
+
+
+def flash_law_f64(q, k, v, mask, k_scale=None, v_scale=None, scale=None,
+                  with_abs=False):
+    """The flash law in f64: bf16 q, the cells dequantized in f64 (exact),
+    an exact softmax of the scores with -1e30 where masked, f32 [T, Hq, D]
+    out; with_abs also returns Σ p|v| per output in f64, the scale of the
+    kernel-vs-plain limit."""
+    import torch
+
+    from omni_tpu_torch.kernels import flash_attention as fa
+
+    t, hq, d = q.shape
+    hkv = k.shape[0]
+    bits = fa.cell_bits(k, k_scale)
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    kd, vd = (fa.cells_f32(x, bits).double() for x in (k, v))
+    if bits < 16:
+        kd = kd * k_scale.double()[..., None]
+        vd = vd * v_scale.double()[..., None]
+    sc = fa.heads_major(q.to(torch.bfloat16).double(), hkv) @ kd.transpose(1, 2) * scale
+    sc = torch.where(mask.repeat_interleave(hq // hkv, dim=0)[None], sc, fa.NEG_INF)
+    p = torch.softmax(sc, dim=-1)
+    out = fa.tokens_major(p @ vd, t)
+    if with_abs:
+        return out, fa.tokens_major(p @ vd.abs(), t)
+    return out.float()
+
+
+def flash_inputs(bits: int, t: int, s: int, dev, gen, heads=FLASH_HEADS):
+    """Attention inputs over S cells, Qwen3-8B's `heads` (Hq, Hkv, D) by
+    default: q [T, 32, 128], K/V [8, S, 128] drawn N(0, 1) and stored as the pool stores them (bf16, or
+    quantized by the port's q8_0 / q4_0 codec), a causal mask from real
+    positions (cell c holds position c; the T queries sit just before a
+    masked tail of 16 cells) and, for T > 1, a first row masked everywhere.
+    Returns (q, k, v, mask, k_scale, v_scale)."""
+    import torch
+
+    from omni_tpu_torch.runtime.kv_cache import quant_rows, quant_rows4
+
+    hq, hkv, d = heads
+    q = torch.randn((t, hq, d), device=dev, generator=gen)
+    kf, vf = (torch.randn((hkv, s, d), device=dev, generator=gen) for _ in range(2))
+    tail = min(16, s // 4)
+    cell = torch.arange(s, device=dev)
+    qpos = torch.arange(t, device=dev) + max(s - tail - t, 0)
+    mask = (cell[None] <= qpos[:, None]) & (cell[None] < s - tail)
+    if t > 1:
+        mask[0] = False
+    if bits == 16:
+        return q, kf.to(torch.bfloat16), vf.to(torch.bfloat16), mask, None, None
+    qr = quant_rows if bits == 8 else quant_rows4
+    (ks, k), (vs, v) = qr(kf), qr(vf)
+    return q, k, v, mask, ks, vs
+
+
+def check_flash(bits: int, t: int, s: int, dev, gen, max_err) -> None:
+    """Kernel F (`flash_decode`, or `flash_decode4` for int4 cells) against
+    its plain version within FLASH_RTOL x Σ p|v| (+ FLASH_FLOOR), finite,
+    and its RMS distance from the f64 law within F64_FACTOR of the plain
+    version's."""
+    import torch
+
+    from omni_tpu_torch.kernels import flash_attention as fa
+
+    args = flash_inputs(bits, t, s, dev, gen)
+    name = "flash_decode4" if bits == 4 else "flash_decode"
+    got = fa.flash_decode(*args)
+    want = fa.flash_decode_plain(*args)
+    exact, exact_abs = flash_law_f64(*args, with_abs=True)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    limit = FLASH_RTOL * exact_abs + FLASH_FLOOR * exact_abs.max()
+    worst = ((got - want).abs() / limit).max().item()
+    rms = [(a.double() - exact).pow(2).mean().sqrt().item() for a in (got, want)]
+    ratio = rms[0] / max(rms[1], 1e-30)
+    max_err[name] = max(max_err.get(name, 0.0), err)
+    ok = bool(torch.isfinite(got).all()) and worst <= 1.0 and ratio <= F64_FACTOR
+    print(f"  {name} {({16: 'bf16', 8: 'int8', 4: 'int4'})[bits]} T={t} S={s} "
+          f"split {fa.split_plan(t * FLASH_HEADS[0] // FLASH_HEADS[1], FLASH_HEADS[1], s)}: "
+          f"max|d|={err:.3g}, worst |d|/limit {worst:.3g} (limit {FLASH_RTOL:g} "
+          f"sum p|v| + {FLASH_FLOOR:g} max); rms vs the f64 law kernel {rms[0]:.3g}, "
+          f"plain {rms[1]:.3g}, ratio {ratio:.3g} (limit {F64_FACTOR}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit(f"{name} at T={t} S={s} ({bits}-bit cells) disagrees with "
+                         f"its plain version or the f64 law")
 
 
 def check_kernel(name, kern, plain, w, shape_name, m, out_dtype, gen, max_err):
@@ -370,14 +512,16 @@ def check_kernel(name, kern, plain, w, shape_name, m, out_dtype, gen, max_err):
             f"above flip_limit {lim:.3g}")
 
 
-def serve_turn(label, cfg, params, dev, dm, qwen3, want_step, want_ubatch, rng):
+def serve_turn(label, cfg, params, dev, qwen3, want_step, want_ubatch, rng,
+               kv_dtype="bf16"):
     """The main path: one served turn (session-init prefill of a 64-char
     prompt, a 32-token warm turn, a warm 64-token prefill ubatch, a timed
     N_DECODE-token turn) with every launch count set to 0 just before it
     and read just after. Checks the launches of each kernel in every
     single-token decode step (want_step) and in the 64-token ubatch
     (want_ubatch). The prompt and the ubatch's tokens are drawn from host
-    generator `rng`. Returns (the path's launches, its numbers)."""
+    generator `rng`; the KV cells are `kv_dtype`. Returns (the path's
+    launches, its numbers)."""
     import torch
 
     from omni_tpu_torch.omni.pipeline import OmniPipeline, SessionConfig
@@ -386,13 +530,16 @@ def serve_turn(label, cfg, params, dev, dm, qwen3, want_step, want_ubatch, rng):
     calls = []  # (rows, launches of that forward call), in order
 
     def counted_forward(params, cfg, x, *a, **kw):
-        before = dict(dm.launches)
+        before = launch_counts()
         out = qwen3.forward(params, cfg, x, *a, **kw)
-        calls.append((x.shape[0], {k: v - before[k] for k, v in dm.launches.items()}))
+        calls.append((x.shape[0], {k: v - before[k] for k, v in launch_counts().items()}))
         return out
 
     llm = Context(cfg, params, counted_forward, qwen3.embed, n_ctx=N_CTX,
-                  sampler=SamplerParams(greedy=True), device=dev)
+                  sampler=SamplerParams(greedy=True), device=dev, kv_dtype=kv_dtype)
+    cache = llm.cache
+    kv_bytes_per_cell = sum(x.nbytes for x in (cache.k, cache.v, cache.k_scale,
+                                                cache.v_scale) if x is not None) / cache.size
     pipe = OmniPipeline(llm, BenchTokenizer(),
                         SessionConfig(max_preserved_context=N_CTX))
     prompt = "".join(chr(65 + int(c)) for c in torch.randint(0, 26, (N_PREFILL,),
@@ -418,7 +565,7 @@ def serve_turn(label, cfg, params, dev, dm, qwen3, want_step, want_ubatch, rng):
                 return
             texts.append(ev.get("content", ""))
 
-    dm.reset_launches()  # the main path starts here
+    reset_launches()  # the main path starts here
     t1 = time.perf_counter()
     pipe.stream_prefill(index=0, system_prompt=prompt)
     torch.cuda.synchronize()
@@ -446,7 +593,7 @@ def serve_turn(label, cfg, params, dev, dm, qwen3, want_step, want_ubatch, rng):
     torch.cuda.synchronize()
     turn_s = time.perf_counter() - t1
     drain()
-    launches = dict(dm.launches)  # the main path ends here
+    launches = launch_counts()  # the main path ends here
     steps = [c for t, c in calls[n_before:] if t == 1]
     decode_ms_per_token = turn_s * 1e3 / N_DECODE
     text = "".join(texts)
@@ -478,10 +625,12 @@ def serve_turn(label, cfg, params, dev, dm, qwen3, want_step, want_ubatch, rng):
                       "warm_prefill_ms": warm_prefill_ms,
                       "tokens_filtered": n_filtered,
                       "session_init_prefill_ms": prefill_ms,
-                      "layers": cfg.n_layers}
+                      "layers": cfg.n_layers, "kv_dtype": str(kv_dtype),
+                      "kv_bytes_per_cell": kv_bytes_per_cell}
 
 
-def teacher_forced(cfg, params, dev, dm, qwen3, prompts, against: str) -> dict:
+def teacher_forced(cfg, params, dev, dm, qwen3, prompts, against: str,
+                   kv_dtype="bf16") -> dict:
     """Logits of the kernel path, the plain path and the f64 path (every
     matmul's law in f64) over each prompt of `prompts` (token arrays): a
     prefill and N_TEACHER decode steps fed the kernel path's own greedy
@@ -492,14 +641,19 @@ def teacher_forced(cfg, params, dev, dm, qwen3, prompts, against: str) -> dict:
     rows of all prompts within F64_FACTOR of the plain path's;
     "f64_near_tie", the same RMS ratio, and an argmax that differs from the
     plain path's only on a near tie of both the plain and the f64 path (see
-    F64_FACTOR). Returns the readings, with the rows admitted as near ties."""
+    F64_FACTOR). The KV cells are `kv_dtype`; a quantized pool's attention
+    is the flash kernel's plain version on the plain path and the law in f64
+    on the f64 path. Returns the readings, with the rows admitted as near
+    ties."""
     import torch
 
+    from omni_tpu_torch.kernels.flash_attention import flash_decode_plain
     from omni_tpu_torch.runtime import Batch, Context, SamplerParams
 
     def run(tokens, forced=None):
         ctx = Context(cfg, params, qwen3.forward, qwen3.embed, n_ctx=N_CTX,
-                      sampler=SamplerParams(greedy=True), device=dev)
+                      sampler=SamplerParams(greedy=True), device=dev,
+                      kv_dtype=kv_dtype)
         lg, _ = ctx.decode(Batch(tokens=tokens))
         rows, fed = [lg[-1].float()], []
         for i in range(N_TEACHER):
@@ -512,9 +666,9 @@ def teacher_forced(cfg, params, dev, dm, qwen3, prompts, against: str) -> dict:
     per, diffs, bad = [], {"kernel": [], "plain": []}, []
     for i, tokens in enumerate(prompts):
         got, fed = run(tokens)
-        with matmuls_by(qwen3, dm, plain_law):
+        with matmuls_by(qwen3, dm, plain_law, flash_decode_plain):
             want, _ = run(tokens, fed)
-        with matmuls_by(qwen3, dm, law_f64):
+        with matmuls_by(qwen3, dm, law_f64, flash_law_f64):
             exact, _ = run(tokens, fed)
         err = (got - want).abs().max().item()
         scale = want.abs().max().item()
@@ -694,6 +848,61 @@ def time_kernels(name, kern, plain, weights, ms, gen, synth, rows) -> None:
         del ws, w_bf16
 
 
+def time_flash(rows, dev, gen) -> None:
+    """Time kernel F for each cell type at each FLASH_TIMES shape, in a CUDA
+    graph over copies of the planes that stream more than twice the L2 per
+    round (as a decode step streams every layer's cells from HBM), beside
+    its plain version, the library yardstick (SDPA on K/V pre-dequantised to
+    bf16 with the same boolean mask; the port never calls it) and its bound:
+    the bytes of cells, scales, q (bf16), out (f32) and mask, each once,
+    over HBM bandwidth vs 4·T·Hq·S·D operations over the bf16 tensor-core
+    peak."""
+    import torch
+    import torch.nn.functional as F
+
+    from omni_tpu_torch.kernels import flash_attention as fa
+    from omni_tpu_torch.runtime.kv_cache import dequant4
+
+    hq, hkv, d = FLASH_HEADS
+    for bits, cells in ((16, "bf16"), (8, "int8"), (4, "int4")):
+        name = "flash_decode4" if bits == 4 else "flash_decode"
+        for t, s in FLASH_TIMES:
+            q, k, v, mask, ks, vs = flash_inputs(bits, t, s, dev, gen)
+            planes = [x for x in (k, v, ks, vs) if x is not None]
+            nbytes = sum(x.nbytes for x in planes)
+            pool = [(k, v, ks, vs)] + [
+                tuple(None if x is None else x.clone() for x in (k, v, ks, vs))
+                for _ in range(min(127, L2_FLUSH_BYTES // nbytes))]
+
+            def bf16_cells(x, sc):
+                if bits == 16:
+                    return x
+                if bits == 4:
+                    return dequant4(x, sc)
+                return x.to(torch.bfloat16) * sc[..., None].to(torch.bfloat16)
+
+            lib = [(bf16_cells(a, c)[None], bf16_cells(b, e)[None]) for a, b, c, e in pool]
+            q4 = q.to(torch.bfloat16).transpose(0, 1)[None]
+            m4 = mask[None, None]
+            iters = max(24, len(pool))
+            t_k = graph_ms(lambda i: fa.flash_decode(q, *pool[i % len(pool)][:2], mask,
+                                                     *pool[i % len(pool)][2:]), iters)
+            t_p = cuda_ms(lambda: fa.flash_decode_plain(q, k, v, mask, ks, vs), 3)
+            t_l = graph_ms(lambda i: F.scaled_dot_product_attention(
+                q4, *lib[i % len(lib)], attn_mask=m4, enable_gqa=True), iters)
+            io = nbytes + t * hq * d * (2 + 4) + t * s
+            t_bytes = io / HBM_BYTES_PER_S * 1e3
+            t_ops = 4.0 * t * hq * s * d / BF16_TENSOR_OPS_PER_S * 1e3
+            b, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+            rows.append({"kernel": name, "cells": cells, "t": t, "s": s, "ms": t_k,
+                         "plain_ms": t_p, "library_ms": t_l, "bound_ms": b,
+                         "bound_by": by, "split": fa.split_plan(t * hq // hkv, hkv, s)})
+            print(f"  {name} {cells} T={t} S={s}: {t_k:.4f} ms, plain {t_p:.4f}, "
+                  f"SDPA(bf16) {t_l:.4f}, bound {b:.4f} ({by}), {b / t_k:.1%} of "
+                  f"bound; x {N_LAYERS} layers {t_k * N_LAYERS:.3f} ms", flush=True)
+            del pool, lib
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--prompts", type=int, default=N_PROMPTS_Q4KM,
@@ -779,6 +988,12 @@ def main() -> int:
                          nm, m, torch.float32 if nm == "output" else torch.bfloat16,
                          gen, max_err)
     phase("kernels-vs-plain", t0, json.dumps(max_err))
+    t0 = time.perf_counter()
+    for bits in (16, 8, 4):
+        for t in FLASH_TS:
+            for s in FLASH_SS:
+                check_flash(bits, t, s, dev, gen, max_err)
+    phase("flash-vs-plain", t0, json.dumps({k: max_err[k] for k in KV_TURNS.values()}))
 
     paths, launches_by_path = {}, {}
     zero = {name: 0 for name in KERNELS}
@@ -803,7 +1018,7 @@ def main() -> int:
     per_step = 4 * cfg.n_layers + 1
     rng = torch.Generator().manual_seed(0)
     launches, stats = serve_turn(
-        "all-Q4_K fused", cfg, params, dev, dm, qwen3,
+        "all-Q4_K fused", cfg, params, dev, qwen3,
         {**zero, "q4k_gemv": per_step}, {**zero, "q4k_gemm": per_step}, rng)
     tf = teacher_forced(cfg, params, dev, dm, qwen3,
                         [torch.randint(0, 1000, (N_PREFILL,), generator=rng).numpy()],
@@ -826,13 +1041,27 @@ def main() -> int:
     want_step = {**zero, "q4k_gemv": N_Q4K, "q6k_gemv": N_Q6K}
     want_ubatch = {**zero, "q4k_gemm": N_Q4K, "qgemm": N_Q6K}
     rng = torch.Generator().manual_seed(0)
-    launches, stats = serve_turn("Q4_K_M from GGUF", cfg, params, dev, dm,
+    launches, stats = serve_turn("Q4_K_M from GGUF", cfg, params, dev,
                                  qwen3, want_step, want_ubatch, rng)
     prompts = [torch.randint(0, 1000, (N_PREFILL,), generator=rng).numpy()
                for _ in range(args.prompts)]
     tf = teacher_forced(cfg, params, dev, dm, qwen3, prompts, "f64")
-    del params, qts
     finish("q4_k_m_gguf", "served-turn-q4km", launches, {**stats, **io}, tf, t0)
+
+    # ---- the same model, quantized KV cache (kernel F) ---------------------
+    for kv, flash in KV_TURNS.items():
+        t0 = time.perf_counter()
+        rng = torch.Generator().manual_seed(0)
+        launches, stats = serve_turn(
+            f"Q4_K_M from GGUF, {kv} KV", cfg, params, dev, qwen3,
+            {**want_step, flash: cfg.n_layers}, {**want_ubatch, flash: cfg.n_layers},
+            rng, kv_dtype=kv)
+        prompts = [torch.randint(0, 1000, (N_PREFILL,), generator=rng).numpy()
+                   for _ in range(args.prompts)]
+        tf = teacher_forced(cfg, params, dev, dm, qwen3, prompts, "f64", kv_dtype=kv)
+        finish(f"q4_k_m_gguf_kv_{kv}", f"served-turn-q4km-kv-{kv}", launches,
+               stats, tf, t0)
+    del params, qts
 
     # ---- path 3: Q8_0 Qwen3-8B from a GGUF file (kernels E and D) ----------
     t0 = time.perf_counter()
@@ -850,7 +1079,7 @@ def main() -> int:
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
     t0 = time.perf_counter()
     rng = torch.Generator().manual_seed(0)
-    launches, stats = serve_turn("Q8_0 from GGUF", cfg, params, dev, dm, qwen3,
+    launches, stats = serve_turn("Q8_0 from GGUF", cfg, params, dev, qwen3,
                                  {**zero, "q8_0_gemv": N_UNFUSED},
                                  {**zero, "qgemm": N_UNFUSED}, rng)
     prompts = [torch.randint(0, 1000, (N_PREFILL,), generator=rng).numpy()
@@ -871,7 +1100,7 @@ def main() -> int:
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
     t0 = time.perf_counter()
     rng = torch.Generator().manual_seed(0)
-    launches, stats = serve_turn("F16 dense", cfg, params, dev, dm, qwen3,
+    launches, stats = serve_turn("F16 dense", cfg, params, dev, qwen3,
                                  zero, zero, rng)
     step_alloc, step_base = decode_step_alloc(cfg, params, dev, qwen3, rng)
     print(f"  F16 decode step: peak allocation {step_alloc / 1e6:.3f} MB above "
@@ -911,6 +1140,8 @@ def main() -> int:
     time_kernels("dense_matmul", dm.dense_matmul, dm.dense_matmul_plain,
                  dense_weights, (1, N_PREFILL), gen, synth_dense, rows)
     del dense_weights
+    torch.cuda.empty_cache()
+    time_flash(rows, dev, gen)
     phase("times", t0)
 
     # per kernel, the sum over the calls of one served token (M=1) or one
@@ -927,8 +1158,8 @@ def main() -> int:
                "output of Q8_0 Qwen3-8B")
 
     def summed(name, fmt, m, calls):
-        sel = [r for r in rows if r["kernel"] == name and r["m"] == m
-               and r["fmt"] == fmt]
+        sel = [r for r in rows if r["kernel"] == name and r.get("m") == m
+               and r.get("fmt") == fmt]
         tot = {key: sum(r[key] * calls[r["shape"]] for r in sel)
                for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                            "planes_bound_ms")}
@@ -954,6 +1185,29 @@ def main() -> int:
         if name == "qgemm":
             entry["q8_0"] = {**summed("qgemm", "Q8_0", 64, UNFUSED_CALLS),
                              "work": q8_work}
+        entries.append(entry)
+    # kernel F per decode token (T = 1 over the served turns' kv bucket) and
+    # per 64-token ubatch (over the whole pool), x 36 layers
+    def flash(cells, t, s):
+        r = next(r for r in rows if r.get("cells") == cells and (r["t"], r["s"]) == (t, s))
+        return {**{key: r[key] * N_LAYERS for key in ("ms", "plain_ms", "library_ms",
+                                                       "bound_ms")},
+                "bound_by": r["bound_by"]}
+
+    flash_work = (f"{N_LAYERS} layers x (T=1 over {KV_BUCKET} cells) per decode "
+                  f"token; per_ubatch: {N_LAYERS} x (T={N_PREFILL} over the "
+                  f"{N_CTX}-cell pool)")
+    for name, cells in (("flash_decode", "int8"), ("flash_decode4", "int4")):
+        entry = {"name": name, **KERNELS[name], "launches": launches[name],
+                 "launches_by_path": {p: lp[name] for p, lp in launches_by_path.items()},
+                 "max_abs_err": max_err[name], **flash(cells, 1, KV_BUCKET),
+                 "work": f"{cells} cells: {flash_work}",
+                 "per_ubatch": flash(cells, N_PREFILL, N_CTX),
+                 "per_call": [r for r in rows if r.get("cells") == cells]}
+        if name == "flash_decode":
+            entry["bf16"] = {**flash("bf16", 1, KV_BUCKET),
+                             "per_ubatch": flash("bf16", N_PREFILL, N_CTX),
+                             "per_call": [r for r in rows if r.get("cells") == "bf16"]}
         entries.append(entry)
     dense = {f"per_{unit}": {**summed("dense_matmul", "dense", m, UNFUSED_CALLS),
                              "work": f"M={m}: the F16 path's 253 dense dots"}

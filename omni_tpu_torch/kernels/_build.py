@@ -21,16 +21,27 @@ from typing import Callable
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
-# each source and its C entry points, one per kernel or per format
-SOURCES = {"q4k_gemv.cu": ("q4k_gemv",), "q4k_gemm.cu": ("q4k_gemm",),
-           "q6k_gemv.cu": ("q6k_gemv",), "q8_0_gemv.cu": ("q8_0_gemv",),
-           "qgemm.cu": ("qgemm_q4k", "qgemm_q6k", "qgemm_q8_0")}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-# every kernel entry point: (x, q, sc, mn, d, dm, out, m, n, k, out_f32,
-# stream) -> cudaError_t as int
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# a matmul entry point: (x, q, sc, mn, d, dm, out, m, n, k, out_f32, stream)
+MATMUL_ARGS = [_P] * 7 + [_I] * 4 + [_P]
+# a flash-decode entry point: (q, k, v, mask, k_scale, v_scale, out,
+# workspace, t, hkv, g, s, d, head_stride, scale_stride, scale,
+# rows_per_warp, per_split, nsplit, stream)
+FLASH_ARGS = ([_P] * 8 + [_I] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_float]
+              + [_I] * 3 + [_P])
+# each source, its C entry points (one per kernel, format or cell type) and
+# their argument types; every entry returns cudaError_t as int
+SOURCES = {
+    "q4k_gemv.cu": {"q4k_gemv": MATMUL_ARGS},
+    "q4k_gemm.cu": {"q4k_gemm": MATMUL_ARGS},
+    "q6k_gemv.cu": {"q6k_gemv": MATMUL_ARGS},
+    "q8_0_gemv.cu": {"q8_0_gemv": MATMUL_ARGS},
+    "qgemm.cu": dict.fromkeys(("qgemm_q4k", "qgemm_q6k", "qgemm_q8_0"), MATMUL_ARGS),
+    "flash_decode.cu": dict.fromkeys(
+        ("flash_decode_bf16", "flash_decode_i8", "flash_decode_i4"), FLASH_ARGS)}
 
 
 def nvcc() -> str:
@@ -84,9 +95,9 @@ def load() -> dict[str, Callable[..., int]]:
     fns = {}
     for name, entries in SOURCES.items():
         lib = ctypes.CDLL(str(out_dir / (Path(name).stem + ".so")))
-        for entry in entries:
+        for entry, argtypes in entries.items():
             fn = getattr(lib, entry)
-            fn.argtypes = _ARGTYPES
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             fns[entry] = fn
     return fns

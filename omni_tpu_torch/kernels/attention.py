@@ -1,7 +1,8 @@
 """Attention over the unified KV cell pool (counterpart of
 omni_tpu/kernels/attention.py): a masked softmax over every cell with GQA
 head grouping. The JAX package leaves this to XLA on the bf16 pool, so the
-port leaves it to plain PyTorch. Every product is accumulated in f32: on
+port leaves it to plain PyTorch; a quantized pool goes through the flash
+kernel (`pool_attention`). Every product is accumulated in f32: on
 the card the operands are rounded to bf16 and go to cuBLAS as they are,
 with f32 outputs and K split into chunks (`dequant_matmul.bmm_f32`, the
 `preferred_element_type=float32` dot; the bf16 pool is never copied); on
@@ -13,8 +14,7 @@ from __future__ import annotations
 import torch
 
 from .dequant_matmul import bmm_f32
-
-NEG_INF = -1e30
+from .flash_attention import NEG_INF, flash_decode, heads_major, tokens_major
 
 
 def _on_cuda(a: torch.Tensor) -> bool:
@@ -27,20 +27,6 @@ def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if _on_cuda(a):
         return bmm_f32(a.to(torch.bfloat16), b.to(torch.bfloat16))
     return torch.matmul(a.to(torch.float32), b.to(torch.float32))
-
-
-def _heads_major(q: torch.Tensor, hkv: int) -> torch.Tensor:
-    """[T, Hq, D] -> [Hkv, T*G, D] (row r = t*G + g)."""
-    t, hq, d = q.shape
-    g = hq // hkv
-    return q.reshape(t, hkv, g, d).permute(1, 0, 2, 3).reshape(hkv, t * g, d)
-
-
-def _tokens_major(out: torch.Tensor, t: int) -> torch.Tensor:
-    """[Hkv, T*G, Dv] -> [T, Hq, Dv]."""
-    hkv, tg, dv = out.shape
-    g = tg // t
-    return out.reshape(hkv, t, g, dv).permute(1, 0, 2, 3).reshape(t, hkv * g, dv)
 
 
 def mixed_attention(q: torch.Tensor,  # [T, Hq, D]
@@ -60,7 +46,7 @@ def mixed_attention(q: torch.Tensor,  # [T, Hq, D]
     g = hq // hkv
     if scale is None:
         scale = 1.0 / (d ** 0.5)
-    qh = _heads_major(q, hkv)
+    qh = heads_major(q, hkv)
     kc = k_cur.transpose(0, 1)  # [Hkv, T, D]
     vc = v_cur.transpose(0, 1)
     sc_pool = _mm(qh, k_pool.transpose(1, 2)) * scale
@@ -72,7 +58,7 @@ def mixed_attention(q: torch.Tensor,  # [T, Hq, D]
     p = torch.softmax(torch.cat([sc_pool, sc_cur], dim=-1), dim=-1)
     s = k_pool.shape[1]
     out = _mm(p[..., :s], v_pool) + _mm(p[..., s:], vc)
-    return _tokens_major(out, t)
+    return tokens_major(out, t)
 
 
 def cache_attention(q: torch.Tensor,  # [T, Hq, D]
@@ -86,8 +72,24 @@ def cache_attention(q: torch.Tensor,  # [T, Hq, D]
     g = hq // hkv
     if scale is None:
         scale = 1.0 / (d ** 0.5)
-    scores = _mm(_heads_major(q, hkv), k.transpose(1, 2)) * scale
+    scores = _mm(heads_major(q, hkv), k.transpose(1, 2)) * scale
     scores = torch.where(mask.repeat_interleave(g, dim=0)[None], scores,
                          NEG_INF)
     p = torch.softmax(scores, dim=-1)
-    return _tokens_major(_mm(p, v), t)
+    return tokens_major(_mm(p, v), t)
+
+
+def pool_attention(q: torch.Tensor, cache, layer: int, mask: torch.Tensor,
+                   scale: float | None = None,
+                   kv_limit: int | None = None) -> torch.Tensor:
+    """Attention of q ([T, Hq, D]) over one layer of the cell pool, as the
+    JAX package routes it (attention.py:112-140): a quantized pool goes
+    through the flash kernel on its raw planes (on the card the kernel, on
+    the CPU its plain law; the JAX package takes `read_layer` +
+    `cache_attention` off the TPU), a bf16 pool through `read_layer` +
+    `cache_attention`. Returns [T, Hq, D] f32."""
+    if cache.quantized:
+        k, v, ks, vs = cache.layer_planes(layer, limit=kv_limit)
+        return flash_decode(q, k, v, mask, k_scale=ks, v_scale=vs, scale=scale)
+    kc, vc = cache.read_layer(layer, limit=kv_limit)
+    return cache_attention(q, kc, vc, mask, scale=scale)

@@ -16,7 +16,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from ..kernels.attention import mixed_attention
+from ..kernels.attention import mixed_attention, pool_attention
 from ..kernels.dequant_matmul import matmul
 from ..kernels.norms import rms_norm
 from ..kernels.qformats import QTensor, concat_qtensors, load_quantized
@@ -195,19 +195,29 @@ def forward(params: dict, cfg: Qwen3Config,
     """One decode/prefill step. Returns (logits [T, vocab] f32, hidden
     [T, d_model] f32 — the tap the omni TTS projector reads, the cache).
 
-    Deferred write: every layer attends over the pool as it was before this
-    ubatch plus the ubatch's own K/V as extra columns; all layers' K/V land
-    in the pool with one scatter at the end. The cache is updated in place.
+    bf16 cells, deferred write: every layer attends over the pool as it was
+    before this ubatch plus the ubatch's own K/V as extra columns; all
+    layers' K/V land in the pool with one scatter at the end. Quantized
+    cells, write-then-read (JAX qwen3.py:889-911, 1150-1163): the ubatch's
+    cell metadata is committed first, then each layer quantizes its K/V
+    into the pool and attends over the pool alone (`pool_attention`, the
+    flash kernel). The cache is updated in place.
     """
     t = x.shape[0]
     h = x.to(torch.bfloat16)
     if write_mask is None:
         write_mask = torch.ones((t,), dtype=torch.bool, device=x.device)
-    mask = cache.attn_mask(pos, seq_id, limit=kv_limit)  # pool only
-    mask_cur = ((seq_bits_of(seq_id)[None, :]
-                 & primary_seq_bit(seq_id)[:, None]) != 0)
-    mask_cur = mask_cur & (pos[None, :] <= pos[:, None]) & write_mask[None, :]
-    new_ks, new_vs = [], []
+    deferred = not cache.quantized
+    if deferred:
+        mask = cache.attn_mask(pos, seq_id, limit=kv_limit)  # pool only
+        mask_cur = ((seq_bits_of(seq_id)[None, :]
+                     & primary_seq_bit(seq_id)[:, None]) != 0)
+        mask_cur = mask_cur & (pos[None, :] <= pos[:, None]) & write_mask[None, :]
+        new_ks, new_vs = [], []
+    else:
+        # commit first, so the ubatch attends causally to its own cells
+        cache.commit(slots, pos, seq_id, valid=write_mask)
+        mask = cache.attn_mask(pos, seq_id, limit=kv_limit)  # [T, S]
     for li, lp in enumerate(params["layers"]):
         hn = rms_norm(h, lp["attn_norm"], cfg.rms_eps)
         q, k, v = _qkv(lp, cfg, hn)
@@ -217,14 +227,21 @@ def forward(params: dict, cfg: Qwen3Config,
             k = rms_norm(k, lp["k_norm"], cfg.rms_eps)
         q = apply_rope(q, pos, cfg.rope_base)
         k = apply_rope(k, pos, cfg.rope_base)
-        kc, vc = cache.read_layer(li, limit=kv_limit)
-        attn = mixed_attention(q, kc, vc, k, v, mask, mask_cur)
-        new_ks.append(k)
-        new_vs.append(v)
+        if deferred:
+            kc, vc = cache.read_layer(li, limit=kv_limit)
+            attn = mixed_attention(q, kc, vc, k, v, mask, mask_cur)
+            new_ks.append(k)
+            new_vs.append(v)
+        else:
+            # padding rows write into their slots too: the committed
+            # metadata leaves those cells free, so they are never attended
+            cache.write(li, slots, k, v)
+            attn = pool_attention(q, cache, li, mask, kv_limit=kv_limit)
         h = h + matmul(attn.reshape(t, -1), lp["wo"])
         h = h + _ffn(lp, cfg, rms_norm(h, lp["ffn_norm"], cfg.rms_eps))
-    cache.write_all(slots, torch.stack(new_ks), torch.stack(new_vs))
-    cache.commit(slots, pos, seq_id, valid=write_mask)
+    if deferred:
+        cache.write_all(slots, torch.stack(new_ks), torch.stack(new_vs))
+        cache.commit(slots, pos, seq_id, valid=write_mask)
     hidden = rms_norm(h, params["output_norm"], cfg.rms_eps)
     head = params["output"] if params.get("output") is not None \
         else params["token_embd"]

@@ -53,7 +53,12 @@ class Context:
     def __init__(self, cfg, params: dict, forward_fn: Callable,
                  embed_fn: Callable, n_ctx: int = 4096,
                  sampler: SamplerParams | None = None,
-                 buckets: tuple[int, ...] = BUCKETS, device=None):
+                 buckets: tuple[int, ...] = BUCKETS, device=None,
+                 kv_dtype=torch.bfloat16):
+        """`kv_dtype` is the cell type of the KV pool, as `KVCache.create`
+        takes it: torch.bfloat16 (or "bf16"), "q8_0" (or torch.int8) or
+        "q4_0" — the server's `--cache-type-k`, which quantizes K and V
+        alike."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -61,7 +66,7 @@ class Context:
         self._embed = embed_fn
         self.n_ctx = n_ctx
         self.cache = KVCache.create(cfg.n_layers, n_ctx, cfg.n_kv_heads,
-                                    cfg.head_dim, self.device)
+                                    cfg.head_dim, self.device, dtype=kv_dtype)
         self.sampler = sampler or SamplerParams()
         self.prev_tokens = torch.full((max(self.sampler.penalty_last_n, 1),),
                                       -1, dtype=torch.int64,

@@ -1,14 +1,21 @@
-"""Unified KV cell pool with llama.cpp session semantics — the bf16 subset
-of omni_tpu/runtime/kv_cache.py that the served decode path uses.
+"""Unified KV cell pool with llama.cpp session semantics — the subset of
+omni_tpu/runtime/kv_cache.py that the served decode path uses: bf16 cells,
+or the quantized cells of `--cache-type-k q8_0 | q4_0`.
 
 A fixed pool of `size` cells per layer; a cell is (pos int, seq_mask
 bitset) where bit s means "belongs to sequence s". K/V are head-major
 [L, Hkv, S, D]. Cell choice (find_slots) and masks match the JAX cache cell
 for cell.
 
+A quantized pool stores each (cell, head) row of D values with one f32
+scale (the JAX package's law, not llama.cpp's per-32 blocks): int8 rows
+(q8_0), or two logical columns d and d + D/2 per byte, each a nibble biased
++8 (q4_0: planes [L, Hkv, S, D/2] uint8). The codecs match the JAX ones bit
+for bit.
+
 Unlike the JAX cache, which is an immutable pytree, this one is UPDATED IN
-PLACE: write_all, commit and seq_rm mutate the tensors and return `self`,
-so a step never copies the pool.
+PLACE: write, write_all, commit and seq_rm mutate the tensors and return
+`self`, so a step never copies the pool.
 """
 
 from __future__ import annotations
@@ -30,25 +37,54 @@ def primary_seq_bit(seq: torch.Tensor) -> torch.Tensor:
     return bits & (-bits)
 
 
+def kv_bits(dtype) -> int:
+    """Cell bit width of a KV dtype as `create` takes it (the JAX package's
+    names): torch.bfloat16 or "bf16" 16; torch.int8 or "q8_0" 8; "q4_0" or
+    "int4" 4. Raises ValueError for anything else."""
+    if isinstance(dtype, str):
+        bits = {"bf16": 16, "q8_0": 8, "q4_0": 4, "int4": 4}.get(dtype)
+    else:
+        bits = {torch.bfloat16: 16, torch.int8: 8}.get(dtype)
+    if bits is None:
+        raise ValueError(f"KV dtype {dtype!r}: want torch.bfloat16, 'bf16', "
+                         "torch.int8, 'q8_0', 'q4_0' or 'int4'")
+    return bits
+
+
 class KVCache:
-    """Per-model cache state (all layers), bf16 cells."""
+    """Per-model cache state (all layers)."""
 
     def __init__(self, k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor,
-                 seq_mask: torch.Tensor):
-        self.k = k  # [L, Hkv, S, D] bf16
+                 seq_mask: torch.Tensor, k_scale: torch.Tensor | None = None,
+                 v_scale: torch.Tensor | None = None, bits: int = 16):
+        self.k = k  # [L, Hkv, S, D] bf16 or int8; [L, Hkv, S, D/2] uint8
         self.v = v
+        self.k_scale = k_scale  # [L, Hkv, S] f32, set when quantized
+        self.v_scale = v_scale
         self.pos = pos  # [S] int32, -1 = unused
         self.seq_mask = seq_mask  # [S] int64 bitset of owning sequences
+        self.bits = bits  # 16 (bf16), 8 (int8) or 4 (packed nibbles)
 
     @staticmethod
     def create(n_layers: int, size: int, n_kv_heads: int, head_dim: int,
-               device) -> "KVCache":
-        shape = (n_layers, n_kv_heads, size, head_dim)
+               device, dtype=torch.bfloat16) -> "KVCache":
+        bits = kv_bits(dtype)
+        if bits == 4 and head_dim % 2:
+            raise ValueError(f"q4_0 cells need an even head_dim, got {head_dim}")
+        cell = {16: (head_dim, torch.bfloat16), 8: (head_dim, torch.int8),
+                4: (head_dim // 2, torch.uint8)}[bits]
+        shape = (n_layers, n_kv_heads, size, cell[0])
+
+        def scales():
+            return (torch.zeros(shape[:3], dtype=torch.float32, device=device)
+                    if bits < 16 else None)
+
         return KVCache(
-            k=torch.zeros(shape, dtype=torch.bfloat16, device=device),
-            v=torch.zeros(shape, dtype=torch.bfloat16, device=device),
+            k=torch.zeros(shape, dtype=cell[1], device=device),
+            v=torch.zeros(shape, dtype=cell[1], device=device),
             pos=torch.full((size,), -1, dtype=torch.int32, device=device),
-            seq_mask=torch.zeros((size,), dtype=torch.int64, device=device))
+            seq_mask=torch.zeros((size,), dtype=torch.int64, device=device),
+            k_scale=scales(), v_scale=scales(), bits=bits)
 
     @property
     def size(self) -> int:
@@ -57,6 +93,10 @@ class KVCache:
     @property
     def n_kv_heads(self) -> int:
         return self.k.shape[1]
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
 
     def find_slots(self, n: int) -> torch.Tensor:
         """Indices of the first `n` free cells ([n] int64), lowest first.
@@ -70,10 +110,33 @@ class KVCache:
         slots.scatter_(0, idx, torch.arange(self.size, device=idx.device))
         return slots[:n]
 
+    def write(self, layer: int, slots: torch.Tensor, k: torch.Tensor,
+              v: torch.Tensor) -> "KVCache":
+        """Store one layer's per-token K/V ([T, Hkv, D]) into `slots`,
+        quantized where the pool is (the write-then-read path). JAX's
+        `k.at[layer, :, slots]` takes the update token-major; a torch index
+        puts the head axis first, hence the transposes."""
+        if self.quantized:
+            qr = quant_rows4 if self.bits == 4 else quant_rows
+            for plane, scales, x in ((self.k, self.k_scale, k),
+                                     (self.v, self.v_scale, v)):
+                sc, xq = qr(x)
+                plane[layer][:, slots] = xq.transpose(0, 1)
+                scales[layer][:, slots] = sc.transpose(0, 1)
+            return self
+        self.k[layer][:, slots] = k.transpose(0, 1).to(self.k.dtype)
+        self.v[layer][:, slots] = v.transpose(0, 1).to(self.v.dtype)
+        return self
+
     def write_all(self, slots: torch.Tensor, k: torch.Tensor,
                   v: torch.Tensor) -> "KVCache":
         """Store ALL layers' per-token K/V ([L, T, Hkv, D]) into `slots`
-        with one scatter per pool (the deferred-write path)."""
+        with one scatter per pool (the deferred-write path of bf16 cells;
+        a quantized pool takes them layer by layer)."""
+        if self.quantized:
+            for li in range(k.shape[0]):
+                self.write(li, slots, k[li], v[li])
+            return self
         self.k[:, :, slots] = k.transpose(1, 2).to(self.k.dtype)
         self.v[:, :, slots] = v.transpose(1, 2).to(self.v.dtype)
         return self
@@ -94,10 +157,30 @@ class KVCache:
 
     def read_layer(self, layer: int, limit: int | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
-        """K/V of one layer, ([Hkv, S, D], [Hkv, S, D]); `limit` returns
-        only the first `limit` cells (the ragged-KV read bound)."""
+        """K/V of one layer, ([Hkv, S, D], [Hkv, S, D]) bf16, dequantized
+        where the pool is quantized (in bf16, as the JAX cache does);
+        `limit` returns only the first `limit` cells (the ragged-KV read
+        bound)."""
         s = slice(None) if limit is None else slice(0, limit)
-        return self.k[layer, :, s], self.v[layer, :, s]
+        k, v = self.k[layer, :, s], self.v[layer, :, s]
+        if not self.quantized:
+            return k, v
+        ks, vs = self.k_scale[layer, :, s], self.v_scale[layer, :, s]
+        if self.bits == 4:
+            return dequant4(k, ks), dequant4(v, vs)
+        return (k.to(torch.bfloat16) * ks[..., None].to(torch.bfloat16),
+                v.to(torch.bfloat16) * vs[..., None].to(torch.bfloat16))
+
+    def layer_planes(self, layer: int, limit: int | None = None):
+        """Raw planes of one layer for the flash kernel: (k, v, k_scale,
+        v_scale), K/V [Hkv, S, D] (D/2 bytes for q4_0) and scales [Hkv, S]
+        (None for bf16 cells). Views of the pool: cells stay contiguous
+        within a head, heads keep the pool's stride."""
+        s = slice(None) if limit is None else slice(0, limit)
+        if self.quantized:
+            return (self.k[layer, :, s], self.v[layer, :, s],
+                    self.k_scale[layer, :, s], self.v_scale[layer, :, s])
+        return self.k[layer, :, s], self.v[layer, :, s], None, None
 
     def _owned(self, seq_id: int) -> torch.Tensor:
         return ((self.seq_mask >> seq_id) & 1) != 0
@@ -123,3 +206,41 @@ class KVCache:
         cp = self.pos if limit is None else self.pos[:limit]
         owned = (sm[None, :] & primary_seq_bit(q_seq)[:, None]) != 0
         return owned & (sm[None, :] != 0) & (cp[None, :] <= q_pos[:, None])
+
+
+def quant_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8 quantization of K/V rows [..., D]: (scale
+    [...] f32 = amax/127, 1 for a zero row; int8 round(x/scale), half to
+    even) — omni_tpu's `_quant_rows`."""
+    xf = x.to(torch.float32)
+    amax = xf.abs().amax(-1)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    return scale, torch.round(xf / scale[..., None]).to(torch.int8)
+
+
+def quant_rows4(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int4 quantization, packed two logical columns per
+    byte: byte d = nibble(col d) | nibble(col d + D/2) << 4, each nibble
+    clip(round(x/scale), -8, 7) + 8 with scale = amax/7 — omni_tpu's
+    `_quant_rows4`."""
+    d = x.shape[-1]
+    xf = x.to(torch.float32)
+    amax = xf.abs().amax(-1)
+    scale = torch.where(amax > 0, amax / 7.0, torch.ones_like(amax))
+    q = torch.round(xf / scale[..., None]).clamp(-8, 7).to(torch.int32) + 8
+    lo, hi = q[..., :d // 2], q[..., d // 2:]
+    return scale, (lo | (hi << 4)).to(torch.uint8)
+
+
+def unpack4(q: torch.Tensor) -> torch.Tensor:
+    """Packed [..., D/2] uint8 -> the signed nibbles [..., D] int32 in
+    natural column order."""
+    qi = q.to(torch.int32)
+    return torch.cat([(qi & 0xF) - 8, (qi >> 4) - 8], dim=-1)
+
+
+def dequant4(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Packed [..., D/2] uint8 + per-row scale -> [..., D] bf16 (the
+    product rounded once to bf16, as omni_tpu's `_dequant4`)."""
+    return (unpack4(q).to(torch.bfloat16)
+            * scale[..., None].to(torch.bfloat16))

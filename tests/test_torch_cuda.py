@@ -9,8 +9,10 @@ This file imports no JAX (the card's machine has none)."""
 import pytest
 import torch
 
-from chip_smoke import flip_limit, limit_ratio
+from chip_smoke import (FLASH_FLOOR, FLASH_RTOL, flash_inputs, flash_law_f64,
+                        flip_limit, limit_ratio)
 from omni_tpu_torch.kernels import dequant_matmul as dm
+from omni_tpu_torch.kernels import flash_attention as fa
 from omni_tpu_torch.models import qwen3
 from omni_tpu_torch.runtime import Batch, Context, SamplerParams
 from omni_tpu_torch.core.gguf import GGUFReader
@@ -161,3 +163,62 @@ def test_cuda_dense_dot_matches_the_widened_product(card):
     logits, _ = ctx.decode(Batch(tokens=[int(torch.argmax(logits))]))
     assert torch.isfinite(logits).all()
     assert not any(dm.launches.values())
+
+
+FLASH_CASES = [(bits, t, s, heads) for bits in (16, 8, 4)
+               for t, s, heads in ((1, 1000, (32, 8, 128)), (5, 300, (32, 8, 128)),
+                                   (64, 2048, (32, 8, 128)), (3, 777, (8, 2, 64)))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,t,s,heads", FLASH_CASES,
+                         ids=[f"{b}bit-t{t}-s{s}-d{h[2]}" for b, t, s, h in FLASH_CASES])
+def test_cuda_flash_matches_plain(card, bits, t, s, heads):
+    """Kernel F against its plain version within chip_smoke.py's limit
+    (2**-7 of sum p|v| from the f64 law: the two round p against other
+    running maxima), finite where a row is masked everywhere, at S that
+    are no multiple of 512 and at D = 64; one launch counted per call."""
+    gen = torch.Generator(device=card).manual_seed(t + s)
+    args = flash_inputs(bits, t, s, card, gen, heads)
+    name = "flash_decode4" if bits == 4 else "flash_decode"
+    n0 = fa.launches[name]
+    got = fa.flash_decode(*args)
+    want = fa.flash_decode_plain(*args)
+    exact, exact_abs = flash_law_f64(*args, with_abs=True)
+    torch.cuda.synchronize()
+    assert fa.launches[name] == n0 + 1
+    limit = FLASH_RTOL * exact_abs + FLASH_FLOOR * exact_abs.max()
+    assert torch.isfinite(got).all() and ((got - want).abs() <= limit).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype,flash", [("q8_0", "flash_decode"),
+                                            ("q4_0", "flash_decode4")])
+def test_cuda_quantized_kv_forward_goes_through_flash(card, kv_dtype, flash):
+    """A small Q4_K Qwen3 over a quantized KV cache prefills and decodes on
+    the card with every layer's attention in kernel F, finite logits within
+    chip_smoke.py's LOGITS_REL_TOL of max|logit| of the same forward with
+    the plain flash law."""
+    from chip_smoke import LOGITS_REL_TOL, matmuls_by
+
+    cfg = qwen3.Qwen3Config(**_SMALL)
+    params = synth_qwen3_params(cfg, card, torch.Generator(device=card).manual_seed(0))
+
+    def run():
+        ctx = Context(cfg, params, qwen3.forward, qwen3.embed, n_ctx=256,
+                      sampler=SamplerParams(greedy=True), device=card,
+                      kv_dtype=kv_dtype)
+        first = ctx.prefill(list(range(20)))
+        nxt, _ = ctx.decode(Batch(tokens=[int(torch.argmax(first))]))
+        return torch.stack([first, nxt[0]]).float()
+
+    fa.reset_launches()
+    got = run()
+    assert fa.launches == {"flash_decode": 0, "flash_decode4": 0,
+                           flash: 2 * cfg.n_layers}
+    with matmuls_by(qwen3, dm, lambda name, x, w, o: getattr(dm, name)(x, w, o),
+                    fa.flash_decode_plain):
+        want = run()
+    assert torch.isfinite(got).all()
+    # the same matmul kernels on both sides: only p's bf16 roundings differ
+    assert (got - want).abs().max() <= LOGITS_REL_TOL * want.abs().max()

@@ -128,16 +128,23 @@ def test_kernel_build_runs_nvcc_per_source_in_parallel(tmp_path):
             want_dir = _build.build_dir()
     finally:
         _build.load.cache_clear()
-    assert len(started) == len(_build.SOURCES) == 5
+    assert len(started) == len(_build.SOURCES) == 6
     assert waited[0] == len(started)  # all started before the first wait
     for cmd in started:
         assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
     out_dirs = {Path(c[c.index("-o") + 1]).parent for c in started}
     assert out_dirs == {want_dir} and want_dir.parent == tmp_path
-    assert sorted(fns) == ["q4k_gemm", "q4k_gemv", "q6k_gemv", "q8_0_gemv",
+    assert sorted(fns) == ["flash_decode_bf16", "flash_decode_i4", "flash_decode_i8",
+                           "q4k_gemm", "q4k_gemv", "q6k_gemv", "q8_0_gemv",
                            "qgemm_q4k", "qgemm_q6k", "qgemm_q8_0"]
-    for fn in fns.values():
+    for name, fn in fns.items():
         assert fn.argtypes[:7] == [ctypes.c_void_p] * 7
+        if name.startswith("flash"):  # 8 pointers, int64 strides, f32 scale
+            assert fn.argtypes == _build.FLASH_ARGS and len(fn.argtypes) == 20
+            assert fn.argtypes[13:16] == [ctypes.c_longlong] * 2 + [ctypes.c_float]
+        else:
+            assert fn.argtypes == _build.MATMUL_ARGS and len(fn.argtypes) == 12
         assert fn.argtypes[-1] == ctypes.c_void_p and fn.restype == ctypes.c_int
     assert sorted(p.name for p in want_dir.iterdir()) == [
-        "q4k_gemm.so", "q4k_gemv.so", "q6k_gemv.so", "q8_0_gemv.so", "qgemm.so"]
+        "flash_decode.so", "q4k_gemm.so", "q4k_gemv.so", "q6k_gemv.so",
+        "q8_0_gemv.so", "qgemm.so"]
