@@ -11,9 +11,9 @@ clearly more bf16 outputs otherwise than the f64 law than its plain
 version does (`flip_limit`). It holds the dense dot of a bf16 weight
 (cuBLAS, K split into chunks) against the widened-f32 product the same
 way, and the flash-decode kernels (bf16, int8 and int4 KV cells) against
-their plain versions and the attention law in f64. Then it drives four paths at full width and depth (all 36 layers,
-random weights made on the card from seed S, 0 by default), one model
-resident at a time, each through
+their plain versions and the attention law in f64. Then it drives five
+paths at full width and depth (all 36 layers, random weights made on the
+card from seed S, 0 by default), one model resident at a time, each through
 `OmniPipeline.stream_prefill` / `stream_decode`:
 1. an all-Q4_K Qwen3-8B synthesised in the port's planes, fused QKV and
    gate+up (kernels A and B);
@@ -23,14 +23,18 @@ resident at a time, each through
    Q6_K through kernels C and D; the same model serves twice more with a
    quantized KV cache, q8_0 (kernel F, `flash_decode`) and q4_0 (kernel F's
    int4 branch, `flash_decode4`), every layer's attention in the kernel;
-3. a Q8_0 Qwen3-8B GGUF (about 8.7 GB in $TMPDIR, every weight Q8_0),
+3. a Q5_K_M Qwen3-8B GGUF (about 5.8 GB, deleted before the next path),
+   loaded the same way, on the bf16 pool: Q5_K through kernel G
+   (`q5k_gemv`) and kernel B's Q5_K branch (`q5k_gemm`), Q6_K through
+   kernels C and D;
+4. a Q8_0 Qwen3-8B GGUF (about 8.7 GB in $TMPDIR, every weight Q8_0),
    loaded the same way: decode through kernel E, prefill through D;
-4. an F16 Qwen3-8B as `load_params` loads one (dense bf16 weights made on
+5. an F16 Qwen3-8B as `load_params` loads one (dense bf16 weights made on
    the card): every matmul a dense dot, no hand-written kernel; its decode
    step must allocate less than 100 MB above its starting allocation.
 For each path it checks the launches of every kernel per decode step and
 per 64-token ubatch, and that its logits agree with the plain path: within
-1e-3 of max|logit| on the all-Q4_K model; on the other three, whose
+1e-3 of max|logit| on the all-Q4_K model; on the other four, whose
 logits sit at the bf16 noise floor, within twice the plain path's own
 distance from the same forward with every matmul's law in f64 (over N
 prompts, 3 by default; on the quantized-KV turns the plain path's
@@ -77,8 +81,9 @@ Q6_SHAPES = {"wv": (1024, 4096), "down": (4096, 12288), "output": (151748, 4096)
 # the Q4_K shapes of the unfused Q4_K_M path that the fused ones leave out
 # (wq is wo's shape, w_up gate's); checked against the plain versions only
 Q4_UNFUSED_SHAPES = {"wk": (1024, 4096), "gate": (12288, 4096)}
-# a Q4_K weight whose K is no multiple of 2048 (kernel D's Q4_K branch; the
-# shape of tests/test_qkernels.py::test_qmatmul_gp_odd_k_divisor)
+# a Q4_K or Q5_K weight whose K is no multiple of 2048 (kernel D's Q4_K and
+# Q5_K branches; the shape of tests/test_qkernels.py::
+# test_qmatmul_gp_odd_k_divisor)
 ODD_K_SHAPE = (4096, 1280)
 # the unfused weight shapes of a Qwen3-8B, each format's path: wq and wo,
 # wk and wv, gate and up share a shape
@@ -86,6 +91,11 @@ UNFUSED_SHAPES = {"wq": (4096, 4096), "wk": (1024, 4096), "gate": (12288, 4096),
                   "down": (4096, 12288), "output": (151748, 4096)}
 # calls per decode token (M = 1) or per 64-token ubatch of each shape there
 UNFUSED_CALLS = {"wq": 72, "wk": 72, "gate": 72, "down": 36, "output": 1}
+# the Q5_K weights of a Q5_K_M Qwen3-8B, per shape: wq and wo of 36 layers,
+# wk of 36 and wv of the 18 layers whose wv stays Q5_K, gate and up, and
+# down on those 18 layers (216 calls); the other 37 are Q6_K (Q6_SHAPES)
+Q5_SHAPES = {nm: UNFUSED_SHAPES[nm] for nm in ("wq", "wk", "gate", "down")}
+Q5_CALLS = {"wq": 72, "wk": 54, "gate": 72, "down": 18}
 # a Q8_0 weight whose K is no multiple of 256 (kernel D's ragged K step;
 # Q8_0's K granule is 32)
 ODD_K_Q8_SHAPE = (4096, 1248)
@@ -152,6 +162,8 @@ N_LAYERS = 36  # full depth: nothing is cut
 # Q4_K_M Qwen3-8B (llama.cpp's rules): the output head and attn_v, ffn_down
 # of 18 of the 36 layers are Q6_K, the other weights Q4_K
 N_Q6K, N_Q4K = 37, 216
+# Q5_K_M (the same rules): 216 Q5_K weights where Q4_K_M has its Q4_K ones
+N_Q5K = 216
 # unfused Qwen3-8B: 36 x (wq, wk, wv, wo, gate, up, down) + output
 N_UNFUSED = 7 * N_LAYERS + 1
 # the F16 path's decode step may allocate this much above its start: the
@@ -182,6 +194,10 @@ KERNELS = {
                  "replaces": "omni_tpu/kernels/dequant_matmul.py:333"},
     "q4k_gemm": {"route": "cuda", "source": "omni_tpu_torch/csrc/q4k_gemm.cu",
                  "replaces": "omni_tpu/kernels/dequant_matmul.py:565"},
+    "q5k_gemv": {"route": "cuda", "source": "omni_tpu_torch/csrc/q4k_gemv.cu",
+                 "replaces": "omni_tpu/kernels/dequant_matmul.py:333"},
+    "q5k_gemm": {"route": "cuda", "source": "omni_tpu_torch/csrc/q4k_gemm.cu",
+                 "replaces": "omni_tpu/kernels/dequant_matmul.py:565"},
     "q6k_gemv": {"route": "cuda", "source": "omni_tpu_torch/csrc/q6k_gemv.cu",
                  "replaces": "omni_tpu/kernels/dequant_matmul.py:333"},
     "qgemm": {"route": "cuda", "source": "omni_tpu_torch/csrc/qgemm.cu",
@@ -196,11 +212,13 @@ KERNELS = {
 
 
 def launch_counts() -> dict:
-    """Every kernel wrapper's launch count."""
+    """Every kernel wrapper's launch count, and kernel D's per format (as
+    "qgemm Q5_K" and so on)."""
     from omni_tpu_torch.kernels import dequant_matmul as dm
     from omni_tpu_torch.kernels import flash_attention as fa
 
-    return {**dm.launches, **fa.launches}
+    return {**dm.launches, **{f"qgemm {f}": n for f, n in dm.qgemm_launches.items()},
+            **fa.launches}
 
 
 def reset_launches() -> None:
@@ -318,17 +336,17 @@ def law_f64(name: str, x, qt, out_dtype):
     import torch
 
     from omni_tpu_torch.kernels import dequant_matmul as dm
-    from omni_tpu_torch.kernels.qformats import (dequant, q4k_group_scales,
-                                                 q6k_group_scales, unpack_sb_halves)
+    from omni_tpu_torch.kernels.qformats import (dequant, kquant_values,
+                                                 q4k_group_scales, q6k_group_scales)
 
     f64 = torch.float64
     if name == "dense_matmul":
         return (x.to(qt.dtype).to(f64) @ qt.to(f64).T).to(out_dtype)
     xd = x.to(torch.bfloat16).to(f64)
-    if name == "q4k_gemv":  # the group law; q·dl − ml is exact in f64
+    if name in ("q4k_gemv", "q5k_gemv"):  # the group law; q·dl − ml is exact in f64
         dl, ml = (a.to(f64).repeat_interleave(32, 1) for a in q4k_group_scales(qt))
-        out = xd @ (unpack_sb_halves(qt.q).to(f64) * dl - ml).T
-    elif name == "q4k_gemm":
+        out = xd @ (kquant_values(qt).to(f64) * dl - ml).T
+    elif name in ("q4k_gemm", "q5k_gemm"):
         w, ml_res = dm.q4k_centered(qt)
         xs = xd.reshape(x.shape[0], -1, 32).sum(-1)
         out = xd @ w.to(f64).T - xs @ ml_res.to(f64).T
@@ -483,7 +501,9 @@ def check_kernel(name, kern, plain, w, shape_name, m, out_dtype, gen, max_err):
         torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     worst = limit_ratio(got, want)
-    max_err[name] = max(max_err.get(name, 0.0), err)
+    fmt = getattr(w, "ggml_type", None)
+    for key in [name] if fmt is None else [name, f"{name} {fmt.name}"]:
+        max_err[key] = max(max_err.get(key, 0.0), err)
     ok = bool(torch.isfinite(got).all()) and worst <= 1.0
     flips_ok, held = True, ""
     if out_dtype == torch.bfloat16:
@@ -496,7 +516,6 @@ def check_kernel(name, kern, plain, w, shape_name, m, out_dtype, gen, max_err):
         vs = [((a - exact).abs().max() / exact.abs().max()).item()
               for a in (got, want)]
         vs_what = "max|d| / max|f64 law|"
-    fmt = getattr(w, "ggml_type", None)
     print(f"  {name} {fmt.name if fmt is not None else str(w.dtype)[6:]} "
           f"{shape_name} {n}x{k} M={m}: max|d|={err:.3g} "
           f"max|want|={want.abs().max().item():.3g},"
@@ -909,7 +928,7 @@ def main() -> int:
                     help="prompts of each f64-law teacher-forced check (each "
                          "64 random tokens; the first ones are the default run's)")
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the four models' random weights")
+                    help="seed of the five models' random weights")
     args = ap.parse_args()
     import torch
 
@@ -921,8 +940,9 @@ def main() -> int:
     from omni_tpu_torch.kernels import _build
     from omni_tpu_torch.kernels import dequant_matmul as dm
     from omni_tpu_torch.models import qwen3
-    from omni_tpu_torch.testing_synth import (QWEN3_8B, synth_q4k, synth_q6k,
-                                              synth_q8_0, synth_qwen3_dense_params,
+    from omni_tpu_torch.testing_synth import (QWEN3_8B, synth_q4k, synth_q5k,
+                                              synth_q6k, synth_q8_0,
+                                              synth_qwen3_dense_params,
                                               synth_qwen3_params)
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain f32 dots stay f32
@@ -961,6 +981,7 @@ def main() -> int:
     weights = {nm: synth_q4k(n, k, dev, gen) for nm, (n, k) in SHAPES.items()}
     q6_weights = {nm: synth_q6k(n, k, dev, gen) for nm, (n, k) in Q6_SHAPES.items()}
     q8_weights = {nm: synth_q8_0(n, k, dev, gen) for nm, (n, k) in UNFUSED_SHAPES.items()}
+    q5_weights = {nm: synth_q5k(n, k, dev, gen) for nm, (n, k) in Q5_SHAPES.items()}
     max_err = {name: 0.0 for name in KERNELS}
     q4_unfused = {nm: synth_q4k(n, k, dev, gen)
                   for nm, (n, k) in Q4_UNFUSED_SHAPES.items()}
@@ -969,6 +990,8 @@ def main() -> int:
              (("q4k_gemv", GEMV_MS), ("q4k_gemm", GEMM_MS))),
             (q6_weights, (("q6k_gemv", GEMV_MS), ("qgemm", QGEMM_MS))),
             ({"odd_k": synth_q4k(*ODD_K_SHAPE, dev, gen)}, (("qgemm", (1, 64)),)),
+            (q5_weights, (("q5k_gemv", GEMV_MS), ("q5k_gemm", GEMM_MS))),
+            ({"odd_k": synth_q5k(*ODD_K_SHAPE, dev, gen)}, (("qgemm", (1, 64)),)),
             (q8_weights, (("q8_0_gemv", GEMV_MS), ("qgemm", QGEMM_MS))),
             ({"odd_k": synth_q8_0(*ODD_K_Q8_SHAPE, dev, gen)}, (("qgemm", (1, 64)),))):
         for nm, qt in group.items():
@@ -996,7 +1019,7 @@ def main() -> int:
     phase("flash-vs-plain", t0, json.dumps({k: max_err[k] for k in KV_TURNS.values()}))
 
     paths, launches_by_path = {}, {}
-    zero = {name: 0 for name in KERNELS}
+    zero = dict.fromkeys(launch_counts(), 0)
 
     def finish(path, label, launches, stats, tf, t_start):
         launches_by_path[path] = launches
@@ -1039,7 +1062,7 @@ def main() -> int:
           f"weights, {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
     t0 = time.perf_counter()
     want_step = {**zero, "q4k_gemv": N_Q4K, "q6k_gemv": N_Q6K}
-    want_ubatch = {**zero, "q4k_gemm": N_Q4K, "qgemm": N_Q6K}
+    want_ubatch = {**zero, "q4k_gemm": N_Q4K, "qgemm": N_Q6K, "qgemm Q6_K": N_Q6K}
     rng = torch.Generator().manual_seed(0)
     launches, stats = serve_turn("Q4_K_M from GGUF", cfg, params, dev,
                                  qwen3, want_step, want_ubatch, rng)
@@ -1063,7 +1086,30 @@ def main() -> int:
                stats, tf, t0)
     del params, qts
 
-    # ---- path 3: Q8_0 Qwen3-8B from a GGUF file (kernels E and D) ----------
+    # ---- path 3: Q5_K_M Qwen3-8B from a GGUF file (G, B's Q5_K branch, C, D)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        params, qts, io = write_and_load(cfg, "Q5_K_M", dev, qwen3, tmp, args.seed)
+    n_q6 = sum(w.ggml_type == GGMLType.Q6_K for w in qts)
+    n_q5 = sum(w.ggml_type == GGMLType.Q5_K for w in qts)
+    if (n_q6, n_q5) != (N_Q6K, N_Q5K):
+        raise SystemExit(f"{n_q6} Q6_K and {n_q5} Q5_K weights, want "
+                         f"{N_Q6K} and {N_Q5K}")
+    phase("gguf-q5km", t0, f"{json.dumps(io)}; {n_q5} Q5_K + {n_q6} Q6_K "
+          f"weights, {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    t0 = time.perf_counter()
+    rng = torch.Generator().manual_seed(0)
+    launches, stats = serve_turn("Q5_K_M from GGUF", cfg, params, dev, qwen3,
+                                 {**zero, "q5k_gemv": N_Q5K, "q6k_gemv": N_Q6K},
+                                 {**zero, "q5k_gemm": N_Q5K, "qgemm": N_Q6K,
+                                  "qgemm Q6_K": N_Q6K}, rng)
+    prompts = [torch.randint(0, 1000, (N_PREFILL,), generator=rng).numpy()
+               for _ in range(args.prompts)]
+    tf = teacher_forced(cfg, params, dev, dm, qwen3, prompts, "f64")
+    del params, qts
+    finish("q5_k_m_gguf", "served-turn-q5km", launches, {**stats, **io}, tf, t0)
+
+    # ---- path 4: Q8_0 Qwen3-8B from a GGUF file (kernels E and D) ----------
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         free = shutil.disk_usage(tmp).free
@@ -1081,14 +1127,15 @@ def main() -> int:
     rng = torch.Generator().manual_seed(0)
     launches, stats = serve_turn("Q8_0 from GGUF", cfg, params, dev, qwen3,
                                  {**zero, "q8_0_gemv": N_UNFUSED},
-                                 {**zero, "qgemm": N_UNFUSED}, rng)
+                                 {**zero, "qgemm": N_UNFUSED,
+                                  "qgemm Q8_0": N_UNFUSED}, rng)
     prompts = [torch.randint(0, 1000, (N_PREFILL,), generator=rng).numpy()
                for _ in range(args.prompts)]
     tf = teacher_forced(cfg, params, dev, dm, qwen3, prompts, "f64_near_tie")
     del params, qts
     finish("q8_0_gguf", "served-turn-q8_0", launches, {**stats, **io}, tf, t0)
 
-    # ---- path 4: F16 Qwen3-8B, dense bf16 weights (no hand kernel) ---------
+    # ---- path 5: F16 Qwen3-8B, dense bf16 weights (no hand kernel) ---------
     t0 = time.perf_counter()
     params = synth_qwen3_dense_params(
         cfg, dev, torch.Generator(device=dev).manual_seed(args.seed))
@@ -1116,8 +1163,8 @@ def main() -> int:
     finish("f16_dense", "served-turn-f16", launches,
            {**stats, "decode_step_alloc_mb": step_alloc / 1e6,
             "dense_weight_gb": dense_gb}, tf, t0)
-    launches = {k: sum(lp[k] for lp in launches_by_path.values()) for k in KERNELS}
-    if min(launches.values()) <= 0:
+    launches = {k: sum(lp[k] for lp in launches_by_path.values()) for k in zero}
+    if min(launches[k] for k in KERNELS) <= 0:
         raise SystemExit(f"a kernel was never launched on the main paths: {launches}")
 
     # ---- times at the paths' shapes ----------------------------------------
@@ -1131,11 +1178,17 @@ def main() -> int:
                  gen, synth_q6k, rows)
     time_kernels("qgemm", dm.qgemm, dm.qgemm_plain, q6_weights, QGEMM_MS,
                  gen, synth_q6k, rows)
+    time_kernels("q5k_gemv", dm.q5k_gemv, dm.q5k_gemv_plain, q5_weights, GEMV_MS,
+                 gen, synth_q5k, rows)
+    time_kernels("q5k_gemm", dm.q5k_gemm, dm.q5k_gemm_plain, q5_weights, GEMM_MS,
+                 gen, synth_q5k, rows)
+    time_kernels("qgemm", dm.qgemm, dm.qgemm_plain, q5_weights, (N_PREFILL,),
+                 gen, synth_q5k, rows)
     time_kernels("q8_0_gemv", dm.q8_0_gemv, dm.q8_0_gemv_plain, q8_weights, GEMV_MS,
                  gen, synth_q8_0, rows)
     time_kernels("qgemm", dm.qgemm, dm.qgemm_plain, q8_weights, QGEMM_MS,
                  gen, synth_q8_0, rows)
-    del weights, q6_weights, q8_weights
+    del weights, q6_weights, q8_weights, q5_weights
     torch.cuda.empty_cache()
     time_kernels("dense_matmul", dm.dense_matmul, dm.dense_matmul_plain,
                  dense_weights, (1, N_PREFILL), gen, synth_dense, rows)
@@ -1146,7 +1199,8 @@ def main() -> int:
 
     # per kernel, the sum over the calls of one served token (M=1) or one
     # 64-token prefill ubatch (M=64): A and B over the all-Q4_K path's
-    # fused calls, C and D over the Q6_K calls of the Q4_K_M path, E and
+    # fused calls, C and D over the Q6_K calls of the Q4_K_M path, G, B's
+    # and D's Q5_K branches over the Q5_K_M path's 216 Q5_K calls, E and
     # D's Q8_0 branch over the Q8_0 path's 253 calls
     q4k_calls = {"wqkv": cfg.n_layers, "wo": cfg.n_layers,
                  "gateup": cfg.n_layers, "down": cfg.n_layers, "output": 1}
@@ -1156,6 +1210,8 @@ def main() -> int:
                 "Qwen3-8B")
     q8_work = ("M=1 (E) or M=64 (D): 36 x (wq, wk, wv, wo, gate, up, down) + "
                "output of Q8_0 Qwen3-8B")
+    q5_work = ("the 216 Q5_K weights of Q5_K_M Qwen3-8B: 36 x (wq, wk, wo, gate, "
+               "up) + 18 x (wv, down)")
 
     def summed(name, fmt, m, calls):
         sel = [r for r in rows if r["kernel"] == name and r.get("m") == m
@@ -1172,6 +1228,8 @@ def main() -> int:
     for name, fmt, m, calls, work in (
             ("q4k_gemv", "Q4_K", 1, q4k_calls, f"M=1, {q4k_work}"),
             ("q4k_gemm", "Q4_K", 64, q4k_calls, f"M=64, {q4k_work}"),
+            ("q5k_gemv", "Q5_K", 1, Q5_CALLS, f"M=1, {q5_work}"),
+            ("q5k_gemm", "Q5_K", 64, Q5_CALLS, f"M=64, {q5_work}"),
             ("q6k_gemv", "Q6_K", 1, q6k_calls, q6k_work),
             ("qgemm", "Q6_K", 64, q6k_calls, q6k_work),
             ("q8_0_gemv", "Q8_0", 1, UNFUSED_CALLS, q8_work)):
@@ -1183,8 +1241,19 @@ def main() -> int:
                  "bound_by": tot["bound_by"], "library_ms": tot["library_ms"],
                  "planes_bound_ms": tot["planes_bound_ms"], "work": work}
         if name == "qgemm":
+            entry["launches_by_format"] = {
+                f: launches[f"qgemm {f}"] for f in ("Q4_K", "Q5_K", "Q6_K", "Q8_0")}
             entry["q8_0"] = {**summed("qgemm", "Q8_0", 64, UNFUSED_CALLS),
-                             "work": q8_work}
+                             "launches": launches["qgemm Q8_0"],
+                             "max_abs_err": max_err["qgemm Q8_0"], "work": q8_work}
+            # the Q5_K branch serves Q5_K weights whose K is no multiple of
+            # 2048 (held at ODD_K_SHAPE); Qwen3-8B has none, so the main
+            # paths count no launch of it: its time is that of its law on
+            # the Q5_K_M path's 216 calls, beside q5k_gemm's
+            entry["q5_k"] = {**KERNELS["qgemm"], "launches": launches["qgemm Q5_K"],
+                             **summed("qgemm", "Q5_K", 64, Q5_CALLS),
+                             "max_abs_err": max_err["qgemm Q5_K"],
+                             "work": f"M=64, {q5_work}"}
         entries.append(entry)
     # kernel F per decode token (T = 1 over the served turns' kv bucket) and
     # per 64-token ubatch (over the whole pool), x 36 layers

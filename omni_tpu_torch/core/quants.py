@@ -1,11 +1,13 @@
 """Numpy dequantisers: the bit-exact oracle inside the port.
 
-A copy of the Q8_0, Q4_K and Q6_K paths of `omni_tpu/core/quants.py`
-(ggml-quants.c dequantize_row_q8_0 / _q4_K / _q6_K semantics), plus the
-widening of the plain float types. The effective group scale is the single
-f32 product d*sc:
+A copy of the Q8_0, Q4_K, Q5_K and Q6_K paths of `omni_tpu/core/quants.py`
+(ggml-quants.c dequantize_row_q8_0 / _q4_K / _q5_K / _q6_K semantics), plus
+the widening of the plain float types. The effective group scale is the
+single f32 product d*sc:
 - Q8_0: w = q*d per 32-element block (34 bytes: f16 d, then 32 int8 q);
 - Q4_K: w = q*(d*sc) - dmin*mn per 32-element group, q in 0..15;
+- Q5_K: the same with q in 0..31, its high bit from a 32-byte plane (176
+  bytes: f16 d, f16 dmin, 12 bytes of scales, qh[32], then the nibbles);
 - Q6_K: w = (d*sc)*(q - 32) per 16-element group, q in 0..63.
 """
 
@@ -65,6 +67,24 @@ def _deq_q4_k(b: np.ndarray) -> np.ndarray:
     return (dl * q - ml).reshape(n, QK_K)
 
 
+def q5k_values(b: np.ndarray) -> np.ndarray:
+    """Q5_K blocks [n, 176] -> the 5-bit values as uint8 [n, 256] in element
+    order: bit i of qh byte l is the high bit of element 32i + l."""
+    hi = _expand_bits(b[:, 16:48], list(range(8)), 32, 1)
+    lo = _split_nibbles(b[:, 48:], 32)
+    return lo | (hi << np.uint8(4))
+
+
+def _deq_q5_k(b: np.ndarray) -> np.ndarray:
+    n = b.shape[0]
+    d, dmin = _f16(b[:, :2]), _f16(b[:, 2:4])
+    sc, mn = _unpack_scale_min_k4(b[:, 4:16])
+    dl = (d * sc.astype(np.float32)).reshape(n, 8, 1)
+    ml = (dmin * mn.astype(np.float32)).reshape(n, 8, 1)
+    q = q5k_values(b).reshape(n, 8, 32).astype(np.float32)
+    return (dl * q - ml).reshape(n, QK_K)
+
+
 def q6k_values(b: np.ndarray) -> np.ndarray:
     """Q6_K blocks [n, 210] -> the 6-bit values q - 32 as int8 [n, 256] in
     element order. Per 128-element half: the low nibbles of ql bytes 0..63
@@ -86,7 +106,7 @@ def _deq_q6_k(b: np.ndarray) -> np.ndarray:
 
 
 _DEQUANT = {GGMLType.Q8_0: _deq_q8_0, GGMLType.Q4_K: _deq_q4_k,
-            GGMLType.Q6_K: _deq_q6_k}
+            GGMLType.Q5_K: _deq_q5_k, GGMLType.Q6_K: _deq_q6_k}
 
 
 def dequantize(blocks: np.ndarray, ggml_type: GGMLType | int,

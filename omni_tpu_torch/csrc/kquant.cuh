@@ -1,0 +1,49 @@
+// The values of a 16-byte chunk of a Q4_K or Q5_K weight, shared by kernels
+// A and G (q4k_gemv.cu), B (q4k_gemm.cu) and D (qgemm.cu): the one place
+// that knows which bits of the high-bit plane qh go with which bytes of q.
+//
+// q u8 [N, K/2] holds each 256-element superblock s in halves: byte r of
+// the superblock holds element r in its low nibble and element 128 + r in
+// its high nibble. Chunk c (0..7) of superblock s, bytes [16c, 16c + 16),
+// covers elements 16c.. (low nibbles) and 128+16c.. (high nibbles). Q5_K's
+// qh u8 [N, K/8] holds the fifth bit of every element in the row's element
+// order (bit b of byte r: element 8r + b), so the chunk's high bits are the
+// 16-bit words s*16 + c (low half) and s*16 + 8 + c (high half) of the
+// row's qh, bit j of each for byte j of the chunk. Q5_K's value is
+// nibble + 16 x bit (0..31, `_gp_slice` and `_sh_qh_halves` of the TPU
+// kernels).
+#pragma once
+
+#include <stdint.h>
+
+namespace kquant {
+
+// The chunk's high-bit words {low half, high half}, read from qh + row_off
+// (the row's qh, 2-byte aligned); zeros for Q4_K, whose qh is unused.
+template <bool kFive>
+__device__ __forceinline__ uint2 high_words(const uint8_t* qh, size_t row_off,
+                                            int s, int c) {
+  uint2 hb = make_uint2(0u, 0u);
+  if constexpr (kFive) {
+    const uint16_t* w = reinterpret_cast<const uint16_t*>(qh + row_off);
+    hb.x = __ldg(w + s * 16 + c);
+    hb.y = __ldg(w + s * 16 + 8 + c);
+  }
+  return hb;
+}
+
+// The values of bytes j and j + 1 of a chunk (q0, q1), with the chunk's
+// high-bit words hb: {low half's element j, j + 1, high half's j, j + 1}.
+template <bool kFive>
+__device__ __forceinline__ uint4 values(uint32_t q0, uint32_t q1, uint2 hb, int j) {
+  uint4 v = make_uint4(q0 & 15u, q1 & 15u, q0 >> 4, q1 >> 4);
+  if constexpr (kFive) {
+    v.x |= ((hb.x >> j) & 1u) << 4;
+    v.y |= ((hb.x >> (j + 1)) & 1u) << 4;
+    v.z |= ((hb.y >> j) & 1u) << 4;
+    v.w |= ((hb.y >> (j + 1)) & 1u) << 4;
+  }
+  return v;
+}
+
+}  // namespace kquant

@@ -1,7 +1,12 @@
-// q4k_gemm: out[m, n] = sum_k x[m, k] * W[n, k] for M > 8, W in Q4_K.
+// q4k_gemm (kernel B) and q5k_gemm (its Q5_K branch): out[m, n] = sum_k
+// x[m, k] * W[n, k] for M > 8, W in Q4_K or Q5_K.
 //
 // Replaces omni_tpu/kernels/dequant_matmul.py::qmatmul_splith_pallas (:565)
-// for Q4_K — the prefill matmul of every layer and of the output head.
+// for Q4_K and Q5_K — the prefill matmul of every layer and of the output
+// head. Q5_K is the TPU kernel's `five_bit` case: each half's value gains
+// 16 x its high bit (`_sh_qh_halves` :466-477) before the centered law; one
+// template serves both formats, the flag kFive adding the high-bit plane
+// qh u8 [N, K/8], decoded with the chunk of q it goes with by kquant.cuh.
 //
 // Bound on the H100: at prefill M (64..512) the bf16 tensor-core work per
 // weight byte (2*M operations per 0.59 B) nears or passes the card's
@@ -24,7 +29,9 @@
 // - each superblock's products are summed by the tensor cores in fresh
 //   accumulators and added to the running f32 sums with IEEE adds, so the
 //   long-K sums round as an f32 sum does;
-// - ragged M and N edges are masked; 64-bit offsets throughout.
+// - ragged M and N edges are masked; 64-bit offsets throughout;
+// - Q5_K: t = ml / dl may pass 31 only where dl == 0, and there t = 0 as in
+//   the TPU kernel, so the residual takes the whole min.
 // 70 KB of dynamic shared memory, above the 48 KB default, so the launcher
 // raises the limit with cudaFuncSetAttribute. wgmma, TMA, a multi-stage
 // ring and warp specialisation are for a later version.
@@ -33,6 +40,8 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "kquant.cuh"
 
 namespace {
 
@@ -71,12 +80,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
   return *reinterpret_cast<const uint32_t*>(&p);
 }
 
+template <bool kFive>
 __global__ void __launch_bounds__(kThreads)
 q4k_gemm_kernel(const __nv_bfloat16* __restrict__ x,
                 const uint8_t* __restrict__ q, const int8_t* __restrict__ sc,
                 const int8_t* __restrict__ mn, const float* __restrict__ d,
-                const float* __restrict__ dm, void* __restrict__ out, int M,
-                int N, int K, int out_f32) {
+                const float* __restrict__ dm, const uint8_t* __restrict__ qh,
+                void* __restrict__ out, int M, int N, int K, int out_f32) {
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* xs_t = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* ws_t = reinterpret_cast<__nv_bfloat16*>(smem + kTileBytes);
@@ -115,10 +125,11 @@ q4k_gemm_kernel(const __nv_bfloat16* __restrict__ x,
     cp_async_commit();
     // weight tile: BN rows x 8 chunks of 16 packed bytes; chunk c holds the
     // low nibbles of elements 16c.. (group c/2) and the high nibbles of
-    // elements 128+16c.. (group 4+c/2)
+    // elements 128+16c.. (group 4+c/2), with Q5_K's high bits of both
     uint4 qv[kWLoads];
     float dsv[kWLoads], dmsv[kWLoads];
     int scv[kWLoads][2], mnv[kWLoads][2];
+    uint2 hbv[kWLoads];
 #pragma unroll
     for (int i = 0; i < kWLoads; ++i) {
       const int idx = tid + kThreads * i;
@@ -127,7 +138,9 @@ q4k_gemm_kernel(const __nv_bfloat16* __restrict__ x,
       qv[i] = make_uint4(0, 0, 0, 0);
       dsv[i] = dmsv[i] = 0.f;
       scv[i][0] = scv[i][1] = mnv[i][0] = mnv[i][1] = 0;
+      hbv[i] = make_uint2(0u, 0u);
       if (gn < N) {
+        hbv[i] = kquant::high_words<kFive>(qh, (size_t)gn * (K >> 3), s, c);
         qv[i] = __ldg(reinterpret_cast<const uint4*>(q + (size_t)gn * half + (size_t)s * 128) + c);
         dsv[i] = __ldg(d + (size_t)gn * n_sb + s);
         dmsv[i] = __ldg(dm + (size_t)gn * n_sb + s);
@@ -161,8 +174,9 @@ q4k_gemm_kernel(const __nv_bfloat16* __restrict__ x,
           const uint32_t word = w32[v * 2 + (e >> 1)];
           const int sh = (e & 1) * 16;  // bytes 2e, 2e+1 of this 8-byte run
           const uint32_t q0 = (word >> sh) & 0xFFu, q1 = (word >> (sh + 8)) & 0xFFu;
-          lo[e] = pack_bf16(((float)(q0 & 15u) - t_lo) * dl_lo, ((float)(q1 & 15u) - t_lo) * dl_lo);
-          hi[e] = pack_bf16(((float)(q0 >> 4) - t_hi) * dl_hi, ((float)(q1 >> 4) - t_hi) * dl_hi);
+          const uint4 w = kquant::values<kFive>(q0, q1, hbv[i], v * 8 + 2 * e);
+          lo[e] = pack_bf16(((float)w.x - t_lo) * dl_lo, ((float)w.y - t_lo) * dl_lo);
+          hi[e] = pack_bf16(((float)w.z - t_hi) * dl_hi, ((float)w.w - t_hi) * dl_hi);
         }
         *reinterpret_cast<uint4*>(wrow + c * 16 + v * 8) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
         *reinterpret_cast<uint4*>(wrow + 128 + c * 16 + v * 8) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
@@ -249,27 +263,43 @@ q4k_gemm_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-}  // namespace
-
-// Returns the first CUDA error of the attribute call or the launch (0 = ok).
-extern "C" int q4k_gemm(const void* x, const void* q, const void* sc,
-                        const void* mn, const void* d, const void* dm,
-                        void* out, int m, int n, int k, int out_f32,
-                        void* stream) {
-  if (m < 1 || n < 1 || k < 256 || k % 256 != 0 || (m + BM - 1) / BM > 65535)
+template <bool kFive>
+int gemm(const void* x, const void* q, const void* sc, const void* mn,
+         const void* d, const void* dm, const void* qh, void* out, int m,
+         int n, int k, int out_f32, void* stream) {
+  if (m < 1 || n < 1 || k < 256 || k % 256 != 0 || (m + BM - 1) / BM > 65535 ||
+      (kFive && qh == nullptr))
     return (int)cudaErrorInvalidValue;
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        q4k_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+        q4k_gemm_kernel<kFive>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
   const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM), block(kThreads);
-  q4k_gemm_kernel<<<grid, block, kSmem, static_cast<cudaStream_t>(stream)>>>(
+  q4k_gemm_kernel<kFive><<<grid, block, kSmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(q),
       static_cast<const int8_t*>(sc), static_cast<const int8_t*>(mn),
-      static_cast<const float*>(d), static_cast<const float*>(dm), out, m, n, k,
-      out_f32);
+      static_cast<const float*>(d), static_cast<const float*>(dm),
+      static_cast<const uint8_t*>(qh), out, m, n, k, out_f32);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Each returns the first CUDA error of the attribute call or the launch
+// (0 = ok). Q4_K has no high-bit plane: q4k_gemm ignores qh (null).
+extern "C" int q4k_gemm(const void* x, const void* q, const void* sc,
+                        const void* mn, const void* d, const void* dm,
+                        const void* qh, void* out, int m, int n, int k,
+                        int out_f32, void* stream) {
+  return gemm<false>(x, q, sc, mn, d, dm, qh, out, m, n, k, out_f32, stream);
+}
+
+extern "C" int q5k_gemm(const void* x, const void* q, const void* sc,
+                        const void* mn, const void* d, const void* dm,
+                        const void* qh, void* out, int m, int n, int k,
+                        int out_f32, void* stream) {
+  return gemm<true>(x, q, sc, mn, d, dm, qh, out, m, n, k, out_f32, stream);
 }

@@ -1,12 +1,16 @@
-// q4k_gemv: out[m, n] = sum_k x[m, k] * W[n, k] for M = 1..8, W in Q4_K.
+// q4k_gemv (kernel A) and q5k_gemv (kernel G): out[m, n] = sum_k x[m, k] *
+// W[n, k] for M = 1..8, W in Q4_K or Q5_K.
 //
 // Replaces omni_tpu/kernels/dequant_matmul.py::qmatmul_gp_pallas (:333) for
-// Q4_K — the decode matmul of every layer and of the output head.
+// Q4_K and Q5_K — the decode matmul of every layer and of the output head.
+// Q5_K is Q4_K with a fifth bit per value (q = nibble + 16 * bit, 0..31,
+// still exact in bf16, `_gp_slice` :208-215), so both formats run one
+// template; the flag kFive adds the high-bit plane.
 //
 // Bound on the H100: device-memory bytes. Each weight element is read once
 // (0.5 B of nibbles + 1/16 B of int8 scale/min + 1/32 B of f32 super
-// scales) and used M <= 8 times, far below the ~295 operations per byte
-// where the card turns compute-bound. The design streams the packed planes
+// scales; Q5_K 1/8 B more of high bits) and used M <= 8 times, far below
+// the ~295 operations per byte where the card turns compute-bound. The design streams the packed planes
 // once and never widens them in memory:
 // - one warp per output row; lanes take 16-byte loads of packed nibbles,
 //   neighbouring lanes on neighbouring addresses;
@@ -21,23 +25,27 @@
 // Plane layout (N-major, the transpose of the JAX K-major planes): q u8
 // [N, K/2] with superblock-local halves (byte r of superblock s holds
 // element s*256+r low and s*256+128+r high), sc/mn int8 [N, K/32], d/dm f32
-// [N, K/256]. Offsets are 64-bit: the output head's planes pass 3e8 bytes.
+// [N, K/256]; Q5_K's qh u8 [N, K/8], decoded with the chunk of q it goes
+// with by kquant.cuh.
+// Offsets are 64-bit: the output head's planes pass 3e8 bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "kquant.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;  // rows per block
 
-template <int M>
+template <int M, bool kFive>
 __global__ void __launch_bounds__(kWarps * 32)
 q4k_gemv_kernel(const __nv_bfloat16* __restrict__ x,
                 const uint8_t* __restrict__ q, const int8_t* __restrict__ sc,
                 const int8_t* __restrict__ mn, const float* __restrict__ d,
-                const float* __restrict__ dm, void* __restrict__ out,
-                int n_rows, int k, int out_f32) {
+                const float* __restrict__ dm, const uint8_t* __restrict__ qh,
+                void* __restrict__ out, int n_rows, int k, int out_f32) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (row >= n_rows) return;
@@ -70,6 +78,7 @@ q4k_gemv_kernel(const __nv_bfloat16* __restrict__ x,
       uint8_t b[16];
     } pk;
     pk.v = __ldg(reinterpret_cast<const uint4*>(qrow) + c);
+    const uint2 hb = kquant::high_words<kFive>(qh, (size_t)row * (k >> 3), s, c & 7);
     const int e_lo = s * 256 + r0;  // first element of the low half
 #pragma unroll
     for (int m = 0; m < M; ++m) {
@@ -86,9 +95,9 @@ q4k_gemv_kernel(const __nv_bfloat16* __restrict__ x,
       for (int j = 0; j < 8; ++j) {
         const float2 fl = __bfloat1622float2(hl[j]);
         const float2 fh = __bfloat1622float2(hh[j]);
-        const uint8_t b0 = pk.b[2 * j], b1 = pk.b[2 * j + 1];
-        p_lo += fl.x * (float)(b0 & 15) + fl.y * (float)(b1 & 15);
-        p_hi += fh.x * (float)(b0 >> 4) + fh.y * (float)(b1 >> 4);
+        const uint4 v = kquant::values<kFive>(pk.b[2 * j], pk.b[2 * j + 1], hb, 2 * j);
+        p_lo += fl.x * (float)v.x + fl.y * (float)v.y;
+        p_hi += fh.x * (float)v.z + fh.y * (float)v.w;
         s_lo += fl.x + fl.y;
         s_hi += fh.x + fh.y;
       }
@@ -111,37 +120,52 @@ q4k_gemv_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-template <int M>
+template <int M, bool kFive>
 void launch(const void* x, const void* q, const void* sc, const void* mn,
-            const void* d, const void* dm, void* out, int n, int k,
-            int out_f32, cudaStream_t st) {
+            const void* d, const void* dm, const void* qh, void* out, int n,
+            int k, int out_f32, cudaStream_t st) {
   const dim3 grid((n + kWarps - 1) / kWarps), block(kWarps * 32);
-  q4k_gemv_kernel<M><<<grid, block, 0, st>>>(
+  q4k_gemv_kernel<M, kFive><<<grid, block, 0, st>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(q),
       static_cast<const int8_t*>(sc), static_cast<const int8_t*>(mn),
-      static_cast<const float*>(d), static_cast<const float*>(dm), out, n, k,
-      out_f32);
+      static_cast<const float*>(d), static_cast<const float*>(dm),
+      static_cast<const uint8_t*>(qh), out, n, k, out_f32);
+}
+
+template <bool kFive>
+int gemv(const void* x, const void* q, const void* sc, const void* mn,
+         const void* d, const void* dm, const void* qh, void* out, int m,
+         int n, int k, int out_f32, void* stream) {
+  if (m < 1 || m > 8 || n < 1 || k < 256 || k % 256 != 0 || (kFive && qh == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (m) {
+    case 1: launch<1, kFive>(x, q, sc, mn, d, dm, qh, out, n, k, out_f32, st); break;
+    case 2: launch<2, kFive>(x, q, sc, mn, d, dm, qh, out, n, k, out_f32, st); break;
+    case 3: launch<3, kFive>(x, q, sc, mn, d, dm, qh, out, n, k, out_f32, st); break;
+    case 4: launch<4, kFive>(x, q, sc, mn, d, dm, qh, out, n, k, out_f32, st); break;
+    case 5: launch<5, kFive>(x, q, sc, mn, d, dm, qh, out, n, k, out_f32, st); break;
+    case 6: launch<6, kFive>(x, q, sc, mn, d, dm, qh, out, n, k, out_f32, st); break;
+    case 7: launch<7, kFive>(x, q, sc, mn, d, dm, qh, out, n, k, out_f32, st); break;
+    default: launch<8, kFive>(x, q, sc, mn, d, dm, qh, out, n, k, out_f32, st); break;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 = launched).
+// Each returns cudaGetLastError() after the launch (0 = launched). Q4_K has
+// no high-bit plane: q4k_gemv ignores qh (null).
 extern "C" int q4k_gemv(const void* x, const void* q, const void* sc,
                         const void* mn, const void* d, const void* dm,
-                        void* out, int m, int n, int k, int out_f32,
-                        void* stream) {
-  if (m < 1 || m > 8 || n < 1 || k < 256 || k % 256 != 0)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (m) {
-    case 1: launch<1>(x, q, sc, mn, d, dm, out, n, k, out_f32, st); break;
-    case 2: launch<2>(x, q, sc, mn, d, dm, out, n, k, out_f32, st); break;
-    case 3: launch<3>(x, q, sc, mn, d, dm, out, n, k, out_f32, st); break;
-    case 4: launch<4>(x, q, sc, mn, d, dm, out, n, k, out_f32, st); break;
-    case 5: launch<5>(x, q, sc, mn, d, dm, out, n, k, out_f32, st); break;
-    case 6: launch<6>(x, q, sc, mn, d, dm, out, n, k, out_f32, st); break;
-    case 7: launch<7>(x, q, sc, mn, d, dm, out, n, k, out_f32, st); break;
-    default: launch<8>(x, q, sc, mn, d, dm, out, n, k, out_f32, st); break;
-  }
-  return (int)cudaGetLastError();
+                        const void* qh, void* out, int m, int n, int k,
+                        int out_f32, void* stream) {
+  return gemv<false>(x, q, sc, mn, d, dm, qh, out, m, n, k, out_f32, stream);
+}
+
+extern "C" int q5k_gemv(const void* x, const void* q, const void* sc,
+                        const void* mn, const void* d, const void* dm,
+                        const void* qh, void* out, int m, int n, int k,
+                        int out_f32, void* stream) {
+  return gemv<true>(x, q, sc, mn, d, dm, qh, out, m, n, k, out_f32, stream);
 }

@@ -101,15 +101,16 @@ void launch(const void* x, const void* q, const void* sc, const void* d,
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 = launched). The mn and dm
-// arguments keep the signature of the other kernels; Q6_K has no min, so
-// they are unused.
+// Returns cudaGetLastError() after the launch (0 = launched). The mn, dm and
+// qh arguments keep the signature of the other kernels; Q6_K has no min
+// and no high-bit plane, so they are unused.
 extern "C" int q6k_gemv(const void* x, const void* q, const void* sc,
                         const void* mn, const void* d, const void* dm,
-                        void* out, int m, int n, int k, int out_f32,
-                        void* stream) {
+                        const void* qh, void* out, int m, int n, int k,
+                        int out_f32, void* stream) {
   (void)mn;
   (void)dm;
+  (void)qh;
   if (m < 1 || m > 8 || n < 1 || k < 256 || k % 256 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

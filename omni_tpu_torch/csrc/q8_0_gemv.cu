@@ -114,16 +114,17 @@ void launch(const void* x, const void* q, const void* d, void* out, int n, int k
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 = launched). The sc, mn
-// and dm arguments keep the signature of the other kernels; the int8-plane
-// formats have none of them, so they are unused.
+// Returns cudaGetLastError() after the launch (0 = launched). The sc, mn,
+// dm and qh arguments keep the signature of the other kernels; the
+// int8-plane formats have none of them, so they are unused.
 extern "C" int q8_0_gemv(const void* x, const void* q, const void* sc,
                          const void* mn, const void* d, const void* dm,
-                         void* out, int m, int n, int k, int out_f32,
-                         void* stream) {
+                         const void* qh, void* out, int m, int n, int k,
+                         int out_f32, void* stream) {
   (void)sc;
   (void)mn;
   (void)dm;
+  (void)qh;
   if (m < 1 || m > 8 || n < 1 || k < 32 || k % 32 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -1,13 +1,13 @@
 // qgemm: out[m, n] = sum_k bf16(x)[m, k] * bf16(dequant(W))[n, k], any M,
-// W in Q4_K, Q6_K or Q8_0 — the generic fused dequant x matmul.
+// W in Q4_K, Q5_K, Q6_K or Q8_0 — the generic fused dequant x matmul.
 //
 // Replaces omni_tpu/kernels/dequant_matmul.py::qmatmul_pallas (:103, body
-// _make_kernel :55-76, law qformats.dequant_tile :289-360) for Q4_K, Q6_K
-// and Q8_0. On a Q4_K_M checkpoint it runs the prefill (M > 8) of the Q6_K
-// tensors (attn_v and ffn_down on the promoted layers, the output head),
-// and every Q4_K weight whose K is not a multiple of 2048, at any M. On a
-// Q8_0 checkpoint it runs the prefill of every weight, and any Q8_0 weight
-// whose K is not a multiple of 256.
+// _make_kernel :55-76, law qformats.dequant_tile :289-360) for Q4_K, Q5_K,
+// Q6_K and Q8_0. On a Q4_K_M or Q5_K_M checkpoint it runs the prefill
+// (M > 8) of the Q6_K tensors (attn_v and ffn_down on the promoted layers,
+// the output head), and every Q4_K or Q5_K weight whose K is not a multiple
+// of 2048, at any M. On a Q8_0 checkpoint it runs the prefill of every
+// weight, and any Q8_0 weight whose K is not a multiple of 256.
 //
 // The law is the TPU kernel's: each weight element is dequantised in f32
 // and rounded once to bf16, then multiplied against bf16 x with f32
@@ -15,6 +15,8 @@
 // - Q4_K: w = bf16(q * dl - ml), the UNCENTERED law of dequant_tile (not
 //   kernel B's centered one: the two round differently), dl = d * sc and
 //   ml = dm * mn per 32-group;
+// - Q5_K: the same with q = nibble + 16 * bit (0..31), the bit from the
+//   plane qh u8 [N, K/8] (decoded by kquant.cuh);
 // - Q6_K: w = bf16((q - 32) * dl), dl = d * sc per 16-group;
 // - Q8_0: w = bf16(q * d), d per 32-group.
 // The products and the difference are rounded one at a time (__fmul_rn,
@@ -46,11 +48,13 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "kquant.cuh"
+
 namespace {
 
 using namespace nvcuda;
 
-constexpr int kQ8_0 = 8, kQ4K = 12, kQ6K = 14;  // GGML type ids
+constexpr int kQ8_0 = 8, kQ4K = 12, kQ5K = 13, kQ6K = 14;  // GGML type ids
 constexpr int BM = 64, BN = 64, BK = 256;
 constexpr int LD = BK + 8;   // bf16 row pitch of the staged tiles
 constexpr int LDC = BN + 4;  // f32 row pitch of the epilogue tile
@@ -86,11 +90,14 @@ struct Planes {
   const int8_t* mn;
   const float* d;
   const float* dm;
+  const uint8_t* qh;
 };
 
-// Q4_K weight tile of superblock s: BN rows x 8 chunks of 16 packed bytes;
-// chunk c holds the low nibbles of elements 16c.. (group c/2) and the high
-// nibbles of elements 128+16c.. (group 4+c/2).
+// Q4_K (Q5_K where kFive) weight tile of superblock s: BN rows x 8 chunks of
+// 16 packed bytes; chunk c holds the low nibbles of elements 16c.. (group
+// c/2) and the high nibbles of elements 128+16c.. (group 4+c/2), with
+// Q5_K's high bits of both.
+template <bool kFive>
 __device__ __forceinline__ void stage_w_q4k(const Planes& p, __nv_bfloat16* ws_t,
                                             int n0, int N, int K, int s, int tid) {
   constexpr int kLoads = BN * 8 / kThreads;
@@ -99,6 +106,7 @@ __device__ __forceinline__ void stage_w_q4k(const Planes& p, __nv_bfloat16* ws_t
   uint4 qv[kLoads];
   float dsv[kLoads], dmsv[kLoads];
   int scv[kLoads][2], mnv[kLoads][2];
+  uint2 hbv[kLoads];
 #pragma unroll
   for (int i = 0; i < kLoads; ++i) {
     const int idx = tid + kThreads * i;
@@ -107,7 +115,9 @@ __device__ __forceinline__ void stage_w_q4k(const Planes& p, __nv_bfloat16* ws_t
     qv[i] = make_uint4(0, 0, 0, 0);
     dsv[i] = dmsv[i] = 0.f;
     scv[i][0] = scv[i][1] = mnv[i][0] = mnv[i][1] = 0;
+    hbv[i] = make_uint2(0u, 0u);
     if (gn < N) {
+      hbv[i] = kquant::high_words<kFive>(p.qh, (size_t)gn * (K >> 3), s, c);
       const uint8_t* qrow = static_cast<const uint8_t*>(p.q) + (size_t)gn * half;
       qv[i] = __ldg(reinterpret_cast<const uint4*>(qrow + (size_t)s * 128) + c);
       dsv[i] = __ldg(p.d + (size_t)gn * n_sb + s);
@@ -138,10 +148,11 @@ __device__ __forceinline__ void stage_w_q4k(const Planes& p, __nv_bfloat16* ws_t
         const uint32_t word = w32[v * 2 + (e >> 1)];
         const int sh = (e & 1) * 16;  // bytes 2e, 2e+1 of this 8-byte run
         const uint32_t q0 = (word >> sh) & 0xFFu, q1 = (word >> (sh + 8)) & 0xFFu;
-        lo[e] = pack_bf16(__fsub_rn(__fmul_rn((float)(q0 & 15u), dl_lo), ml_lo),
-                          __fsub_rn(__fmul_rn((float)(q1 & 15u), dl_lo), ml_lo));
-        hi[e] = pack_bf16(__fsub_rn(__fmul_rn((float)(q0 >> 4), dl_hi), ml_hi),
-                          __fsub_rn(__fmul_rn((float)(q1 >> 4), dl_hi), ml_hi));
+        const uint4 w = kquant::values<kFive>(q0, q1, hbv[i], v * 8 + 2 * e);
+        lo[e] = pack_bf16(__fsub_rn(__fmul_rn((float)w.x, dl_lo), ml_lo),
+                          __fsub_rn(__fmul_rn((float)w.y, dl_lo), ml_lo));
+        hi[e] = pack_bf16(__fsub_rn(__fmul_rn((float)w.z, dl_hi), ml_hi),
+                          __fsub_rn(__fmul_rn((float)w.w, dl_hi), ml_hi));
       }
       *reinterpret_cast<uint4*>(wrow + c * 16 + v * 8) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
       *reinterpret_cast<uint4*>(wrow + 128 + c * 16 + v * 8) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
@@ -269,8 +280,8 @@ qgemm_kernel(const __nv_bfloat16* __restrict__ x, Planes p, void* __restrict__ o
       cp_async16(xs_t + r * LD + c * 8, src, live);
     }
     cp_async_commit();
-    if constexpr (QT == kQ4K)
-      stage_w_q4k(p, ws_t, n0, N, K, s, tid);
+    if constexpr (QT == kQ4K || QT == kQ5K)
+      stage_w_q4k<QT == kQ5K>(p, ws_t, n0, N, K, s, tid);
     else if constexpr (QT == kQ6K)
       stage_w_q6k(p, ws_t, n0, N, K, s, tid);
     else
@@ -339,7 +350,8 @@ template <int QT>
 int launch(const void* x, Planes p, void* out, int m, int n, int k, int out_f32,
            void* stream) {
   constexpr int granule = QT == kQ8_0 ? 32 : 256;  // K multiple of the planes
-  if (m < 1 || n < 1 || k < granule || k % granule != 0 || (m + BM - 1) / BM > 65535)
+  if (m < 1 || n < 1 || k < granule || k % granule != 0 || (m + BM - 1) / BM > 65535 ||
+      (QT == kQ5K && p.qh == nullptr))
     return (int)cudaErrorInvalidValue;
   static bool attr_set = false;
   if (!attr_set) {
@@ -356,36 +368,21 @@ int launch(const void* x, Planes p, void* out, int m, int n, int k, int out_f32,
 
 }  // namespace
 
-// One entry point per format, each with the signature of the other kernels
-// (Q6_K has no min planes: mn and dm are unused; Q8_0 has only q and d). Each returns the first
-// CUDA error of the attribute call or the launch (0 = launched).
-extern "C" int qgemm_q4k(const void* x, const void* q, const void* sc,
-                         const void* mn, const void* d, const void* dm,
-                         void* out, int m, int n, int k, int out_f32,
-                         void* stream) {
-  const Planes p{q, static_cast<const int8_t*>(sc), static_cast<const int8_t*>(mn),
-                 static_cast<const float*>(d), static_cast<const float*>(dm)};
-  return launch<kQ4K>(x, p, out, m, n, k, out_f32, stream);
-}
+// One entry point per format, each with the signature of the other kernels;
+// the planes a format lacks are unused (Q4_K: qh; Q6_K: mn, dm, qh; Q8_0:
+// all but q and d). Each returns the first CUDA error of the attribute call
+// or the launch (0 = launched).
+#define QGEMM_ENTRY(NAME, QT)                                                      \
+  extern "C" int NAME(const void* x, const void* q, const void* sc, const void* mn, \
+                      const void* d, const void* dm, const void* qh, void* out,     \
+                      int m, int n, int k, int out_f32, void* stream) {            \
+    const Planes p{q, static_cast<const int8_t*>(sc), static_cast<const int8_t*>(mn), \
+                   static_cast<const float*>(d), static_cast<const float*>(dm),    \
+                   static_cast<const uint8_t*>(qh)};                                \
+    return launch<QT>(x, p, out, m, n, k, out_f32, stream);                        \
+  }
 
-extern "C" int qgemm_q6k(const void* x, const void* q, const void* sc,
-                         const void* mn, const void* d, const void* dm,
-                         void* out, int m, int n, int k, int out_f32,
-                         void* stream) {
-  (void)mn;
-  (void)dm;
-  const Planes p{q, static_cast<const int8_t*>(sc), nullptr,
-                 static_cast<const float*>(d), nullptr};
-  return launch<kQ6K>(x, p, out, m, n, k, out_f32, stream);
-}
-
-extern "C" int qgemm_q8_0(const void* x, const void* q, const void* sc,
-                          const void* mn, const void* d, const void* dm,
-                          void* out, int m, int n, int k, int out_f32,
-                          void* stream) {
-  (void)sc;
-  (void)mn;
-  (void)dm;
-  const Planes p{q, nullptr, nullptr, static_cast<const float*>(d), nullptr};
-  return launch<kQ8_0>(x, p, out, m, n, k, out_f32, stream);
-}
+QGEMM_ENTRY(qgemm_q4k, kQ4K)
+QGEMM_ENTRY(qgemm_q5k, kQ5K)
+QGEMM_ENTRY(qgemm_q6k, kQ6K)
+QGEMM_ENTRY(qgemm_q8_0, kQ8_0)

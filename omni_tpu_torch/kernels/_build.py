@@ -1,10 +1,10 @@
 """Build and bind the port's CUDA kernels.
 
 Each `csrc/*.cu` file has a plain C interface and includes no PyTorch
-header, so `nvcc` builds it in seconds. The sources are compiled at first
-use, all at once (one `nvcc` process per source, started together), into
-`omni_tpu_torch/build/<hash of sources and flags>/`, and loaded with
-`ctypes`. A later process with the same sources reuses the libraries.
+header (only the port's own `csrc/*.cuh`), so `nvcc` builds it in seconds.
+The sources are compiled at first use, all at once (one `nvcc` process per
+source, started together), into `omni_tpu_torch/build/<hash of sources,
+headers and flags>/`, and loaded with `ctypes`. A later process with the same sources reuses the libraries.
 """
 
 from __future__ import annotations
@@ -25,8 +25,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# a matmul entry point: (x, q, sc, mn, d, dm, out, m, n, k, out_f32, stream)
-MATMUL_ARGS = [_P] * 7 + [_I] * 4 + [_P]
+# a matmul entry point: (x, q, sc, mn, d, dm, qh, out, m, n, k, out_f32,
+# stream); the planes a format lacks go as null pointers
+MATMUL_ARGS = [_P] * 8 + [_I] * 4 + [_P]
 # a flash-decode entry point: (q, k, v, mask, k_scale, v_scale, out,
 # workspace, t, hkv, g, s, d, head_stride, scale_stride, scale,
 # rows_per_warp, per_split, nsplit, stream)
@@ -35,11 +36,12 @@ FLASH_ARGS = ([_P] * 8 + [_I] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_float]
 # each source, its C entry points (one per kernel, format or cell type) and
 # their argument types; every entry returns cudaError_t as int
 SOURCES = {
-    "q4k_gemv.cu": {"q4k_gemv": MATMUL_ARGS},
-    "q4k_gemm.cu": {"q4k_gemm": MATMUL_ARGS},
+    "q4k_gemv.cu": dict.fromkeys(("q4k_gemv", "q5k_gemv"), MATMUL_ARGS),
+    "q4k_gemm.cu": dict.fromkeys(("q4k_gemm", "q5k_gemm"), MATMUL_ARGS),
     "q6k_gemv.cu": {"q6k_gemv": MATMUL_ARGS},
     "q8_0_gemv.cu": {"q8_0_gemv": MATMUL_ARGS},
-    "qgemm.cu": dict.fromkeys(("qgemm_q4k", "qgemm_q6k", "qgemm_q8_0"), MATMUL_ARGS),
+    "qgemm.cu": dict.fromkeys(("qgemm_q4k", "qgemm_q5k", "qgemm_q6k", "qgemm_q8_0"),
+                              MATMUL_ARGS),
     "flash_decode.cu": dict.fromkeys(
         ("flash_decode_bf16", "flash_decode_i8", "flash_decode_i4"), FLASH_ARGS)}
 
@@ -57,10 +59,10 @@ def nvcc() -> str:
 
 
 def build_dir() -> Path:
-    """Where this version of the sources builds: BUILD/<hash of sources and
-    flags>."""
+    """Where this version of the sources builds: BUILD/<hash of sources,
+    the headers they include (csrc/*.cuh) and flags>."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in [*SOURCES, *sorted(p.name for p in CSRC.glob("*.cuh"))]:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return BUILD / h.hexdigest()[:16]

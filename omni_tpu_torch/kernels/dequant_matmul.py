@@ -1,16 +1,18 @@
-"""Quantized matmul: the `matmul` dispatcher and the port's five kernels.
+"""Quantized matmul: the `matmul` dispatcher and the port's matmul kernels.
 
 Counterpart of `omni_tpu/kernels/dequant_matmul.py`. On a CUDA tensor a
 weight goes to a kernel written by hand for Hopper, chosen as the JAX
 dispatcher chooses its Pallas kernel (`matmul`, dequant_matmul.py:665-672):
 - `gp_supported` (M = 1..8, K % 2048 == 0 for the K-quants, K % 256 == 0
-  for Q8_0: `_gp_min_tk`): kernel A `q4k_gemv` for Q4_K, kernel C
+  for Q8_0: `_gp_min_tk`): kernel A `q4k_gemv` for Q4_K, kernel G
+  `q5k_gemv` for Q5_K (A's template with the high bit), kernel C
   `q6k_gemv` for Q6_K, kernel E `q8_0_gemv` for Q8_0 (all replace
   qmatmul_gp_pallas);
-- `sh_supported` (M > 8, Q4_K, K % 2048 == 0): kernel B `q4k_gemm`
-  (replaces qmatmul_splith_pallas);
-- every other Q4_K, Q6_K or Q8_0 weight, at any M: kernel D `qgemm`, the
-  generic dequant-GEMM (replaces qmatmul_pallas).
+- `sh_supported` (M > 8, Q4_K or Q5_K, K % 2048 == 0): kernel B `q4k_gemm`,
+  and its Q5_K branch `q5k_gemm` (replace qmatmul_splith_pallas);
+- every other Q4_K, Q5_K, Q6_K or Q8_0 weight, at any M: kernel D `qgemm`,
+  the generic dequant-GEMM (replaces qmatmul_pallas; its launches of every
+  format count under "qgemm", and each format's also in `qgemm_launches`).
 Other formats raise NotImplementedError on the card, naming the TPU kernel
 still to port. Each kernel has a plain PyTorch version of the same law
 beside it: the wrapper runs it only for a tensor that lies on the CPU, and
@@ -30,26 +32,30 @@ from __future__ import annotations
 import torch
 
 from ..core.dtypes import GGMLType
-from .qformats import (QTensor, check_qtensor, dequant, q4k_group_scales,
-                       q6k_group_scales, unpack_sb_halves)
+from .qformats import (PLANES, QTensor, check_qtensor, dequant, kquant_values,
+                       q4k_group_scales, q6k_group_scales)
 
-GP_MAX_M = 8  # decode rows kernels A, C and E take (the TPU's _GP_MAX_M)
+GP_MAX_M = 8  # decode rows kernels A, C, E and G take (the TPU's _GP_MAX_M)
 # the K multiple of the gp and sh paths per format (the TPU kernels'
 # `_gp_min_tk`: 2048 where a plane has one row per 256 elements, else 256)
-GP_MIN_K = {GGMLType.Q4_K: 2048, GGMLType.Q6_K: 2048, GGMLType.Q8_0: 256}
+GP_MIN_K = {GGMLType.Q4_K: 2048, GGMLType.Q5_K: 2048, GGMLType.Q6_K: 2048,
+            GGMLType.Q8_0: 256}
 
 # kernel launches, one count per wrapper; a run resets and reads them
-launches = {"q4k_gemv": 0, "q4k_gemm": 0, "q6k_gemv": 0, "qgemm": 0,
-            "q8_0_gemv": 0}
+launches = {"q4k_gemv": 0, "q4k_gemm": 0, "q5k_gemv": 0, "q5k_gemm": 0,
+            "q6k_gemv": 0, "qgemm": 0, "q8_0_gemv": 0}
+# kernel D's launches per format (their sum is launches["qgemm"])
+qgemm_launches = {"Q4_K": 0, "Q5_K": 0, "Q6_K": 0, "Q8_0": 0}
 
 # the C entry point of kernel D for each format
-_QGEMM_ENTRY = {GGMLType.Q4_K: "qgemm_q4k", GGMLType.Q6_K: "qgemm_q6k",
-                GGMLType.Q8_0: "qgemm_q8_0"}
+_QGEMM_ENTRY = {GGMLType.Q4_K: "qgemm_q4k", GGMLType.Q5_K: "qgemm_q5k",
+                GGMLType.Q6_K: "qgemm_q6k", GGMLType.Q8_0: "qgemm_q8_0"}
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, qgemm_launches):
+        for name in counts:
+            counts[name] = 0
 
 
 def _on_cuda(x: torch.Tensor) -> bool:
@@ -67,14 +73,18 @@ def _check(x: torch.Tensor, qt: QTensor, out_dtype, *types: GGMLType) -> None:
 def _launch(name: str, entry: str, x: torch.Tensor, qt: QTensor,
             out_dtype) -> torch.Tensor:
     """Launch C entry point `entry` of kernel `name` on the current stream
-    (CUDA tensors only). Planes a format lacks go as null pointers."""
+    (CUDA tensors only). Every entry takes the six planes in PLANES order
+    (q, sc, mn, d, dm, qh); those a format lacks go as null pointers."""
     if x.dtype != torch.bfloat16 or not x.is_contiguous():
         raise ValueError(f"{name}: x must be contiguous bfloat16, got {x.dtype}")
-    planes = (qt.q, qt.sc, qt.mn, qt.d, qt.dm)
+    planes = tuple(getattr(qt, nm) for nm in PLANES)
     if any(p is not None and p.device != x.device for p in planes):
         raise ValueError(f"{name}: x and weight planes on different devices")
     if x.data_ptr() % 16 or qt.q.data_ptr() % 16:
         raise ValueError(f"{name}: x and q must be 16-byte aligned")
+    if qt.qh is not None and qt.qh.data_ptr() % 2:
+        # the kernels read qh in 16-bit words
+        raise ValueError(f"{name}: qh must be 2-byte aligned")
     from . import _build
 
     fn = _build.load()[entry]
@@ -87,6 +97,8 @@ def _launch(name: str, entry: str, x: torch.Tensor, qt: QTensor,
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     launches[name] += 1
+    if name == "qgemm":
+        qgemm_launches[GGMLType(qt.ggml_type).name] += 1
     return out
 
 
@@ -107,14 +119,15 @@ def _check_gemv_m(name: str, x: torch.Tensor) -> None:
 
 def q4k_gemv_plain(x: torch.Tensor, qt: QTensor,
                    out_dtype=torch.bfloat16) -> torch.Tensor:
-    """Kernel A's law in plain PyTorch (the group law of qmatmul_gp_pallas):
-    per 32-group P = x_bf16 · q (raw nibbles), out = Σ_g dl·P − ml·xs with
-    xs the group sums of x_bf16, all in f32."""
+    """Kernel A's law in plain PyTorch (the group law of qmatmul_gp_pallas),
+    and kernel G's for Q5_K: per 32-group P = x_bf16 · q (the raw values:
+    nibbles, or Q5_K's 0..31), out = Σ_g dl·P − ml·xs with xs the group sums
+    of x_bf16, all in f32."""
     m, k = x.shape
     n = qt.shape[0]
     g = k // 32
     xb = x.to(torch.bfloat16).to(torch.float32).reshape(m, g, 32)
-    q = unpack_sb_halves(qt.q).to(torch.float32).reshape(n, g, 32)
+    q = kquant_values(qt).to(torch.float32).reshape(n, g, 32)
     p = torch.einsum("mgk,ngk->mng", xb, q)  # [M, N, G]
     dl, ml = q4k_group_scales(qt)  # [N, G]
     xs = xb.sum(-1)  # [M, G]
@@ -122,14 +135,19 @@ def q4k_gemv_plain(x: torch.Tensor, qt: QTensor,
     return out.to(out_dtype)
 
 
+# kernel G's law is kernel A's: Q5_K's values are 0..31, exact in bf16
+q5k_gemv_plain = q4k_gemv_plain
+
+
 def q4k_centered(qt: QTensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Kernel B's weights: (w = bf16((q − t)·dl) [N, K] with t = ml/dl, the
-    residual ml − t·dl [N, K/32] in f32)."""
+    """Kernel B's weights, of a Q4_K or Q5_K weight: (w = bf16((q − t)·dl)
+    [N, K] with t = ml/dl, 0 where dl = 0; the residual ml − t·dl [N, K/32]
+    in f32)."""
     dl, ml = q4k_group_scales(qt)
     nz = dl != 0
     t = torch.where(nz, ml / torch.where(nz, dl, torch.ones_like(dl)),
                     torch.zeros_like(dl))
-    q = unpack_sb_halves(qt.q).to(torch.float32)
+    q = kquant_values(qt).to(torch.float32)
     w = ((q - t.repeat_interleave(32, 1)) * dl.repeat_interleave(32, 1)
          ).to(torch.bfloat16)
     return w, ml - t * dl
@@ -146,6 +164,11 @@ def q4k_gemm_plain(x: torch.Tensor, qt: QTensor,
     acc = x.to(torch.bfloat16).to(torch.float32) @ w.to(torch.float32).T
     xs = x.to(torch.float32).reshape(m, k // 32, 32).sum(-1)
     return (acc - xs @ ml_res.T).to(out_dtype)
+
+
+# q5k_gemm's law is kernel B's, q carrying its high bit (the TPU kernel's
+# `five_bit`)
+q5k_gemm_plain = q4k_gemm_plain
 
 
 def q6k_gemv_plain(x: torch.Tensor, qt: QTensor,
@@ -180,8 +203,8 @@ def qgemm_plain(x: torch.Tensor, qt: QTensor,
                 out_dtype=torch.bfloat16) -> torch.Tensor:
     """Kernel D's law in plain PyTorch (qmatmul_pallas with dequant_tile):
     each weight dequantised in f32 and rounded once to bf16 (uncentered for
-    Q4_K: bf16(q·dl − ml); bf16(q·d) for Q8_0), then a dot with bf16 x in
-    f32."""
+    Q4_K and Q5_K: bf16(q·dl − ml); bf16(q·d) for Q8_0), then a dot with
+    bf16 x in f32."""
     w = dequant(qt, torch.bfloat16).to(torch.float32)
     return (x.to(torch.bfloat16).to(torch.float32) @ w.T).to(out_dtype)
 
@@ -203,6 +226,24 @@ def q4k_gemm(x: torch.Tensor, qt: QTensor,
     return _run("q4k_gemm", "q4k_gemm", q4k_gemm_plain, x, qt, out_dtype)
 
 
+def q5k_gemv(x: torch.Tensor, qt: QTensor,
+             out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Kernel G (replaces qmatmul_gp_pallas for Q5_K): M = 1..8."""
+    _check(x, qt, out_dtype, GGMLType.Q5_K)
+    _check_gemv_m("q5k_gemv", x)
+    return _run("q5k_gemv", "q5k_gemv", q5k_gemv_plain, x, qt, out_dtype)
+
+
+def q5k_gemm(x: torch.Tensor, qt: QTensor,
+             out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Kernel B's Q5_K branch (replaces qmatmul_splith_pallas for Q5_K):
+    M > 8."""
+    _check(x, qt, out_dtype, GGMLType.Q5_K)
+    if x.shape[0] <= GP_MAX_M:
+        raise ValueError(f"q5k_gemm takes M > {GP_MAX_M}, got {x.shape[0]}")
+    return _run("q5k_gemm", "q5k_gemm", q5k_gemm_plain, x, qt, out_dtype)
+
+
 def q6k_gemv(x: torch.Tensor, qt: QTensor,
              out_dtype=torch.bfloat16) -> torch.Tensor:
     """Kernel C (replaces qmatmul_gp_pallas for Q6_K): M = 1..8."""
@@ -221,7 +262,7 @@ def q8_0_gemv(x: torch.Tensor, qt: QTensor,
 
 def qgemm(x: torch.Tensor, qt: QTensor,
           out_dtype=torch.bfloat16) -> torch.Tensor:
-    """Kernel D (replaces qmatmul_pallas for Q4_K, Q6_K and Q8_0): any M,
+    """Kernel D (replaces qmatmul_pallas for Q4_K, Q5_K, Q6_K and Q8_0): any M,
     any K that holds whole blocks of the format's granule (256 for the
     K-quants, 32 for Q8_0)."""
     _check(x, qt, out_dtype, *_QGEMM_ENTRY)
@@ -229,8 +270,9 @@ def qgemm(x: torch.Tensor, qt: QTensor,
                 out_dtype)
 
 
-_GEMV = {GGMLType.Q4_K: q4k_gemv, GGMLType.Q6_K: q6k_gemv,
-         GGMLType.Q8_0: q8_0_gemv}
+_GEMV = {GGMLType.Q4_K: q4k_gemv, GGMLType.Q5_K: q5k_gemv,
+         GGMLType.Q6_K: q6k_gemv, GGMLType.Q8_0: q8_0_gemv}
+_GEMM = {GGMLType.Q4_K: q4k_gemm, GGMLType.Q5_K: q5k_gemm}
 
 
 def kernel_for(m: int, qt: QTensor):
@@ -242,8 +284,8 @@ def kernel_for(m: int, qt: QTensor):
     if qt.shape[1] % GP_MIN_K[qt.ggml_type] == 0:
         if m <= GP_MAX_M:
             return _GEMV[qt.ggml_type]
-        if qt.ggml_type == GGMLType.Q4_K:
-            return q4k_gemm
+        if qt.ggml_type in _GEMM:
+            return _GEMM[qt.ggml_type]
     return qgemm
 
 
@@ -310,6 +352,6 @@ def matmul(x: torch.Tensor, w, out_dtype=torch.bfloat16) -> torch.Tensor:
                 f"no CUDA kernel for {GGMLType(w.ggml_type).name}: "
                 "qmatmul_pallas (the generic fused dequant x matmul, "
                 "omni_tpu/kernels/dequant_matmul.py:103) is ported for Q4_K, "
-                "Q6_K and Q8_0 only")
+                "Q5_K, Q6_K and Q8_0 only")
         return kernel(x.to(torch.bfloat16).contiguous(), w, out_dtype)
     return dense_matmul(x, w, out_dtype)

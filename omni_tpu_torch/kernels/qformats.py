@@ -20,6 +20,10 @@ Q4_K planes (rows × K'):
 - d  f32  [N, K/256] super-scale
 - dm f32  [N, K/256] super-min-scale
 
+Q5_K planes: the Q4_K planes (q holds the low four bits of each value), and
+- qh u8   [N, K/8]   the high bits in element order: bit b of byte r is the
+                     fifth bit of element 8r+b (the JAX plane, transposed)
+
 Q6_K planes:
 - q  int8 [N, K]     the 6-bit value q − 32, sign-extended, element order
                      (8 bits where the file has 6.56: byte loads, no shifts)
@@ -28,8 +32,8 @@ Q6_K planes:
 
 `repack` builds these planes from GGUF block bytes ON THE DEVICE, as torch
 ops on the uploaded blocks: a host pass over a 5 GB checkpoint would take
-minutes. Only Q8_0, Q4_K and Q6_K have planes, dequantisers and kernels
-in the port so far.
+minutes. Only Q8_0, Q4_K, Q5_K and Q6_K have planes, dequantisers and
+kernels in the port so far.
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ import torch
 from ..core.dtypes import QK_K, GGMLType, type_traits
 
 PLANES = ("q", "sc", "mn", "d", "dm", "qh")
-QUANTIZED = (GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q8_0)
+QUANTIZED = (GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K, GGMLType.Q8_0)
 # int8 value planes with one scale per 32 elements need only whole 32-blocks
 # in K; the packed K-quant planes need whole 256-superblocks (the JAX
 # package's tile_granule)
@@ -81,11 +85,14 @@ def plane_specs(t: GGMLType, n: int, k: int) -> dict[str, tuple[tuple, torch.dty
     """The planes of an [n, k] weight of type `t`: name -> (shape, dtype)."""
     if t == GGMLType.Q8_0:
         return {"q": ((n, k), torch.int8), "d": ((n, k // 32), torch.float32)}
-    if t == GGMLType.Q4_K:
-        return {"q": ((n, k // 2), torch.uint8), "sc": ((n, k // 32), torch.int8),
-                "mn": ((n, k // 32), torch.int8),
-                "d": ((n, k // QK_K), torch.float32),
-                "dm": ((n, k // QK_K), torch.float32)}
+    if t in (GGMLType.Q4_K, GGMLType.Q5_K):
+        specs = {"q": ((n, k // 2), torch.uint8), "sc": ((n, k // 32), torch.int8),
+                 "mn": ((n, k // 32), torch.int8),
+                 "d": ((n, k // QK_K), torch.float32),
+                 "dm": ((n, k // QK_K), torch.float32)}
+        if t == GGMLType.Q5_K:
+            specs["qh"] = ((n, k // 8), torch.uint8)
+        return specs
     if t == GGMLType.Q6_K:
         return {"q": ((n, k), torch.int8), "sc": ((n, k // 16), torch.int8),
                 "d": ((n, k // QK_K), torch.float32)}
@@ -132,9 +139,26 @@ def unpack_sb_halves(qp: torch.Tensor) -> torch.Tensor:
     return torch.cat([lo, hi], dim=2).reshape(n, half * 2)
 
 
+def unpack_bits(qh: torch.Tensor) -> torch.Tensor:
+    """[N, K/8] bit plane -> [N, K] uint8 0/1, bit b of byte r as element
+    8r+b."""
+    n, nb = qh.shape
+    sh = torch.arange(8, dtype=torch.uint8, device=qh.device)
+    return ((qh[..., None] >> sh) & 1).reshape(n, nb * 8)
+
+
+def kquant_values(qt: QTensor) -> torch.Tensor:
+    """The values q of a Q4_K (0..15) or Q5_K (0..31: the nibble plus 16 x
+    its high bit) weight, uint8 [N, K] in element order."""
+    q = unpack_sb_halves(qt.q)
+    if qt.ggml_type == GGMLType.Q5_K:
+        q = q | (unpack_bits(qt.qh) << 4)
+    return q
+
+
 def q4k_group_scales(qt: QTensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-32-group (dl, ml) = (d·sc, dm·mn) as f32 [N, K/32] — the exact
-    f32 products the reference dequantiser forms."""
+    """Per-32-group (dl, ml) = (d·sc, dm·mn) as f32 [N, K/32] of a Q4_K or
+    Q5_K weight — the exact f32 products the reference dequantiser forms."""
     dl = _expand(qt.d, 8) * qt.sc.to(torch.float32)
     ml = _expand(qt.dm, 8) * qt.mn.to(torch.float32)
     return dl, ml
@@ -150,8 +174,8 @@ def dequant(qt: QTensor, dtype=torch.float32) -> torch.Tensor:
     in f32): the law of `dequant_tile`, rounded once to `dtype`."""
     if qt.ggml_type == GGMLType.Q8_0:
         return (qt.q.to(torch.float32) * _expand(qt.d, 32)).to(dtype)
-    if qt.ggml_type == GGMLType.Q4_K:
-        q = unpack_sb_halves(qt.q).to(torch.float32)
+    if qt.ggml_type in (GGMLType.Q4_K, GGMLType.Q5_K):
+        q = kquant_values(qt).to(torch.float32)
         dl, ml = q4k_group_scales(qt)
         return (q * _expand(dl, 32) - _expand(ml, 32)).to(dtype)
     if qt.ggml_type == GGMLType.Q6_K:
@@ -208,20 +232,31 @@ def repack(blocks: torch.Tensor, ggml_type: GGMLType,
                        dm=None)
     nsb = k // QK_K
     b = blocks.reshape(n, nsb, type_traits(t).type_size)
-    if t == GGMLType.Q4_K:
+    if t in (GGMLType.Q4_K, GGMLType.Q5_K):
         s = b[..., 4:16]
         a, bb, c = s[..., 0:4], s[..., 4:8], s[..., 8:12]
         sc = torch.cat([a & 0x3F, (c & 0x0F) | ((a >> 2) & 0x30)], dim=-1)
         mn = torch.cat([bb & 0x3F, (c >> 4) | ((bb >> 2) & 0x30)], dim=-1)
         # 4 runs of 32 bytes: low nibbles are elements 64j..64j+31, high
         # nibbles 64j+32..64j+63; then byte r = element r | element 128+r
-        qs = b[..., 16:].reshape(n, nsb, 4, 1, 32)
+        qs = b[..., (16 if t == GGMLType.Q4_K else 48):].reshape(n, nsb, 4, 1, 32)
         v = torch.cat([qs & 0xF, qs >> 4], dim=3).reshape(n, nsb, 2, 128)
         q = (v[:, :, 0] | (v[:, :, 1] << 4)).reshape(n, k // 2)
+        qh = None
+        if t == GGMLType.Q5_K:
+            # bit i of the block's qh byte l is the high bit of element
+            # 32i + l; the plane packs eight elements in order per byte
+            sh = torch.arange(8, dtype=torch.uint8, device=b.device)
+            bits = ((b[..., 16:48].reshape(n, nsb, 1, 32) >> sh.reshape(8, 1)) & 1
+                    ).reshape(n, nsb, 32, 8)
+            qh = bits[..., 0]
+            for j in range(1, 8):
+                qh = qh | (bits[..., j] << j)
+            qh = qh.reshape(n, k // 8)
         return QTensor(t, (n, k), q=q,
                        sc=sc.to(torch.int8).reshape(n, nsb * 8),
                        mn=mn.to(torch.int8).reshape(n, nsb * 8),
-                       d=_f16_field(b, 0), dm=_f16_field(b, 2))
+                       d=_f16_field(b, 0), dm=_f16_field(b, 2), qh=qh)
     # Q6_K: per 128-element half, ql bytes 0..63 give groups 0, 1 (low
     # nibbles) and 2, 3 (high nibbles); qh byte l gives group j's two high
     # bits at shift 2j
@@ -260,7 +295,7 @@ def load_quantized(blocks: np.ndarray, ggml_type: GGMLType,
                    device=None):
     """The JAX package's load policy (`load_quantized`), for the formats the
     port has:
-    - a 2-D Q8_0, Q4_K or Q6_K tensor stays quantized (a QTensor on
+    - a 2-D Q8_0, Q4_K, Q5_K or Q6_K tensor stays quantized (a QTensor on
       `device`; its blocks always fill K to the format's `tile_granule`),
       unless keep_quantized=False: then it is dequantised there to bf16;
     - F32, F16 and BF16 widen (an F16 weight becomes bf16, as in the JAX

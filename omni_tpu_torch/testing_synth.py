@@ -8,9 +8,10 @@ no multi-GB host-to-device copy happens. Three forms:
   uniform in [-0.02, 0.02). It streams 4.49 GB per decode token, less than
   a real Q4_K_M checkpoint (5.27 GB: its Q6_K tensors are larger).
 - `write_qwen3_gguf`: a GGUF file whose tensors take the types of a
-  quantization recipe (Q4_K_M or Q8_0: llama.cpp's rules, the port's copy
-  of `omni_tpu/cli/quantize.py`), with random block bytes: Q4_K in the
-  ranges above; Q6_K with its 6-bit values over their full signed range
+  quantization recipe (Q4_K_M, Q5_K_M or Q8_0: llama.cpp's rules, the
+  port's copy of `omni_tpu/cli/quantize.py`), with random block bytes: Q4_K
+  in the ranges above; Q5_K the same, its high bits random bytes too (values
+  0..31); Q6_K with its 6-bit values over their full signed range
   (q - 32 in -32..31, as a real file's are), scales 20..63 and d uniform
   in [5e-6, 5.5e-5), so that its weights have about the Q4_K weights' RMS
   (0.027 against 0.025); Q8_0 with its int8 values over -127..127 (the
@@ -71,9 +72,10 @@ def _ints(lo: int, hi: int, shape, device, generator) -> torch.Tensor:
                          generator=generator)
 
 
-def q4k_blocks(nb: int, device, generator: torch.Generator) -> torch.Tensor:
-    """nb random Q4_K blocks [nb, 144]: d, dmin, the 6-bit scales and mins
-    packed as ggml packs them (get_scale_min_k4's inverse), nibbles."""
+def _kquant_head(nb: int, device, generator: torch.Generator) -> torch.Tensor:
+    """The first 16 bytes of nb random Q4_K or Q5_K blocks: d and dmin
+    uniform in [1e-5, 1.1e-4) as f16, then the 6-bit scales 20..63 and mins
+    0..39 packed as ggml packs them (get_scale_min_k4's inverse)."""
     sc = _ints(20, 64, (nb, 8), device, generator)
     mn = _ints(0, 40, (nb, 8), device, generator)
     a = sc[:, :4] | ((sc[:, 4:] >> 4) << 6)
@@ -81,8 +83,22 @@ def q4k_blocks(nb: int, device, generator: torch.Generator) -> torch.Tensor:
     c = (sc[:, 4:] & 0x0F) | ((mn[:, 4:] & 0x0F) << 4)
     return torch.cat([_unif_f16_bytes(nb, 1e-5, 1.1e-4, device, generator),
                       _unif_f16_bytes(nb, 1e-5, 1.1e-4, device, generator),
-                      a, bb, c, _ints(0, 256, (nb, 128), device, generator)],
-                     dim=1)
+                      a, bb, c], dim=1)
+
+
+def q4k_blocks(nb: int, device, generator: torch.Generator) -> torch.Tensor:
+    """nb random Q4_K blocks [nb, 144]: d, dmin, the packed scales and
+    mins, nibbles."""
+    head = _kquant_head(nb, device, generator)
+    return torch.cat([head, _ints(0, 256, (nb, 128), device, generator)], dim=1)
+
+
+def q5k_blocks(nb: int, device, generator: torch.Generator) -> torch.Tensor:
+    """nb random Q5_K blocks [nb, 176]: Q4_K's head, then 32 bytes of high
+    bits and 128 of nibbles, all random (values 0..31, every high bit a coin
+    flip: a kernel that drops or misplaces them is off by 16·dl)."""
+    head = _kquant_head(nb, device, generator)
+    return torch.cat([head, _ints(0, 256, (nb, 160), device, generator)], dim=1)
 
 
 def q6k_blocks(nb: int, device, generator: torch.Generator) -> torch.Tensor:
@@ -110,6 +126,13 @@ def synth_q8_0(n: int, k: int, device, generator: torch.Generator) -> QTensor:
                   (n, k))
 
 
+def synth_q5k(n: int, k: int, device, generator: torch.Generator) -> QTensor:
+    """Random Q5_K QTensor [n, k] in the port's layout (random blocks,
+    repacked where they were made)."""
+    return repack(q5k_blocks(n * k // 256, device, generator), GGMLType.Q5_K,
+                  (n, k))
+
+
 def synth_q6k(n: int, k: int, device, generator: torch.Generator) -> QTensor:
     """Random Q6_K QTensor [n, k] in the port's layout (random blocks,
     repacked where they were made)."""
@@ -120,29 +143,30 @@ def synth_q6k(n: int, k: int, device, generator: torch.Generator) -> QTensor:
 # ---- quantization recipes: the port's copy of omni_tpu/cli/quantize.py ----
 
 def use_more_bits(i_layer: int, n_layers: int) -> bool:
-    """llama-quant.cpp:185: the layers whose attn_v and ffn_down Q4_K_M
-    promotes to Q6_K."""
+    """llama-quant.cpp:185: the layers whose attn_v and ffn_down Q4_K_M and
+    Q5_K_M promote to Q6_K."""
     return (i_layer < n_layers // 8 or i_layer >= 7 * n_layers // 8
             or (i_layer - n_layers // 8) % 3 == 2)
 
 
 # recipe -> its default type
-RECIPES = {"Q4_K_M": GGMLType.Q4_K, "Q8_0": GGMLType.Q8_0}
+RECIPES = {"Q4_K_M": GGMLType.Q4_K, "Q5_K_M": GGMLType.Q5_K,
+           "Q8_0": GGMLType.Q8_0}
 
 
 def pick_type(name: str, ftype: str, default: GGMLType,
               n_layers: int) -> GGMLType:
-    """Per-tensor type rules (the Q4_K_M schedule): the output head is
-    Q6_K unless the recipe's type is Q8_0 (llama-quant.cpp keeps a Q8_0
-    head; the JAX package's quantizer makes it Q6_K under every recipe),
-    the token embedding keeps the default, and Q4_K_M promotes attn_v and
-    ffn_down on the use_more_bits layers."""
+    """Per-tensor type rules (the Q4_K_M and Q5_K_M schedules): the output
+    head is Q6_K unless the recipe's type is Q8_0 (llama-quant.cpp keeps a
+    Q8_0 head; the JAX package's quantizer makes it Q6_K under every
+    recipe), the token embedding keeps the default, and Q4_K_M and Q5_K_M
+    promote attn_v and ffn_down on the use_more_bits layers to Q6_K."""
     i_layer = int(name.split(".")[1]) if name.startswith("blk.") else -1
     if name == "output.weight":
         return default if default == GGMLType.Q8_0 else GGMLType.Q6_K
     if name == "token_embd.weight":
         return default
-    if ftype == "Q4_K_M" and i_layer >= 0:
+    if ftype in ("Q4_K_M", "Q5_K_M") and i_layer >= 0:
         if ((".attn_v.weight" in name or ".ffn_down.weight" in name)
                 and use_more_bits(i_layer, n_layers)):
             return GGMLType.Q6_K
@@ -175,8 +199,8 @@ def write_qwen3_gguf(path, cfg: Qwen3Config, recipe: str,
     w.add_kv("tokenizer.ggml.tokens", [f"<t{i}>" for i in range(cfg.n_vocab)])
     types = {}
 
-    make = {GGMLType.Q4_K: q4k_blocks, GGMLType.Q6_K: q6k_blocks,
-            GGMLType.Q8_0: q8_0_blocks}
+    make = {GGMLType.Q4_K: q4k_blocks, GGMLType.Q5_K: q5k_blocks,
+            GGMLType.Q6_K: q6k_blocks, GGMLType.Q8_0: q8_0_blocks}
 
     def quant(name: str, n: int, k: int) -> None:
         t = types[name] = pick_type(name, recipe, default, cfg.n_layers)

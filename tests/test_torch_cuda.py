@@ -16,8 +16,8 @@ from omni_tpu_torch.kernels import flash_attention as fa
 from omni_tpu_torch.models import qwen3
 from omni_tpu_torch.runtime import Batch, Context, SamplerParams
 from omni_tpu_torch.core.gguf import GGUFReader
-from omni_tpu_torch.testing_synth import (synth_q4k, synth_q6k, synth_q8_0,
-                                          synth_qwen3_dense_params,
+from omni_tpu_torch.testing_synth import (synth_q4k, synth_q5k, synth_q6k,
+                                          synth_q8_0, synth_qwen3_dense_params,
                                           synth_qwen3_params, write_qwen3_gguf)
 
 
@@ -35,7 +35,10 @@ CASES = [("q4k_gemv", synth_q4k, 1, 6144), ("q4k_gemv", synth_q4k, 8, 6144),
          ("qgemm", synth_q4k, 3, 1280), ("qgemm", synth_q4k, 64, 1280),
          ("q8_0_gemv", synth_q8_0, 1, 4096), ("q8_0_gemv", synth_q8_0, 8, 4096),
          ("q8_0_gemv", synth_q8_0, 3, 1248), ("qgemm", synth_q8_0, 1, 4096),
-         ("qgemm", synth_q8_0, 130, 4096), ("qgemm", synth_q8_0, 64, 1248)]
+         ("qgemm", synth_q8_0, 130, 4096), ("qgemm", synth_q8_0, 64, 1248),
+         ("q5k_gemv", synth_q5k, 1, 6144), ("q5k_gemv", synth_q5k, 8, 6144),
+         ("q5k_gemm", synth_q5k, 9, 6144), ("q5k_gemm", synth_q5k, 130, 6144),
+         ("qgemm", synth_q5k, 3, 1280), ("qgemm", synth_q5k, 64, 1280)]
 
 
 @pytest.mark.cuda
@@ -82,7 +85,8 @@ def test_cuda_forward_goes_through_both_kernels(card):
         assert torch.isfinite(logits).all()
     per_step = 4 * cfg.n_layers + 1
     assert dm.launches == {"q4k_gemm": per_step, "q4k_gemv": 3 * per_step,
-                           "q6k_gemv": 0, "qgemm": 0, "q8_0_gemv": 0}
+                           "q5k_gemv": 0, "q5k_gemm": 0, "q6k_gemv": 0,
+                           "qgemm": 0, "q8_0_gemv": 0}
 
 
 @pytest.mark.cuda
@@ -107,7 +111,8 @@ def test_cuda_q4km_gguf_goes_through_all_four_kernels(card, tmp_path):
     # layers 0, 3, 6 and 7 of 8 have Q6_K attn_v and ffn_down, and the
     # head is Q6_K: 9 Q6_K and 7 * 8 + 1 - 9 = 48 Q4_K weights
     assert dm.launches == {"q4k_gemm": 48, "qgemm": 9, "q4k_gemv": 48,
-                           "q6k_gemv": 9, "q8_0_gemv": 0}
+                           "q5k_gemv": 0, "q5k_gemm": 0, "q6k_gemv": 9,
+                           "q8_0_gemv": 0}
 
 
 _SMALL = dict(n_layers=2, d_model=2048, n_heads=16, n_kv_heads=4, head_dim=128,
@@ -131,7 +136,51 @@ def test_cuda_q8_0_gguf_goes_through_kernels_e_and_d(card, tmp_path):
     assert torch.isfinite(logits).all()
     n = 7 * cfg.n_layers + 1
     assert dm.launches == {"q4k_gemm": 0, "qgemm": n, "q4k_gemv": 0,
-                           "q6k_gemv": 0, "q8_0_gemv": n}
+                           "q5k_gemv": 0, "q5k_gemm": 0, "q6k_gemv": 0,
+                           "q8_0_gemv": n}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,kernel", [(1, 4096, "q5k_gemv"), (64, 4096, "q5k_gemm"),
+                                        (1, 1280, "qgemm"), (64, 1280, "qgemm")])
+def test_cuda_matmul_routes_q5k_to_its_kernel(card, m, k, kernel):
+    """`matmul` on a Q5_K weight on the card raises nothing and counts one
+    launch of the kernel the JAX dispatcher's order picks: G at M = 1, B's
+    Q5_K branch at M = 64, D's Q5_K branch where K % 2048 != 0 (counted
+    under its format too)."""
+    gen = torch.Generator(device=card).manual_seed(m + k)
+    qt = synth_q5k(300, k, card, gen)
+    x = torch.randn((m, k), device=card, generator=gen)
+    dm.reset_launches()
+    got = dm.matmul(x, qt).float()
+    torch.cuda.synchronize()
+    assert dm.launches == {**dict.fromkeys(dm.launches, 0), kernel: 1}
+    assert dm.qgemm_launches == {**dict.fromkeys(dm.qgemm_launches, 0),
+                                 "Q5_K": int(kernel == "qgemm")}
+    want = getattr(dm, kernel + "_plain")(x.bfloat16(), qt).float()
+    assert torch.isfinite(got).all() and limit_ratio(got, want) <= 1.0
+
+
+@pytest.mark.cuda
+def test_cuda_q5km_gguf_goes_through_g_b_c_and_d(card, tmp_path):
+    """A small Q5_K_M Qwen3 (K multiples of 2048) written and loaded as a
+    GGUF prefills and decodes on the card: Q5_K through kernel G and B's
+    Q5_K branch, Q6_K through C and D, with finite logits."""
+    cfg = qwen3.Qwen3Config(**{**_SMALL, "n_layers": 8})
+    path = tmp_path / "q5km.gguf"
+    write_qwen3_gguf(path, cfg, "Q5_K_M", torch.Generator(device=card).manual_seed(0))
+    params = qwen3.load_params(GGUFReader(path), device=card)
+    ctx = Context(cfg, params, qwen3.forward, qwen3.embed, n_ctx=256,
+                  sampler=SamplerParams(greedy=True), device=card)
+    dm.reset_launches()
+    logits = ctx.prefill(list(range(20)))
+    assert torch.isfinite(logits).all()
+    logits, _ = ctx.decode(Batch(tokens=[int(torch.argmax(logits))]))
+    assert torch.isfinite(logits).all()
+    # as the Q4_K_M file: 9 Q6_K and 48 Q5_K weights
+    assert dm.launches == {"q4k_gemm": 0, "qgemm": 9, "q4k_gemv": 0,
+                           "q5k_gemv": 48, "q5k_gemm": 48, "q6k_gemv": 9,
+                           "q8_0_gemv": 0}
 
 
 @pytest.mark.cuda

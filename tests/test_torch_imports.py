@@ -135,16 +135,35 @@ def test_kernel_build_runs_nvcc_per_source_in_parallel(tmp_path):
     out_dirs = {Path(c[c.index("-o") + 1]).parent for c in started}
     assert out_dirs == {want_dir} and want_dir.parent == tmp_path
     assert sorted(fns) == ["flash_decode_bf16", "flash_decode_i4", "flash_decode_i8",
-                           "q4k_gemm", "q4k_gemv", "q6k_gemv", "q8_0_gemv",
-                           "qgemm_q4k", "qgemm_q6k", "qgemm_q8_0"]
+                           "q4k_gemm", "q4k_gemv", "q5k_gemm", "q5k_gemv",
+                           "q6k_gemv", "q8_0_gemv", "qgemm_q4k", "qgemm_q5k",
+                           "qgemm_q6k", "qgemm_q8_0"]
     for name, fn in fns.items():
         assert fn.argtypes[:7] == [ctypes.c_void_p] * 7
         if name.startswith("flash"):  # 8 pointers, int64 strides, f32 scale
             assert fn.argtypes == _build.FLASH_ARGS and len(fn.argtypes) == 20
             assert fn.argtypes[13:16] == [ctypes.c_longlong] * 2 + [ctypes.c_float]
-        else:
-            assert fn.argtypes == _build.MATMUL_ARGS and len(fn.argtypes) == 12
+        else:  # x, six planes (q, sc, mn, d, dm, qh), out, m, n, k, out_f32
+            assert fn.argtypes == _build.MATMUL_ARGS and len(fn.argtypes) == 13
+            assert fn.argtypes[7:12] == [ctypes.c_void_p] + [ctypes.c_int] * 4
         assert fn.argtypes[-1] == ctypes.c_void_p and fn.restype == ctypes.c_int
     assert sorted(p.name for p in want_dir.iterdir()) == [
         "flash_decode.so", "q4k_gemm.so", "q4k_gemv.so", "q6k_gemv.so",
         "q8_0_gemv.so", "qgemm.so"]
+
+
+def test_build_dir_hashes_the_shared_headers(tmp_path):
+    """A change to a header the sources include (csrc/*.cuh) moves the build
+    directory, so no library built from the old header is reused."""
+    import shutil
+
+    from omni_tpu_torch.kernels import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    headers = sorted(csrc.glob("*.cuh"))
+    assert headers
+    with mock.patch.object(_build, "CSRC", csrc):
+        before = _build.build_dir()
+        headers[0].write_text(headers[0].read_text() + "\n// changed\n")
+        assert _build.build_dir() != before

@@ -118,7 +118,7 @@ def test_repack_is_the_transpose_of_jax_repack(qtype, n, k):
                                   quants.dequantize(blocks, qtype, (n, k)))
 
 
-@pytest.mark.parametrize("qtype", [GGMLType.Q5_K, GGMLType.Q4_0, GGMLType.F32],
+@pytest.mark.parametrize("qtype", [GGMLType.Q2_K, GGMLType.Q4_0, GGMLType.F32],
                          ids=lambda t: t.name)
 def test_unported_formats_raise_naming_them(qtype):
     blocks = np.zeros((1, 256), np.float32) if qtype == GGMLType.F32 else \
@@ -254,15 +254,16 @@ def test_chip_smoke_f64_law_is_the_kernels_law(name, qtype, m):
 
 def test_cpu_dispatch_launches_no_kernel():
     dm.reset_launches()
-    for qtype in (GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q8_0):
+    for qtype in (GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K, GGMLType.Q8_0):
         _, pqt, _ = _pair(0, qtype=qtype, k=2048)
         for m in (1, 16):
             dm.matmul(torch.from_numpy(_x(m, m, 2048)), pqt)
-    assert dm.launches == {"q4k_gemv": 0, "q4k_gemm": 0, "q6k_gemv": 0,
-                           "qgemm": 0, "q8_0_gemv": 0}
+    assert dm.launches == {"q4k_gemv": 0, "q4k_gemm": 0, "q5k_gemv": 0,
+                           "q5k_gemm": 0, "q6k_gemv": 0, "qgemm": 0,
+                           "q8_0_gemv": 0}
 
 
-@pytest.mark.parametrize("qtype", [GGMLType.Q5_K, GGMLType.Q5_0],
+@pytest.mark.parametrize("qtype", [GGMLType.Q4_0, GGMLType.Q5_0],
                          ids=lambda t: t.name)
 def test_cuda_path_raises_for_unported_formats(qtype):
     """On the card a format without a ported kernel raises, naming the TPU
@@ -276,8 +277,8 @@ def test_cuda_path_raises_for_unported_formats(qtype):
             with pytest.raises(ValueError, match="Q4_K"):
                 wrapper(torch.from_numpy(_x(0, m, 2048)).to(torch.bfloat16),
                         pqt)
-        for wrapper in (dm.q6k_gemv, dm.qgemm, dm.q8_0_gemv):
-            with pytest.raises(ValueError, match="Q6_K|Q8_0"):
+        for wrapper in (dm.q5k_gemv, dm.q6k_gemv, dm.qgemm, dm.q8_0_gemv):
+            with pytest.raises(ValueError, match="Q5_K|Q6_K|Q8_0"):
                 wrapper(torch.from_numpy(_x(0, 1, 2048)).to(torch.bfloat16),
                         pqt)
 
@@ -307,8 +308,8 @@ def test_cuda_path_raises_for_small_k():
 
 
 # the JAX dispatcher's order (dequant_matmul.py:665-672): gp (M <= 8,
-# K % 2048; K % 256 for Q8_0), then sh (M > 8, Q4_K, K % 2048), then the
-# generic kernel
+# K % 2048; K % 256 for Q8_0), then sh (M > 8, Q4_K or Q5_K, K % 2048), then
+# the generic kernel
 ROUTES = [
     (GGMLType.Q4_K, 1, 2048, ("q4k_gemv", "q4k_gemv")),
     (GGMLType.Q4_K, 8, 4096, ("q4k_gemv", "q4k_gemv")),
@@ -316,6 +317,12 @@ ROUTES = [
     (GGMLType.Q4_K, 64, 6144, ("q4k_gemm", "q4k_gemm")),
     (GGMLType.Q4_K, 1, 1280, ("qgemm", "qgemm_q4k")),
     (GGMLType.Q4_K, 64, 1280, ("qgemm", "qgemm_q4k")),
+    (GGMLType.Q5_K, 1, 2048, ("q5k_gemv", "q5k_gemv")),
+    (GGMLType.Q5_K, 8, 12288, ("q5k_gemv", "q5k_gemv")),
+    (GGMLType.Q5_K, 9, 2048, ("q5k_gemm", "q5k_gemm")),
+    (GGMLType.Q5_K, 64, 4096, ("q5k_gemm", "q5k_gemm")),
+    (GGMLType.Q5_K, 1, 1280, ("qgemm", "qgemm_q5k")),
+    (GGMLType.Q5_K, 64, 1280, ("qgemm", "qgemm_q5k")),
     (GGMLType.Q6_K, 1, 2048, ("q6k_gemv", "q6k_gemv")),
     (GGMLType.Q6_K, 8, 4096, ("q6k_gemv", "q6k_gemv")),
     (GGMLType.Q6_K, 9, 2048, ("qgemm", "qgemm_q6k")),
@@ -339,15 +346,15 @@ def test_dispatch_routing_on_a_mocked_card(qtype, m, k, want):
     assert _routed(pqt, m) == want
 
 
-@pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q6_K, GGMLType.Q8_0],
-                         ids=lambda t: t.name)
+@pytest.mark.parametrize("qtype", [GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K,
+                                   GGMLType.Q8_0], ids=lambda t: t.name)
 def test_cuda_wrapper_launches_or_raises(qtype):
-    """A Q4_K, Q6_K or Q8_0 weight on the card path goes to a kernel launcher:
+    """A Q4_K, Q5_K, Q6_K or Q8_0 weight on the card path goes to a kernel launcher:
     where the kernel cannot be built (no nvcc here) the call raises rather
     than running the plain version, and no launch is counted."""
     dm.reset_launches()
-    plains = ("q4k_gemv_plain", "q4k_gemm_plain", "q6k_gemv_plain",
-              "qgemm_plain", "q8_0_gemv_plain")
+    plains = ("q4k_gemv_plain", "q4k_gemm_plain", "q5k_gemv_plain",
+              "q5k_gemm_plain", "q6k_gemv_plain", "qgemm_plain", "q8_0_gemv_plain")
     with mock.patch.object(dm, "_on_cuda", return_value=True), \
             mock.patch("omni_tpu_torch.kernels._build.load",
                        side_effect=RuntimeError("nvcc not found")), \
@@ -358,8 +365,9 @@ def test_cuda_wrapper_launches_or_raises(qtype):
                 with pytest.raises(RuntimeError, match="nvcc"):
                     dm.matmul(torch.from_numpy(_x(0, m, k)), pqt)
     assert not any(p.called for p in mocks.values())
-    assert dm.launches == {"q4k_gemv": 0, "q4k_gemm": 0, "q6k_gemv": 0,
-                           "qgemm": 0, "q8_0_gemv": 0}
+    assert dm.launches == {"q4k_gemv": 0, "q4k_gemm": 0, "q5k_gemv": 0,
+                           "q5k_gemm": 0, "q6k_gemv": 0, "qgemm": 0,
+                           "q8_0_gemv": 0}
 
 
 @pytest.mark.parametrize("case", ["m_too_big", "m_too_small", "k_mismatch",
