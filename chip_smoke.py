@@ -11,7 +11,7 @@ clearly more bf16 outputs otherwise than the f64 law than its plain
 version does (`flip_limit`). It holds the dense dot of a bf16 weight
 (cuBLAS, K split into chunks) against the widened-f32 product the same
 way, and the flash-decode kernels (bf16, int8 and int4 KV cells) against
-their plain versions and the attention law in f64. Then it drives five
+their plain versions and the attention law in f64. Then it drives seven
 paths at full width and depth (all 36 layers, random weights made on the
 card from seed S, 0 by default), one model resident at a time, each through
 `OmniPipeline.stream_prefill` / `stream_decode`:
@@ -27,14 +27,19 @@ card from seed S, 0 by default), one model resident at a time, each through
    loaded the same way, on the bf16 pool: Q5_K through kernel G
    (`q5k_gemv`) and kernel B's Q5_K branch (`q5k_gemm`), Q6_K through
    kernels C and D;
-4. a Q8_0 Qwen3-8B GGUF (about 8.7 GB in $TMPDIR, every weight Q8_0),
+4. a Q4_0 and a Q5_0 Qwen3-8B GGUF in llama.cpp's importance-matrix
+   layout (about 4.8 and 5.7 GB, each deleted before the next path; the
+   ffn_down of layers 0-3 Q4_1 / Q5_1, the head Q6_K), loaded the same way,
+   on the bf16 pool: decode through kernel A's Q4_0/Q4_1 (Q5_0/Q5_1)
+   branches, prefill through kernel B's, the head through C and D;
+5. a Q8_0 Qwen3-8B GGUF (about 8.7 GB in $TMPDIR, every weight Q8_0),
    loaded the same way: decode through kernel E, prefill through D;
-5. an F16 Qwen3-8B as `load_params` loads one (dense bf16 weights made on
+6. an F16 Qwen3-8B as `load_params` loads one (dense bf16 weights made on
    the card): every matmul a dense dot, no hand-written kernel; its decode
    step must allocate less than 100 MB above its starting allocation.
 For each path it checks the launches of every kernel per decode step and
 per 64-token ubatch, and that its logits agree with the plain path: within
-1e-3 of max|logit| on the all-Q4_K model; on the other four, whose
+1e-3 of max|logit| on the all-Q4_K model; on the others, whose
 logits sit at the bf16 noise floor, within twice the plain path's own
 distance from the same forward with every matmul's law in f64 (over N
 prompts, 3 by default; on the quantized-KV turns the plain path's
@@ -56,6 +61,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import os
 import queue
@@ -96,6 +102,12 @@ UNFUSED_CALLS = {"wq": 72, "wk": 72, "gate": 72, "down": 36, "output": 1}
 # down on those 18 layers (216 calls); the other 37 are Q6_K (Q6_SHAPES)
 Q5_SHAPES = {nm: UNFUSED_SHAPES[nm] for nm in ("wq", "wk", "gate", "down")}
 Q5_CALLS = {"wq": 72, "wk": 54, "gate": 72, "down": 18}
+# the Q4_0 and Q5_0 files in the importance-matrix layout: the ffn_down of
+# layers i < 36 // 8 in Q4_1 / Q5_1 (4 calls), every other layer weight in
+# the recipe's type (248 calls), the head Q6_K; per shape, as UNFUSED_CALLS
+LEGACY_RECIPES = {"Q4_0": "Q4_1", "Q5_0": "Q5_1"}
+LEGACY_CALLS = {"wq": 72, "wk": 72, "gate": 72, "down": 32}
+LEGACY_MIN_CALLS = {"down": 4}
 # a Q8_0 weight whose K is no multiple of 256 (kernel D's ragged K step;
 # Q8_0's K granule is 32)
 ODD_K_Q8_SHAPE = (4096, 1248)
@@ -145,6 +157,12 @@ N_PROMPTS_Q4KM = 3
 # distance from the f64 path at that row) of its best, and the f64 path's
 # own top two lie within the band too. Every other row must agree; the RMS
 # ratio is held as on the Q4_K_M model.
+# The Q4_0 and Q5_0 models have signed weights in every layer too (no
+# common part, RMS 0.026), yet their logits do not sit at that floor: the
+# kernel and plain paths lie 3.4e-4-1.2e-3 of max|logit| apart, and every
+# argmax agreed with the plain path's (27 of 27 rows each; RMS ratio 1.12
+# and 1.10; NVIDIA H100 80GB HBM3, 700.00 W). So they are held as the
+# Q4_K_M model is ("f64": argmax on every row).
 
 N_CTX, N_PREFILL, N_DECODE, N_TEACHER = 2048, 64, 128, 8
 # the flash kernels at Qwen3-8B's attention shapes (32 query heads over 8 KV
@@ -164,6 +182,9 @@ N_LAYERS = 36  # full depth: nothing is cut
 N_Q6K, N_Q4K = 37, 216
 # Q5_K_M (the same rules): 216 Q5_K weights where Q4_K_M has its Q4_K ones
 N_Q5K = 216
+# Q4_0 / Q5_0 in the importance-matrix layout: 248 weights of the recipe's
+# type, 4 of Q4_1 / Q5_1, 1 Q6_K head
+N_LEGACY, N_LEGACY_MIN = 248, 4
 # unfused Qwen3-8B: 36 x (wq, wk, wv, wo, gate, up, down) + output
 N_UNFUSED = 7 * N_LAYERS + 1
 # the F16 path's decode step may allocate this much above its start: the
@@ -198,6 +219,12 @@ KERNELS = {
                  "replaces": "omni_tpu/kernels/dequant_matmul.py:333"},
     "q5k_gemm": {"route": "cuda", "source": "omni_tpu_torch/csrc/q4k_gemm.cu",
                  "replaces": "omni_tpu/kernels/dequant_matmul.py:565"},
+    **{f"{f}_gemv": {"route": "cuda", "source": "omni_tpu_torch/csrc/q4k_gemv.cu",
+                     "replaces": "omni_tpu/kernels/dequant_matmul.py:333"}
+       for f in ("q4_0", "q4_1", "q5_0", "q5_1")},
+    **{f"{f}_gemm": {"route": "cuda", "source": "omni_tpu_torch/csrc/q4k_gemm.cu",
+                     "replaces": "omni_tpu/kernels/dequant_matmul.py:565"}
+       for f in ("q4_0", "q4_1", "q5_0", "q5_1")},
     "q6k_gemv": {"route": "cuda", "source": "omni_tpu_torch/csrc/q6k_gemv.cu",
                  "replaces": "omni_tpu/kernels/dequant_matmul.py:333"},
     "qgemm": {"route": "cuda", "source": "omni_tpu_torch/csrc/qgemm.cu",
@@ -343,10 +370,10 @@ def law_f64(name: str, x, qt, out_dtype):
     if name == "dense_matmul":
         return (x.to(qt.dtype).to(f64) @ qt.to(f64).T).to(out_dtype)
     xd = x.to(torch.bfloat16).to(f64)
-    if name in ("q4k_gemv", "q5k_gemv"):  # the group law; q·dl − ml is exact in f64
+    if name in dm.HALVES_GEMV.values():  # the group law; q·dl − ml is exact in f64
         dl, ml = (a.to(f64).repeat_interleave(32, 1) for a in q4k_group_scales(qt))
         out = xd @ (kquant_values(qt).to(f64) * dl - ml).T
-    elif name in ("q4k_gemm", "q5k_gemm"):
+    elif name in dm.HALVES_GEMM.values():
         w, ml_res = dm.q4k_centered(qt)
         xs = xd.reshape(x.shape[0], -1, 32).sum(-1)
         out = xd @ w.to(f64).T - xs @ ml_res.to(f64).T
@@ -773,11 +800,11 @@ def decode_step_alloc(cfg, params, dev, qwen3, rng) -> tuple[int, int]:
     return torch.cuda.max_memory_allocated() - base, base
 
 
-def write_and_load(cfg, recipe, dev, qwen3, tmp, seed):
-    """Write a random `recipe` Qwen3 GGUF of `cfg` (weights from `seed`)
-    into directory `tmp`,
+def write_and_load(cfg, recipe, dev, qwen3, tmp, seed, imatrix=False):
+    """Write a random `recipe` Qwen3 GGUF of `cfg` (weights from `seed`;
+    imatrix: llama.cpp's importance-matrix layout) into directory `tmp`,
     load it back through the port's reader and `qwen3.load_params`, check
-    its metadata and that the loaded planes of two tensors equal a host
+    its metadata and that the loaded planes of three tensors equal a host
     repack of their blocks. Returns (params, types, {gguf_gb, write_s,
     load_s, planes_gb})."""
     import numpy as np
@@ -790,7 +817,7 @@ def write_and_load(cfg, recipe, dev, qwen3, tmp, seed):
     path = os.path.join(tmp, f"qwen3-8b-{recipe.lower()}.gguf")
     t0 = time.perf_counter()
     types = write_qwen3_gguf(path, cfg, recipe,
-                             torch.Generator(device=dev).manual_seed(seed))
+                             torch.Generator(device=dev).manual_seed(seed), imatrix)
     write_s = time.perf_counter() - t0
     size = os.path.getsize(path)
     t0 = time.perf_counter()
@@ -805,7 +832,8 @@ def write_and_load(cfg, recipe, dev, qwen3, tmp, seed):
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     for name, w in (("blk.0.attn_q.weight", params["layers"][0]["wq"]),
-                    ("blk.0.attn_v.weight", params["layers"][0]["wv"])):
+                    ("blk.0.attn_v.weight", params["layers"][0]["wv"]),
+                    ("blk.0.ffn_down.weight", params["layers"][0]["w_down"])):
         ti = reader.tensors[name]
         ref = repack(upload(ti.data, "cpu"), ti.ggml_type, ti.shape)
         if w.ggml_type != ti.ggml_type or any(
@@ -941,7 +969,7 @@ def main() -> int:
     from omni_tpu_torch.kernels import dequant_matmul as dm
     from omni_tpu_torch.models import qwen3
     from omni_tpu_torch.testing_synth import (QWEN3_8B, synth_q4k, synth_q5k,
-                                              synth_q6k, synth_q8_0,
+                                              synth_q6k, synth_q8_0, synth_quant,
                                               synth_qwen3_dense_params,
                                               synth_qwen3_params)
 
@@ -1001,6 +1029,22 @@ def main() -> int:
                     check_kernel(name, getattr(dm, name), getattr(dm, name + "_plain"),
                                  qt, nm, m, out_dtype, gen, max_err)
     del q4_unfused
+    # kernel A's and B's legacy branches at every unfused shape (the head's
+    # too, though these files' head is Q6_K); the layer shapes are kept
+    # for the times
+    legacy_weights = {}
+    for fmt in (GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1):
+        for nm, (n, k) in UNFUSED_SHAPES.items():
+            qt = synth_quant(fmt, n, k, dev, gen)
+            out_dtype = torch.float32 if nm == "output" else torch.bfloat16
+            for name, ms in ((dm.HALVES_GEMV[fmt], GEMV_MS),
+                             (dm.HALVES_GEMM[fmt], GEMM_MS)):
+                for m in ms:
+                    check_kernel(name, getattr(dm, name), getattr(dm, name + "_plain"),
+                                 qt, nm, m, out_dtype, gen, max_err)
+            if nm != "output":
+                legacy_weights.setdefault(fmt, {})[nm] = qt
+            del qt
     # the dense dot (cuBLAS, K split) at the F16 path's shapes, against the
     # widened-f32 product
     dense_weights = {nm: synth_dense(n, k, dev, gen)
@@ -1109,6 +1153,39 @@ def main() -> int:
     del params, qts
     finish("q5_k_m_gguf", "served-turn-q5km", launches, {**stats, **io}, tf, t0)
 
+    # ---- path 4: Q4_0 and Q5_0 Qwen3-8B from GGUF files, importance-matrix
+    # layout (kernel A's and B's legacy branches, C, D) ----------------------
+    for recipe, with_min in LEGACY_RECIPES.items():
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            params, qts, io = write_and_load(cfg, recipe, dev, qwen3, tmp, args.seed,
+                                             imatrix=True)
+        fmt, fmt_min = GGMLType[recipe], GGMLType[with_min]
+        counts = [sum(w.ggml_type == t for w in qts)
+                  for t in (fmt, fmt_min, GGMLType.Q6_K)]
+        if counts != [N_LEGACY, N_LEGACY_MIN, 1]:
+            raise SystemExit(f"{counts} {recipe}, {with_min} and Q6_K weights, want "
+                             f"{[N_LEGACY, N_LEGACY_MIN, 1]}")
+        phase(f"gguf-{recipe.lower()}", t0,
+              f"{json.dumps(io)}; {N_LEGACY} {recipe} + {N_LEGACY_MIN} {with_min} "
+              f"+ 1 Q6_K weights, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+              "on the card")
+        t0 = time.perf_counter()
+        rng = torch.Generator().manual_seed(0)
+        launches, stats = serve_turn(
+            f"{recipe} (importance-matrix layout) from GGUF", cfg, params, dev, qwen3,
+            {**zero, dm.HALVES_GEMV[fmt]: N_LEGACY,
+             dm.HALVES_GEMV[fmt_min]: N_LEGACY_MIN, "q6k_gemv": 1},
+            {**zero, dm.HALVES_GEMM[fmt]: N_LEGACY,
+             dm.HALVES_GEMM[fmt_min]: N_LEGACY_MIN, "qgemm": 1, "qgemm Q6_K": 1},
+            rng)
+        prompts = [torch.randint(0, 1000, (N_PREFILL,), generator=rng).numpy()
+                   for _ in range(args.prompts)]
+        tf = teacher_forced(cfg, params, dev, dm, qwen3, prompts, "f64")
+        del params, qts
+        finish(f"{recipe.lower()}_imatrix_gguf", f"served-turn-{recipe.lower()}",
+               launches, {**stats, **io}, tf, t0)
+
     # ---- path 4: Q8_0 Qwen3-8B from a GGUF file (kernels E and D) ----------
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -1188,7 +1265,13 @@ def main() -> int:
                  gen, synth_q8_0, rows)
     time_kernels("qgemm", dm.qgemm, dm.qgemm_plain, q8_weights, QGEMM_MS,
                  gen, synth_q8_0, rows)
-    del weights, q6_weights, q8_weights, q5_weights
+    for fmt, ws in legacy_weights.items():
+        synth = functools.partial(synth_quant, fmt)
+        for table, ms in ((dm.HALVES_GEMV, GEMV_MS), (dm.HALVES_GEMM, GEMM_MS)):
+            name = table[fmt]
+            time_kernels(name, getattr(dm, name), getattr(dm, name + "_plain"), ws,
+                         ms, gen, synth, rows)
+    del weights, q6_weights, q8_weights, q5_weights, legacy_weights
     torch.cuda.empty_cache()
     time_kernels("dense_matmul", dm.dense_matmul, dm.dense_matmul_plain,
                  dense_weights, (1, N_PREFILL), gen, synth_dense, rows)
@@ -1212,10 +1295,23 @@ def main() -> int:
                "output of Q8_0 Qwen3-8B")
     q5_work = ("the 216 Q5_K weights of Q5_K_M Qwen3-8B: 36 x (wq, wk, wo, gate, "
                "up) + 18 x (wv, down)")
+    legacy_work = {
+        f: (f"the {N_LEGACY} {f} weights of {f} Qwen3-8B (importance-matrix "
+            "layout): 36 x (wq, wk, wv, wo, gate, up) + 32 x down")
+        for f in LEGACY_RECIPES}
+    legacy_work.update({
+        f: (f"the {N_LEGACY_MIN} {f} weights of {r} Qwen3-8B (importance-matrix "
+            "layout): the down of layers 0-3") for r, f in LEGACY_RECIPES.items()})
+    legacy_rows = [
+        (table[GGMLType[f]], f, m,
+         LEGACY_CALLS if f in LEGACY_RECIPES else LEGACY_MIN_CALLS,
+         f"M={m}, {legacy_work[f]}")
+        for f in ("Q4_0", "Q4_1", "Q5_0", "Q5_1")
+        for table, m in ((dm.HALVES_GEMV, 1), (dm.HALVES_GEMM, N_PREFILL))]
 
     def summed(name, fmt, m, calls):
         sel = [r for r in rows if r["kernel"] == name and r.get("m") == m
-               and r.get("fmt") == fmt]
+               and r.get("fmt") == fmt and r["shape"] in calls]
         tot = {key: sum(r[key] * calls[r["shape"]] for r in sel)
                for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                            "planes_bound_ms")}
@@ -1232,7 +1328,7 @@ def main() -> int:
             ("q5k_gemm", "Q5_K", 64, Q5_CALLS, f"M=64, {q5_work}"),
             ("q6k_gemv", "Q6_K", 1, q6k_calls, q6k_work),
             ("qgemm", "Q6_K", 64, q6k_calls, q6k_work),
-            ("q8_0_gemv", "Q8_0", 1, UNFUSED_CALLS, q8_work)):
+            ("q8_0_gemv", "Q8_0", 1, UNFUSED_CALLS, q8_work), *legacy_rows):
         tot = summed(name, fmt, m, calls)
         entry = {"name": name, **KERNELS[name], "launches": launches[name],
                  "launches_by_path": {p: lp[name] for p, lp in launches_by_path.items()},

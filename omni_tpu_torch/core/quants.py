@@ -1,10 +1,17 @@
 """Numpy dequantisers: the bit-exact oracle inside the port.
 
-A copy of the Q8_0, Q4_K, Q5_K and Q6_K paths of `omni_tpu/core/quants.py`
-(ggml-quants.c dequantize_row_q8_0 / _q4_K / _q5_K / _q6_K semantics), plus
-the widening of the plain float types. The effective group scale is the
-single f32 product d*sc:
+A copy of the Q8_0, Q4_0, Q4_1, Q5_0, Q5_1, Q4_K, Q5_K and Q6_K paths of
+`omni_tpu/core/quants.py` (ggml-quants.c dequantize_row_q8_0 / _q4_0 /
+_q4_1 / _q5_0 / _q5_1 / _q4_K / _q5_K / _q6_K semantics), plus the widening
+of the plain float types. The effective group scale is the single f32
+product d*sc:
 - Q8_0: w = q*d per 32-element block (34 bytes: f16 d, then 32 int8 q);
+- Q4_0: w = (q - 8)*d per 32-element block (18 bytes: f16 d, then 16
+  bytes whose low nibbles are elements 0..15 and high nibbles 16..31);
+- Q4_1: w = q*d + m (20 bytes: f16 d, f16 m, the nibbles);
+- Q5_0: w = (q - 16)*d, q in 0..31, its fifth bit from a little-endian
+  u32 whose bit j is element j's (22 bytes: d, qh, the nibbles);
+- Q5_1: w = q*d + m (24 bytes: d, m, qh, the nibbles);
 - Q4_K: w = q*(d*sc) - dmin*mn per 32-element group, q in 0..15;
 - Q5_K: the same with q in 0..31, its high bit from a 32-byte plane (176
   bytes: f16 d, f16 dmin, 12 bytes of scales, qh[32], then the nibbles);
@@ -57,6 +64,43 @@ def _deq_q8_0(b: np.ndarray) -> np.ndarray:
     return q * d
 
 
+def _qh_bits(b4: np.ndarray) -> np.ndarray:
+    """4-byte qh field -> 32 single bits per block, bit j of the
+    little-endian u32 for element j."""
+    n = b4.shape[0]
+    qh = b4.reshape(n, 4).view("<u4").reshape(n, 1)
+    return ((qh >> np.arange(32, dtype=np.uint32).reshape(1, 32))
+            & np.uint32(1)).astype(np.uint8)
+
+
+def _deq_q4_0(b: np.ndarray) -> np.ndarray:
+    d = _f16(b[:, :2])
+    q = _split_nibbles(b[:, 2:], 16).astype(np.int8) - np.int8(8)
+    return d * q.astype(np.float32)
+
+
+def _deq_q4_1(b: np.ndarray) -> np.ndarray:
+    d, m = _f16(b[:, :2]), _f16(b[:, 2:4])
+    q = _split_nibbles(b[:, 4:], 16).astype(np.float32)
+    return d * q + m
+
+
+def _deq_q5_0(b: np.ndarray) -> np.ndarray:
+    d = _f16(b[:, :2])
+    hi = _qh_bits(b[:, 2:6])
+    lo = _split_nibbles(b[:, 6:], 16)
+    q = (lo | (hi << np.uint8(4))).astype(np.int8) - np.int8(16)
+    return d * q.astype(np.float32)
+
+
+def _deq_q5_1(b: np.ndarray) -> np.ndarray:
+    d, m = _f16(b[:, :2]), _f16(b[:, 2:4])
+    hi = _qh_bits(b[:, 4:8])
+    lo = _split_nibbles(b[:, 8:], 16)
+    q = (lo | (hi << np.uint8(4))).astype(np.float32)
+    return d * q + m
+
+
 def _deq_q4_k(b: np.ndarray) -> np.ndarray:
     n = b.shape[0]
     d, dmin = _f16(b[:, :2]), _f16(b[:, 2:4])
@@ -105,7 +149,9 @@ def _deq_q6_k(b: np.ndarray) -> np.ndarray:
     return (dl * q.reshape(n, 16, 16)).reshape(n, QK_K)
 
 
-_DEQUANT = {GGMLType.Q8_0: _deq_q8_0, GGMLType.Q4_K: _deq_q4_k,
+_DEQUANT = {GGMLType.Q8_0: _deq_q8_0, GGMLType.Q4_0: _deq_q4_0,
+            GGMLType.Q4_1: _deq_q4_1, GGMLType.Q5_0: _deq_q5_0,
+            GGMLType.Q5_1: _deq_q5_1, GGMLType.Q4_K: _deq_q4_k,
             GGMLType.Q5_K: _deq_q5_k, GGMLType.Q6_K: _deq_q6_k}
 
 

@@ -12,11 +12,38 @@
 // row's qh, bit j of each for byte j of the chunk. Q5_K's value is
 // nibble + 16 x bit (0..31, `_gp_slice` and `_sh_qh_halves` of the TPU
 // kernels).
+//
+// Kernels A and B also take the 32-element legacy formats Q4_0, Q4_1, Q5_0
+// and Q5_1, whose q and qh planes are laid out as Q4_K's and Q5_K's: only
+// where a group's scale and min come from differs (`Fmt`, `legacy_min`).
 #pragma once
 
 #include <stdint.h>
 
 namespace kquant {
+
+// The halves-packed formats. Per 32-element group g the TPU kernels' law
+// (`_gp_slice`) is w = q * dl - ml with
+// - Q4_K, Q5_K: dl = d[s] * sc[g], ml = dm[s] * mn[g] (d, dm one per
+//   256-element superblock s; sc, mn int8 per group);
+// - Q4_0, Q5_0: dl = d[g], ml = 8 d[g] or 16 d[g] (the offset folded into
+//   the min: exact in f32);
+// - Q4_1, Q5_1: dl = d[g], ml = -dm[g] (dm holds the min m, which these
+//   formats ADD: w = q * d + m).
+enum class Fmt { kQ4K, kQ5K, kQ4_0, kQ4_1, kQ5_0, kQ5_1 };
+
+__host__ __device__ constexpr bool five_bit(Fmt f) {
+  return f == Fmt::kQ5K || f == Fmt::kQ5_0 || f == Fmt::kQ5_1;
+}
+__host__ __device__ constexpr bool legacy(Fmt f) { return f != Fmt::kQ4K && f != Fmt::kQ5K; }
+__host__ __device__ constexpr bool added_min(Fmt f) { return f == Fmt::kQ4_1 || f == Fmt::kQ5_1; }
+
+// A legacy group's ml from its d (dl) and, for Q4_1/Q5_1, its m.
+template <Fmt F>
+__device__ __forceinline__ float legacy_min(float d, float m) {
+  if constexpr (added_min(F)) return -m;
+  else return (F == Fmt::kQ5_0 ? 16.f : 8.f) * d;
+}
 
 // The chunk's high-bit words {low half, high half}, read from qh + row_off
 // (the row's qh, 2-byte aligned); zeros for Q4_K, whose qh is unused.

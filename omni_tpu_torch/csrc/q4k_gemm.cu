@@ -1,12 +1,19 @@
-// q4k_gemm (kernel B) and q5k_gemm (its Q5_K branch): out[m, n] = sum_k
-// x[m, k] * W[n, k] for M > 8, W in Q4_K or Q5_K.
+// q4k_gemm (kernel B) and its branches q5k_gemm, q4_0_gemm, q4_1_gemm,
+// q5_0_gemm and q5_1_gemm: out[m, n] = sum_k x[m, k] * W[n, k] for M > 8,
+// W in Q4_K, Q5_K, Q4_0, Q4_1, Q5_0 or Q5_1.
 //
 // Replaces omni_tpu/kernels/dequant_matmul.py::qmatmul_splith_pallas (:565)
-// for Q4_K and Q5_K — the prefill matmul of every layer and of the output
-// head. Q5_K is the TPU kernel's `five_bit` case: each half's value gains
-// 16 x its high bit (`_sh_qh_halves` :466-477) before the centered law; one
-// template serves both formats, the flag kFive adding the high-bit plane
-// qh u8 [N, K/8], decoded with the chunk of q it goes with by kquant.cuh.
+// for all six of its formats (`_SH_QTYPES`) — the prefill matmul of every
+// layer and of the output head. Q5_K, Q5_0 and Q5_1 are the TPU kernel's
+// `five_bit` case: each half's value gains 16 x its high bit
+// (`_sh_qh_halves` :466-477) before the centered law, the high-bit plane qh
+// u8 [N, K/8] decoded with the chunk of q it goes with by kquant.cuh. The
+// legacy formats keep the K-quants' q and qh planes with one scale d (and
+// Q4_1/Q5_1's added min m, in dm) per 32-element group, f32 [N, K/32]:
+// their group law is dl = d with ml = 8d, 16d or -m (kquant.cuh), and
+// t = ml / dl below is then `_sh_scales`'s: 8 and 16 exactly for Q4_0 and
+// Q5_0 (a zero residual), -m/d for Q4_1 and Q5_1. One template serves all
+// six; its format F picks the planes.
 //
 // Bound on the H100: at prefill M (64..512) the bf16 tensor-core work per
 // weight byte (2*M operations per 0.59 B) nears or passes the card's
@@ -31,7 +38,8 @@
 //   long-K sums round as an f32 sum does;
 // - ragged M and N edges are masked; 64-bit offsets throughout;
 // - Q5_K: t = ml / dl may pass 31 only where dl == 0, and there t = 0 as in
-//   the TPU kernel, so the residual takes the whole min.
+//   the TPU kernel, so the residual takes the whole min (for Q4_1 and Q5_1,
+//   where a block's d is 0, the whole -m).
 // 70 KB of dynamic shared memory, above the 48 KB default, so the launcher
 // raises the limit with cudaFuncSetAttribute. wgmma, TMA, a multi-stage
 // ring and warp specialisation are for a later version.
@@ -80,7 +88,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
   return *reinterpret_cast<const uint32_t*>(&p);
 }
 
-template <bool kFive>
+using kquant::Fmt;
+
+template <Fmt F>
 __global__ void __launch_bounds__(kThreads)
 q4k_gemm_kernel(const __nv_bfloat16* __restrict__ x,
                 const uint8_t* __restrict__ q, const int8_t* __restrict__ sc,
@@ -125,9 +135,12 @@ q4k_gemm_kernel(const __nv_bfloat16* __restrict__ x,
     cp_async_commit();
     // weight tile: BN rows x 8 chunks of 16 packed bytes; chunk c holds the
     // low nibbles of elements 16c.. (group c/2) and the high nibbles of
-    // elements 128+16c.. (group 4+c/2), with Q5_K's high bits of both
+    // elements 128+16c.. (group 4+c/2), with the five-bit formats' high
+    // bits of both. The K-quants load their superblock's d, dm and the two
+    // groups' sc, mn; the legacy formats the two groups' d (in dsv) and m
+    // (in dmsv).
     uint4 qv[kWLoads];
-    float dsv[kWLoads], dmsv[kWLoads];
+    float dsv[kWLoads][2], dmsv[kWLoads][2];
     int scv[kWLoads][2], mnv[kWLoads][2];
     uint2 hbv[kWLoads];
 #pragma unroll
@@ -136,28 +149,47 @@ q4k_gemm_kernel(const __nv_bfloat16* __restrict__ x,
       const int r = idx >> 3, c = idx & 7;
       const int gn = n0 + r;
       qv[i] = make_uint4(0, 0, 0, 0);
-      dsv[i] = dmsv[i] = 0.f;
+      dsv[i][0] = dsv[i][1] = dmsv[i][0] = dmsv[i][1] = 0.f;
       scv[i][0] = scv[i][1] = mnv[i][0] = mnv[i][1] = 0;
       hbv[i] = make_uint2(0u, 0u);
       if (gn < N) {
-        hbv[i] = kquant::high_words<kFive>(qh, (size_t)gn * (K >> 3), s, c);
+        hbv[i] = kquant::high_words<kquant::five_bit(F)>(qh, (size_t)gn * (K >> 3), s, c);
         qv[i] = __ldg(reinterpret_cast<const uint4*>(q + (size_t)gn * half + (size_t)s * 128) + c);
-        dsv[i] = __ldg(d + (size_t)gn * n_sb + s);
-        dmsv[i] = __ldg(dm + (size_t)gn * n_sb + s);
         const size_t g = (size_t)gn * n_groups + s * 8 + (c >> 1);
-        scv[i][0] = __ldg(sc + g);
-        scv[i][1] = __ldg(sc + g + 4);
-        mnv[i][0] = __ldg(mn + g);
-        mnv[i][1] = __ldg(mn + g + 4);
+        if constexpr (kquant::legacy(F)) {
+          dsv[i][0] = __ldg(d + g);
+          dsv[i][1] = __ldg(d + g + 4);
+          if constexpr (kquant::added_min(F)) {
+            dmsv[i][0] = __ldg(dm + g);
+            dmsv[i][1] = __ldg(dm + g + 4);
+          }
+        } else {
+          dsv[i][0] = __ldg(d + (size_t)gn * n_sb + s);
+          dmsv[i][0] = __ldg(dm + (size_t)gn * n_sb + s);
+          scv[i][0] = __ldg(sc + g);
+          scv[i][1] = __ldg(sc + g + 4);
+          mnv[i][0] = __ldg(mn + g);
+          mnv[i][1] = __ldg(mn + g + 4);
+        }
       }
     }
 #pragma unroll
     for (int i = 0; i < kWLoads; ++i) {
       const int idx = tid + kThreads * i;
       const int r = idx >> 3, c = idx & 7;
-      // rows past N have d = 0: zero weights and a zero residual
-      const float dl_lo = dsv[i] * (float)scv[i][0], ml_lo = dmsv[i] * (float)mnv[i][0];
-      const float dl_hi = dsv[i] * (float)scv[i][1], ml_hi = dmsv[i] * (float)mnv[i][1];
+      // rows past N have d = 0 (and m = 0): zero weights and a zero residual
+      float dl_lo, ml_lo, dl_hi, ml_hi;
+      if constexpr (kquant::legacy(F)) {
+        dl_lo = dsv[i][0];
+        dl_hi = dsv[i][1];
+        ml_lo = kquant::legacy_min<F>(dl_lo, dmsv[i][0]);
+        ml_hi = kquant::legacy_min<F>(dl_hi, dmsv[i][1]);
+      } else {
+        dl_lo = dsv[i][0] * (float)scv[i][0];
+        ml_lo = dmsv[i][0] * (float)mnv[i][0];
+        dl_hi = dsv[i][0] * (float)scv[i][1];
+        ml_hi = dmsv[i][0] * (float)mnv[i][1];
+      }
       const float t_lo = dl_lo != 0.f ? ml_lo / dl_lo : 0.f;
       const float t_hi = dl_hi != 0.f ? ml_hi / dl_hi : 0.f;
       if ((c & 1) == 0) {  // one writer per (row, group) of the residual
@@ -174,7 +206,7 @@ q4k_gemm_kernel(const __nv_bfloat16* __restrict__ x,
           const uint32_t word = w32[v * 2 + (e >> 1)];
           const int sh = (e & 1) * 16;  // bytes 2e, 2e+1 of this 8-byte run
           const uint32_t q0 = (word >> sh) & 0xFFu, q1 = (word >> (sh + 8)) & 0xFFu;
-          const uint4 w = kquant::values<kFive>(q0, q1, hbv[i], v * 8 + 2 * e);
+          const uint4 w = kquant::values<kquant::five_bit(F)>(q0, q1, hbv[i], v * 8 + 2 * e);
           lo[e] = pack_bf16(((float)w.x - t_lo) * dl_lo, ((float)w.y - t_lo) * dl_lo);
           hi[e] = pack_bf16(((float)w.z - t_hi) * dl_hi, ((float)w.w - t_hi) * dl_hi);
         }
@@ -263,22 +295,22 @@ q4k_gemm_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-template <bool kFive>
+template <Fmt F>
 int gemm(const void* x, const void* q, const void* sc, const void* mn,
          const void* d, const void* dm, const void* qh, void* out, int m,
          int n, int k, int out_f32, void* stream) {
   if (m < 1 || n < 1 || k < 256 || k % 256 != 0 || (m + BM - 1) / BM > 65535 ||
-      (kFive && qh == nullptr))
+      (kquant::five_bit(F) && qh == nullptr) || (kquant::added_min(F) && dm == nullptr))
     return (int)cudaErrorInvalidValue;
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        q4k_gemm_kernel<kFive>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+        q4k_gemm_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
   const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM), block(kThreads);
-  q4k_gemm_kernel<kFive><<<grid, block, kSmem, static_cast<cudaStream_t>(stream)>>>(
+  q4k_gemm_kernel<F><<<grid, block, kSmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(q),
       static_cast<const int8_t*>(sc), static_cast<const int8_t*>(mn),
       static_cast<const float*>(d), static_cast<const float*>(dm),
@@ -289,17 +321,18 @@ int gemm(const void* x, const void* q, const void* sc, const void* mn,
 }  // namespace
 
 // Each returns the first CUDA error of the attribute call or the launch
-// (0 = ok). Q4_K has no high-bit plane: q4k_gemm ignores qh (null).
-extern "C" int q4k_gemm(const void* x, const void* q, const void* sc,
-                        const void* mn, const void* d, const void* dm,
-                        const void* qh, void* out, int m, int n, int k,
-                        int out_f32, void* stream) {
-  return gemm<false>(x, q, sc, mn, d, dm, qh, out, m, n, k, out_f32, stream);
-}
+// (0 = ok). A format ignores the planes it lacks (null): Q4_K and
+// Q4_0/Q4_1 have no qh, the legacy formats no sc or mn, Q4_0 and Q5_0 no dm.
+#define GEMM_ENTRY(name, fmt)                                                          \
+  extern "C" int name(const void* x, const void* q, const void* sc, const void* mn,   \
+                      const void* d, const void* dm, const void* qh, void* out, int m, \
+                      int n, int k, int out_f32, void* stream) {                       \
+    return gemm<fmt>(x, q, sc, mn, d, dm, qh, out, m, n, k, out_f32, stream);          \
+  }
 
-extern "C" int q5k_gemm(const void* x, const void* q, const void* sc,
-                        const void* mn, const void* d, const void* dm,
-                        const void* qh, void* out, int m, int n, int k,
-                        int out_f32, void* stream) {
-  return gemm<true>(x, q, sc, mn, d, dm, qh, out, m, n, k, out_f32, stream);
-}
+GEMM_ENTRY(q4k_gemm, Fmt::kQ4K)
+GEMM_ENTRY(q5k_gemm, Fmt::kQ5K)
+GEMM_ENTRY(q4_0_gemm, Fmt::kQ4_0)
+GEMM_ENTRY(q4_1_gemm, Fmt::kQ4_1)
+GEMM_ENTRY(q5_0_gemm, Fmt::kQ5_0)
+GEMM_ENTRY(q5_1_gemm, Fmt::kQ5_1)

@@ -1,11 +1,17 @@
-// q4k_gemv (kernel A) and q5k_gemv (kernel G): out[m, n] = sum_k x[m, k] *
-// W[n, k] for M = 1..8, W in Q4_K or Q5_K.
+// q4k_gemv (kernel A), q5k_gemv (kernel G) and A's legacy branches
+// q4_0_gemv, q4_1_gemv, q5_0_gemv, q5_1_gemv: out[m, n] = sum_k x[m, k] *
+// W[n, k] for M = 1..8, W in Q4_K, Q5_K, Q4_0, Q4_1, Q5_0 or Q5_1.
 //
 // Replaces omni_tpu/kernels/dequant_matmul.py::qmatmul_gp_pallas (:333) for
-// Q4_K and Q5_K — the decode matmul of every layer and of the output head.
-// Q5_K is Q4_K with a fifth bit per value (q = nibble + 16 * bit, 0..31,
-// still exact in bf16, `_gp_slice` :208-215), so both formats run one
-// template; the flag kFive adds the high-bit plane.
+// those six formats — the decode matmul of every layer and of the output
+// head. Q5_K is Q4_K with a fifth bit per value (q = nibble + 16 * bit,
+// 0..31, still exact in bf16, `_gp_slice` :208-215), and the legacy formats
+// keep the same q (and qh) planes with one scale (and min) per 32-element
+// group in place of d*sc (`_gp_slice` :240-255), so all six run one
+// template; its format F picks the high-bit plane and the scales' source
+// (kquant.cuh). The legacy formats need only K % 256 (their d, dm planes
+// have a row per 32 elements, where the TPU kernel's K-quant planes need
+// K % 2048).
 //
 // Bound on the H100: device-memory bytes. Each weight element is read once
 // (0.5 B of nibbles + 1/16 B of int8 scale/min + 1/32 B of f32 super
@@ -26,7 +32,8 @@
 // [N, K/2] with superblock-local halves (byte r of superblock s holds
 // element s*256+r low and s*256+128+r high), sc/mn int8 [N, K/32], d/dm f32
 // [N, K/256]; Q5_K's qh u8 [N, K/8], decoded with the chunk of q it goes
-// with by kquant.cuh.
+// with by kquant.cuh. The legacy formats: q and qh the same, d f32 [N, K/32]
+// and, for Q4_1 and Q5_1, dm f32 [N, K/32] (the min m); sc, mn unused.
 // Offsets are 64-bit: the output head's planes pass 3e8 bytes.
 
 #include <cuda_bf16.h>
@@ -39,7 +46,9 @@ namespace {
 
 constexpr int kWarps = 8;  // rows per block
 
-template <int M, bool kFive>
+using kquant::Fmt;
+
+template <int M, Fmt F>
 __global__ void __launch_bounds__(kWarps * 32)
 q4k_gemv_kernel(const __nv_bfloat16* __restrict__ x,
                 const uint8_t* __restrict__ q, const int8_t* __restrict__ sc,
@@ -68,17 +77,32 @@ q4k_gemv_kernel(const __nv_bfloat16* __restrict__ x,
     const int r0 = (c & 7) << 4;
     const int g_lo = s * 8 + (r0 >> 5);
     const int g_hi = g_lo + 4;
-    const float ds = __ldg(drow + s), dms = __ldg(dmrow + s);
-    const float dl_lo = ds * (float)__ldg(scrow + g_lo);
-    const float ml_lo = dms * (float)__ldg(mnrow + g_lo);
-    const float dl_hi = ds * (float)__ldg(scrow + g_hi);
-    const float ml_hi = dms * (float)__ldg(mnrow + g_hi);
+    float dl_lo, ml_lo, dl_hi, ml_hi;
+    if constexpr (kquant::legacy(F)) {
+      const float* dg = d + (size_t)row * n_groups;
+      float m_lo = 0.f, m_hi = 0.f;
+      if constexpr (kquant::added_min(F)) {
+        m_lo = __ldg(dm + (size_t)row * n_groups + g_lo);
+        m_hi = __ldg(dm + (size_t)row * n_groups + g_hi);
+      }
+      dl_lo = __ldg(dg + g_lo);
+      dl_hi = __ldg(dg + g_hi);
+      ml_lo = kquant::legacy_min<F>(dl_lo, m_lo);
+      ml_hi = kquant::legacy_min<F>(dl_hi, m_hi);
+    } else {
+      const float ds = __ldg(drow + s), dms = __ldg(dmrow + s);
+      dl_lo = ds * (float)__ldg(scrow + g_lo);
+      ml_lo = dms * (float)__ldg(mnrow + g_lo);
+      dl_hi = ds * (float)__ldg(scrow + g_hi);
+      ml_hi = dms * (float)__ldg(mnrow + g_hi);
+    }
     union {
       uint4 v;
       uint8_t b[16];
     } pk;
     pk.v = __ldg(reinterpret_cast<const uint4*>(qrow) + c);
-    const uint2 hb = kquant::high_words<kFive>(qh, (size_t)row * (k >> 3), s, c & 7);
+    const uint2 hb = kquant::high_words<kquant::five_bit(F)>(qh, (size_t)row * (k >> 3), s,
+                                                             c & 7);
     const int e_lo = s * 256 + r0;  // first element of the low half
 #pragma unroll
     for (int m = 0; m < M; ++m) {
@@ -95,7 +119,8 @@ q4k_gemv_kernel(const __nv_bfloat16* __restrict__ x,
       for (int j = 0; j < 8; ++j) {
         const float2 fl = __bfloat1622float2(hl[j]);
         const float2 fh = __bfloat1622float2(hh[j]);
-        const uint4 v = kquant::values<kFive>(pk.b[2 * j], pk.b[2 * j + 1], hb, 2 * j);
+        const uint4 v =
+            kquant::values<kquant::five_bit(F)>(pk.b[2 * j], pk.b[2 * j + 1], hb, 2 * j);
         p_lo += fl.x * (float)v.x + fl.y * (float)v.y;
         p_hi += fh.x * (float)v.z + fh.y * (float)v.w;
         s_lo += fl.x + fl.y;
@@ -120,52 +145,54 @@ q4k_gemv_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-template <int M, bool kFive>
+template <int M, Fmt F>
 void launch(const void* x, const void* q, const void* sc, const void* mn,
             const void* d, const void* dm, const void* qh, void* out, int n,
             int k, int out_f32, cudaStream_t st) {
   const dim3 grid((n + kWarps - 1) / kWarps), block(kWarps * 32);
-  q4k_gemv_kernel<M, kFive><<<grid, block, 0, st>>>(
+  q4k_gemv_kernel<M, F><<<grid, block, 0, st>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(q),
       static_cast<const int8_t*>(sc), static_cast<const int8_t*>(mn),
       static_cast<const float*>(d), static_cast<const float*>(dm),
       static_cast<const uint8_t*>(qh), out, n, k, out_f32);
 }
 
-template <bool kFive>
+template <Fmt F>
 int gemv(const void* x, const void* q, const void* sc, const void* mn,
          const void* d, const void* dm, const void* qh, void* out, int m,
          int n, int k, int out_f32, void* stream) {
-  if (m < 1 || m > 8 || n < 1 || k < 256 || k % 256 != 0 || (kFive && qh == nullptr))
+  if (m < 1 || m > 8 || n < 1 || k < 256 || k % 256 != 0 ||
+      (kquant::five_bit(F) && qh == nullptr) || (kquant::added_min(F) && dm == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (m) {
-    case 1: launch<1, kFive>(x, q, sc, mn, d, dm, qh, out, n, k, out_f32, st); break;
-    case 2: launch<2, kFive>(x, q, sc, mn, d, dm, qh, out, n, k, out_f32, st); break;
-    case 3: launch<3, kFive>(x, q, sc, mn, d, dm, qh, out, n, k, out_f32, st); break;
-    case 4: launch<4, kFive>(x, q, sc, mn, d, dm, qh, out, n, k, out_f32, st); break;
-    case 5: launch<5, kFive>(x, q, sc, mn, d, dm, qh, out, n, k, out_f32, st); break;
-    case 6: launch<6, kFive>(x, q, sc, mn, d, dm, qh, out, n, k, out_f32, st); break;
-    case 7: launch<7, kFive>(x, q, sc, mn, d, dm, qh, out, n, k, out_f32, st); break;
-    default: launch<8, kFive>(x, q, sc, mn, d, dm, qh, out, n, k, out_f32, st); break;
+    case 1: launch<1, F>(x, q, sc, mn, d, dm, qh, out, n, k, out_f32, st); break;
+    case 2: launch<2, F>(x, q, sc, mn, d, dm, qh, out, n, k, out_f32, st); break;
+    case 3: launch<3, F>(x, q, sc, mn, d, dm, qh, out, n, k, out_f32, st); break;
+    case 4: launch<4, F>(x, q, sc, mn, d, dm, qh, out, n, k, out_f32, st); break;
+    case 5: launch<5, F>(x, q, sc, mn, d, dm, qh, out, n, k, out_f32, st); break;
+    case 6: launch<6, F>(x, q, sc, mn, d, dm, qh, out, n, k, out_f32, st); break;
+    case 7: launch<7, F>(x, q, sc, mn, d, dm, qh, out, n, k, out_f32, st); break;
+    default: launch<8, F>(x, q, sc, mn, d, dm, qh, out, n, k, out_f32, st); break;
   }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Each returns cudaGetLastError() after the launch (0 = launched). Q4_K has
-// no high-bit plane: q4k_gemv ignores qh (null).
-extern "C" int q4k_gemv(const void* x, const void* q, const void* sc,
-                        const void* mn, const void* d, const void* dm,
-                        const void* qh, void* out, int m, int n, int k,
-                        int out_f32, void* stream) {
-  return gemv<false>(x, q, sc, mn, d, dm, qh, out, m, n, k, out_f32, stream);
-}
+// Each returns cudaGetLastError() after the launch (0 = launched). A format
+// ignores the planes it lacks (null): Q4_K and Q4_0/Q4_1 have no qh, the
+// legacy formats no sc or mn, Q4_0 and Q5_0 no dm.
+#define GEMV_ENTRY(name, fmt)                                                          \
+  extern "C" int name(const void* x, const void* q, const void* sc, const void* mn,   \
+                      const void* d, const void* dm, const void* qh, void* out, int m, \
+                      int n, int k, int out_f32, void* stream) {                       \
+    return gemv<fmt>(x, q, sc, mn, d, dm, qh, out, m, n, k, out_f32, stream);          \
+  }
 
-extern "C" int q5k_gemv(const void* x, const void* q, const void* sc,
-                        const void* mn, const void* d, const void* dm,
-                        const void* qh, void* out, int m, int n, int k,
-                        int out_f32, void* stream) {
-  return gemv<true>(x, q, sc, mn, d, dm, qh, out, m, n, k, out_f32, stream);
-}
+GEMV_ENTRY(q4k_gemv, Fmt::kQ4K)
+GEMV_ENTRY(q5k_gemv, Fmt::kQ5K)
+GEMV_ENTRY(q4_0_gemv, Fmt::kQ4_0)
+GEMV_ENTRY(q4_1_gemv, Fmt::kQ4_1)
+GEMV_ENTRY(q5_0_gemv, Fmt::kQ5_0)
+GEMV_ENTRY(q5_1_gemv, Fmt::kQ5_1)

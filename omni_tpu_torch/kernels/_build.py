@@ -36,8 +36,12 @@ FLASH_ARGS = ([_P] * 8 + [_I] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_float]
 # each source, its C entry points (one per kernel, format or cell type) and
 # their argument types; every entry returns cudaError_t as int
 SOURCES = {
-    "q4k_gemv.cu": dict.fromkeys(("q4k_gemv", "q5k_gemv"), MATMUL_ARGS),
-    "q4k_gemm.cu": dict.fromkeys(("q4k_gemm", "q5k_gemm"), MATMUL_ARGS),
+    "q4k_gemv.cu": dict.fromkeys(
+        ("q4k_gemv", "q5k_gemv", "q4_0_gemv", "q4_1_gemv", "q5_0_gemv",
+         "q5_1_gemv"), MATMUL_ARGS),
+    "q4k_gemm.cu": dict.fromkeys(
+        ("q4k_gemm", "q5k_gemm", "q4_0_gemm", "q4_1_gemm", "q5_0_gemm",
+         "q5_1_gemm"), MATMUL_ARGS),
     "q6k_gemv.cu": {"q6k_gemv": MATMUL_ARGS},
     "q8_0_gemv.cu": {"q8_0_gemv": MATMUL_ARGS},
     "qgemm.cu": dict.fromkeys(("qgemm_q4k", "qgemm_q5k", "qgemm_q6k", "qgemm_q8_0"),

@@ -4,17 +4,22 @@ Counterpart of `omni_tpu/kernels/dequant_matmul.py`. On a CUDA tensor a
 weight goes to a kernel written by hand for Hopper, chosen as the JAX
 dispatcher chooses its Pallas kernel (`matmul`, dequant_matmul.py:665-672):
 - `gp_supported` (M = 1..8, K % 2048 == 0 for the K-quants, K % 256 == 0
-  for Q8_0: `_gp_min_tk`): kernel A `q4k_gemv` for Q4_K, kernel G
-  `q5k_gemv` for Q5_K (A's template with the high bit), kernel C
-  `q6k_gemv` for Q6_K, kernel E `q8_0_gemv` for Q8_0 (all replace
-  qmatmul_gp_pallas);
-- `sh_supported` (M > 8, Q4_K or Q5_K, K % 2048 == 0): kernel B `q4k_gemm`,
-  and its Q5_K branch `q5k_gemm` (replace qmatmul_splith_pallas);
+  for Q8_0 and the legacy formats: `_gp_min_tk`): kernel A `q4k_gemv` for
+  Q4_K, kernel G `q5k_gemv` for Q5_K (A's template with the high bit),
+  A's legacy branches `q4_0_gemv`, `q4_1_gemv`, `q5_0_gemv` and
+  `q5_1_gemv` (a scale per 32 in place of d·sc), kernel C `q6k_gemv` for
+  Q6_K, kernel E `q8_0_gemv` for Q8_0 (all replace qmatmul_gp_pallas);
+- `sh_supported` (M > 8, the halves-packed formats Q4_K, Q5_K, Q4_0,
+  Q4_1, Q5_0 and Q5_1 at the same K multiples): kernel B `q4k_gemm`, and
+  its branches `q5k_gemm`, `q4_0_gemm`, `q4_1_gemm`, `q5_0_gemm` and
+  `q5_1_gemm` (replace qmatmul_splith_pallas);
 - every other Q4_K, Q5_K, Q6_K or Q8_0 weight, at any M: kernel D `qgemm`,
   the generic dequant-GEMM (replaces qmatmul_pallas; its launches of every
   format count under "qgemm", and each format's also in `qgemm_launches`).
-Other formats raise NotImplementedError on the card, naming the TPU kernel
-still to port. Each kernel has a plain PyTorch version of the same law
+A legacy weight never reaches kernel D: its planes need K % 256 == 0, and
+the load policy widens any other to bf16, as the JAX package's does.
+Other formats raise NotImplementedError on the card, naming the TPU
+kernels still to port. Each kernel has a plain PyTorch version of the same law
 beside it: the wrapper runs it only for a tensor that lies on the CPU, and
 on a CUDA tensor it launches the kernel or raises. Off the card the
 dispatcher runs kernel D's plain law, which is `qmatmul_xla`'s: dequantise
@@ -32,18 +37,24 @@ from __future__ import annotations
 import torch
 
 from ..core.dtypes import GGMLType
-from .qformats import (PLANES, QTensor, check_qtensor, dequant, kquant_values,
-                       q4k_group_scales, q6k_group_scales)
+from .qformats import (LEGACY, PLANES, QTensor, check_qtensor, dequant,
+                       kquant_values, q4k_group_scales, q6k_group_scales)
 
 GP_MAX_M = 8  # decode rows kernels A, C, E and G take (the TPU's _GP_MAX_M)
 # the K multiple of the gp and sh paths per format (the TPU kernels'
 # `_gp_min_tk`: 2048 where a plane has one row per 256 elements, else 256)
 GP_MIN_K = {GGMLType.Q4_K: 2048, GGMLType.Q5_K: 2048, GGMLType.Q6_K: 2048,
-            GGMLType.Q8_0: 256}
+            GGMLType.Q8_0: 256, **dict.fromkeys(LEGACY, 256)}
+# the name of kernel A's (M = 1..8) and kernel B's (M > 8) wrapper and C
+# entry point for each halves-packed format
+HALVES_GEMV = {GGMLType.Q4_K: "q4k_gemv", GGMLType.Q5_K: "q5k_gemv",
+               **{t: f"{t.name.lower()}_gemv" for t in LEGACY}}
+HALVES_GEMM = {GGMLType.Q4_K: "q4k_gemm", GGMLType.Q5_K: "q5k_gemm",
+               **{t: f"{t.name.lower()}_gemm" for t in LEGACY}}
 
 # kernel launches, one count per wrapper; a run resets and reads them
-launches = {"q4k_gemv": 0, "q4k_gemm": 0, "q5k_gemv": 0, "q5k_gemm": 0,
-            "q6k_gemv": 0, "qgemm": 0, "q8_0_gemv": 0}
+launches = dict.fromkeys([*HALVES_GEMV.values(), *HALVES_GEMM.values(),
+                          "q6k_gemv", "qgemm", "q8_0_gemv"], 0)
 # kernel D's launches per format (their sum is launches["qgemm"])
 qgemm_launches = {"Q4_K": 0, "Q5_K": 0, "Q6_K": 0, "Q8_0": 0}
 
@@ -120,9 +131,10 @@ def _check_gemv_m(name: str, x: torch.Tensor) -> None:
 def q4k_gemv_plain(x: torch.Tensor, qt: QTensor,
                    out_dtype=torch.bfloat16) -> torch.Tensor:
     """Kernel A's law in plain PyTorch (the group law of qmatmul_gp_pallas),
-    and kernel G's for Q5_K: per 32-group P = x_bf16 · q (the raw values:
-    nibbles, or Q5_K's 0..31), out = Σ_g dl·P − ml·xs with xs the group sums
-    of x_bf16, all in f32."""
+    and that of its Q5_K (kernel G) and legacy branches: per 32-group
+    P = x_bf16 · q (the raw values: nibbles, or 0..31 with the high bit),
+    out = Σ_g dl·P − ml·xs with xs the group sums of x_bf16, all in f32;
+    dl and ml as `q4k_group_scales` gives them."""
     m, k = x.shape
     n = qt.shape[0]
     g = k // 32
@@ -135,14 +147,19 @@ def q4k_gemv_plain(x: torch.Tensor, qt: QTensor,
     return out.to(out_dtype)
 
 
-# kernel G's law is kernel A's: Q5_K's values are 0..31, exact in bf16
-q5k_gemv_plain = q4k_gemv_plain
+# kernel G's law and the legacy branches' are kernel A's: the values are
+# 0..31, exact in bf16, and only dl and ml differ
+q5k_gemv_plain = q4_0_gemv_plain = q4_1_gemv_plain = q4k_gemv_plain
+q5_0_gemv_plain = q5_1_gemv_plain = q4k_gemv_plain
 
 
 def q4k_centered(qt: QTensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Kernel B's weights, of a Q4_K or Q5_K weight: (w = bf16((q − t)·dl)
-    [N, K] with t = ml/dl, 0 where dl = 0; the residual ml − t·dl [N, K/32]
-    in f32)."""
+    """Kernel B's weights, of a weight whose q plane is superblock-local
+    halves: (w = bf16((q − t)·dl) [N, K] with t = ml/dl, 0 where dl = 0;
+    the residual ml − t·dl [N, K/32] in f32). This is `_sh_scales`'s law
+    for all six formats: for Q4_0 and Q5_0, 8d/d and 16d/d are 8 and 16
+    exactly and the residual is 0; for Q4_1 and Q5_1, t = −m/d and the
+    residual −m − t·d carries the whole −m where d = 0."""
     dl, ml = q4k_group_scales(qt)
     nz = dl != 0
     t = torch.where(nz, ml / torch.where(nz, dl, torch.ones_like(dl)),
@@ -166,9 +183,10 @@ def q4k_gemm_plain(x: torch.Tensor, qt: QTensor,
     return (acc - xs @ ml_res.T).to(out_dtype)
 
 
-# q5k_gemm's law is kernel B's, q carrying its high bit (the TPU kernel's
-# `five_bit`)
-q5k_gemm_plain = q4k_gemm_plain
+# the other branches' law is kernel B's, q carrying its high bit in the
+# five-bit formats (the TPU kernel's `five_bit`)
+q5k_gemm_plain = q4_0_gemm_plain = q4_1_gemm_plain = q4k_gemm_plain
+q5_0_gemm_plain = q5_1_gemm_plain = q4k_gemm_plain
 
 
 def q6k_gemv_plain(x: torch.Tensor, qt: QTensor,
@@ -209,39 +227,53 @@ def qgemm_plain(x: torch.Tensor, qt: QTensor,
     return (x.to(torch.bfloat16).to(torch.float32) @ w.T).to(out_dtype)
 
 
-def q4k_gemv(x: torch.Tensor, qt: QTensor,
-             out_dtype=torch.bfloat16) -> torch.Tensor:
-    """Kernel A (replaces qmatmul_gp_pallas for Q4_K): M = 1..8."""
-    _check(x, qt, out_dtype, GGMLType.Q4_K)
-    _check_gemv_m("q4k_gemv", x)
-    return _run("q4k_gemv", "q4k_gemv", q4k_gemv_plain, x, qt, out_dtype)
+def _halves_gemv(t: GGMLType, what: str):
+    """The wrapper of kernel A's branch for halves-packed format `t`
+    (M = 1..8), named as its C entry point."""
+    name = HALVES_GEMV[t]
+
+    def wrapper(x: torch.Tensor, qt: QTensor,
+                out_dtype=torch.bfloat16) -> torch.Tensor:
+        _check(x, qt, out_dtype, t)
+        _check_gemv_m(name, x)
+        return _run(name, name, q4k_gemv_plain, x, qt, out_dtype)
+
+    wrapper.__name__ = wrapper.__qualname__ = name
+    wrapper.__doc__ = (f"{what} (replaces qmatmul_gp_pallas for {t.name}): "
+                       "M = 1..8.")
+    return wrapper
 
 
-def q4k_gemm(x: torch.Tensor, qt: QTensor,
-             out_dtype=torch.bfloat16) -> torch.Tensor:
-    """Kernel B (replaces qmatmul_splith_pallas for Q4_K): M > 8."""
-    _check(x, qt, out_dtype, GGMLType.Q4_K)
-    if x.shape[0] <= GP_MAX_M:
-        raise ValueError(f"q4k_gemm takes M > {GP_MAX_M}, got {x.shape[0]}")
-    return _run("q4k_gemm", "q4k_gemm", q4k_gemm_plain, x, qt, out_dtype)
+def _halves_gemm(t: GGMLType, what: str):
+    """The wrapper of kernel B's branch for halves-packed format `t`
+    (M > 8), named as its C entry point."""
+    name = HALVES_GEMM[t]
+
+    def wrapper(x: torch.Tensor, qt: QTensor,
+                out_dtype=torch.bfloat16) -> torch.Tensor:
+        _check(x, qt, out_dtype, t)
+        if x.shape[0] <= GP_MAX_M:
+            raise ValueError(f"{name} takes M > {GP_MAX_M}, got {x.shape[0]}")
+        return _run(name, name, q4k_gemm_plain, x, qt, out_dtype)
+
+    wrapper.__name__ = wrapper.__qualname__ = name
+    wrapper.__doc__ = (f"{what} (replaces qmatmul_splith_pallas for "
+                       f"{t.name}): M > 8.")
+    return wrapper
 
 
-def q5k_gemv(x: torch.Tensor, qt: QTensor,
-             out_dtype=torch.bfloat16) -> torch.Tensor:
-    """Kernel G (replaces qmatmul_gp_pallas for Q5_K): M = 1..8."""
-    _check(x, qt, out_dtype, GGMLType.Q5_K)
-    _check_gemv_m("q5k_gemv", x)
-    return _run("q5k_gemv", "q5k_gemv", q5k_gemv_plain, x, qt, out_dtype)
-
-
-def q5k_gemm(x: torch.Tensor, qt: QTensor,
-             out_dtype=torch.bfloat16) -> torch.Tensor:
-    """Kernel B's Q5_K branch (replaces qmatmul_splith_pallas for Q5_K):
-    M > 8."""
-    _check(x, qt, out_dtype, GGMLType.Q5_K)
-    if x.shape[0] <= GP_MAX_M:
-        raise ValueError(f"q5k_gemm takes M > {GP_MAX_M}, got {x.shape[0]}")
-    return _run("q5k_gemm", "q5k_gemm", q5k_gemm_plain, x, qt, out_dtype)
+q4k_gemv = _halves_gemv(GGMLType.Q4_K, "Kernel A")
+q5k_gemv = _halves_gemv(GGMLType.Q5_K, "Kernel G, kernel A's Q5_K branch")
+q4_0_gemv = _halves_gemv(GGMLType.Q4_0, "Kernel A's Q4_0 branch")
+q4_1_gemv = _halves_gemv(GGMLType.Q4_1, "Kernel A's Q4_1 branch")
+q5_0_gemv = _halves_gemv(GGMLType.Q5_0, "Kernel A's Q5_0 branch")
+q5_1_gemv = _halves_gemv(GGMLType.Q5_1, "Kernel A's Q5_1 branch")
+q4k_gemm = _halves_gemm(GGMLType.Q4_K, "Kernel B")
+q5k_gemm = _halves_gemm(GGMLType.Q5_K, "Kernel B's Q5_K branch")
+q4_0_gemm = _halves_gemm(GGMLType.Q4_0, "Kernel B's Q4_0 branch")
+q4_1_gemm = _halves_gemm(GGMLType.Q4_1, "Kernel B's Q4_1 branch")
+q5_0_gemm = _halves_gemm(GGMLType.Q5_0, "Kernel B's Q5_0 branch")
+q5_1_gemm = _halves_gemm(GGMLType.Q5_1, "Kernel B's Q5_1 branch")
 
 
 def q6k_gemv(x: torch.Tensor, qt: QTensor,
@@ -271,22 +303,25 @@ def qgemm(x: torch.Tensor, qt: QTensor,
 
 
 _GEMV = {GGMLType.Q4_K: q4k_gemv, GGMLType.Q5_K: q5k_gemv,
+         GGMLType.Q4_0: q4_0_gemv, GGMLType.Q4_1: q4_1_gemv,
+         GGMLType.Q5_0: q5_0_gemv, GGMLType.Q5_1: q5_1_gemv,
          GGMLType.Q6_K: q6k_gemv, GGMLType.Q8_0: q8_0_gemv}
-_GEMM = {GGMLType.Q4_K: q4k_gemm, GGMLType.Q5_K: q5k_gemm}
+_GEMM = {GGMLType.Q4_K: q4k_gemm, GGMLType.Q5_K: q5k_gemm,
+         GGMLType.Q4_0: q4_0_gemm, GGMLType.Q4_1: q4_1_gemm,
+         GGMLType.Q5_0: q5_0_gemm, GGMLType.Q5_1: q5_1_gemm}
 
 
 def kernel_for(m: int, qt: QTensor):
     """The kernel wrapper the card runs for an [m, K] x and weight `qt`
     (the JAX dispatcher's order: gp, then sh, then the generic kernel), or
     None where no kernel is ported."""
-    if qt.ggml_type not in _QGEMM_ENTRY:
-        return None
-    if qt.shape[1] % GP_MIN_K[qt.ggml_type] == 0:
+    t = qt.ggml_type
+    if t in GP_MIN_K and qt.shape[1] % GP_MIN_K[t] == 0:
         if m <= GP_MAX_M:
-            return _GEMV[qt.ggml_type]
-        if qt.ggml_type in _GEMM:
-            return _GEMM[qt.ggml_type]
-    return qgemm
+            return _GEMV[t]
+        if t in _GEMM:
+            return _GEMM[t]
+    return qgemm if t in _QGEMM_ENTRY else None
 
 
 # K per cuBLAS product of a dense dot on the card. One tensor-core
@@ -349,9 +384,12 @@ def matmul(x: torch.Tensor, w, out_dtype=torch.bfloat16) -> torch.Tensor:
         kernel = kernel_for(x.shape[0], w)
         if kernel is None:
             raise NotImplementedError(
-                f"no CUDA kernel for {GGMLType(w.ggml_type).name}: "
-                "qmatmul_pallas (the generic fused dequant x matmul, "
-                "omni_tpu/kernels/dequant_matmul.py:103) is ported for Q4_K, "
-                "Q5_K, Q6_K and Q8_0 only")
+                f"no CUDA kernel for {GGMLType(w.ggml_type).name} at M = "
+                f"{x.shape[0]}, K = {w.shape[1]}: qmatmul_pallas (the generic "
+                "fused dequant x matmul, omni_tpu/kernels/dequant_matmul.py:103)"
+                " is ported for Q4_K, Q5_K, Q6_K and Q8_0 only, "
+                "qmatmul_gp_pallas (:333) for those and Q4_0, Q4_1, Q5_0 and "
+                "Q5_1, and qmatmul_splith_pallas (:565) for Q4_K, Q5_K, Q4_0, "
+                "Q4_1, Q5_0 and Q5_1")
         return kernel(x.to(torch.bfloat16).contiguous(), w, out_dtype)
     return dense_matmul(x, w, out_dtype)

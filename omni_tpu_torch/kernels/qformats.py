@@ -30,10 +30,20 @@ Q6_K planes:
 - sc int8 [N, K/16]  group scales
 - d  f32  [N, K/256] super-scale
 
+Q4_0, Q4_1, Q5_0 and Q5_1 planes (the 32-element legacy formats; the
+K-quants' q and qh planes, a scale per 32 instead of d·sc):
+- q  u8   [N, K/2]   superblock-local halves, as Q4_K's (the low four bits
+                     of each value)
+- d  f32  [N, K/32]  block scale (the file's f16, widened)
+- dm f32  [N, K/32]  Q4_1 and Q5_1 only: the added min m (w = q·d + m)
+- qh u8   [N, K/8]   Q5_0 and Q5_1 only: the high bits in element order, as
+                     Q5_K's
+Q4_0 and Q5_0 dequantise as (q − 8)·d and (q − 16)·d.
+
 `repack` builds these planes from GGUF block bytes ON THE DEVICE, as torch
 ops on the uploaded blocks: a host pass over a 5 GB checkpoint would take
-minutes. Only Q8_0, Q4_K, Q5_K and Q6_K have planes, dequantisers and
-kernels in the port so far.
+minutes. Only Q8_0, Q4_0, Q4_1, Q5_0, Q5_1, Q4_K, Q5_K and Q6_K have
+planes, dequantisers and kernels in the port so far.
 """
 
 from __future__ import annotations
@@ -47,7 +57,12 @@ import torch
 from ..core.dtypes import QK_K, GGMLType, type_traits
 
 PLANES = ("q", "sc", "mn", "d", "dm", "qh")
-QUANTIZED = (GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K, GGMLType.Q8_0)
+# the 32-element legacy formats, whose q plane is the K-quants' halves
+LEGACY = (GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1)
+QUANTIZED = (GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K, GGMLType.Q8_0,
+             *LEGACY)
+# the formats whose values carry a fifth bit from the qh plane
+FIVE_BIT = (GGMLType.Q5_K, GGMLType.Q5_0, GGMLType.Q5_1)
 # int8 value planes with one scale per 32 elements need only whole 32-blocks
 # in K; the packed K-quant planes need whole 256-superblocks (the JAX
 # package's tile_granule)
@@ -96,6 +111,13 @@ def plane_specs(t: GGMLType, n: int, k: int) -> dict[str, tuple[tuple, torch.dty
     if t == GGMLType.Q6_K:
         return {"q": ((n, k), torch.int8), "sc": ((n, k // 16), torch.int8),
                 "d": ((n, k // QK_K), torch.float32)}
+    if t in LEGACY:
+        specs = {"q": ((n, k // 2), torch.uint8), "d": ((n, k // 32), torch.float32)}
+        if t in (GGMLType.Q4_1, GGMLType.Q5_1):
+            specs["dm"] = ((n, k // 32), torch.float32)
+        if t in FIVE_BIT:
+            specs["qh"] = ((n, k // 8), torch.uint8)
+        return specs
     raise NotImplementedError(f"{GGMLType(t).name} has no planes in the port")
 
 
@@ -148,17 +170,27 @@ def unpack_bits(qh: torch.Tensor) -> torch.Tensor:
 
 
 def kquant_values(qt: QTensor) -> torch.Tensor:
-    """The values q of a Q4_K (0..15) or Q5_K (0..31: the nibble plus 16 x
-    its high bit) weight, uint8 [N, K] in element order."""
+    """The raw values q of a weight whose q plane is superblock-local halves,
+    uint8 [N, K] in element order: Q4_K, Q4_0 and Q4_1 0..15; Q5_K, Q5_0
+    and Q5_1 0..31 (the nibble plus 16 x its high bit)."""
     q = unpack_sb_halves(qt.q)
-    if qt.ggml_type == GGMLType.Q5_K:
+    if qt.ggml_type in FIVE_BIT:
         q = q | (unpack_bits(qt.qh) << 4)
     return q
 
 
 def q4k_group_scales(qt: QTensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-32-group (dl, ml) = (d·sc, dm·mn) as f32 [N, K/32] of a Q4_K or
-    Q5_K weight — the exact f32 products the reference dequantiser forms."""
+    """Per-32-group (dl, ml) as f32 [N, K/32], w = q·dl − ml, of a weight
+    whose q plane is superblock-local halves (the group law of the TPU
+    kernels' `_gp_slice`): (d·sc, dm·mn) for Q4_K and Q5_K, the exact f32
+    products the reference dequantiser forms; (d, 8·d) for Q4_0, (d, 16·d)
+    for Q5_0 (the offset folded into the min, exact in f32); (d, −m) for
+    Q4_1 and Q5_1, whose min is added."""
+    t = qt.ggml_type
+    if t in (GGMLType.Q4_0, GGMLType.Q5_0):
+        return qt.d, (8.0 if t == GGMLType.Q4_0 else 16.0) * qt.d
+    if t in (GGMLType.Q4_1, GGMLType.Q5_1):
+        return qt.d, -qt.dm
     dl = _expand(qt.d, 8) * qt.sc.to(torch.float32)
     ml = _expand(qt.dm, 8) * qt.mn.to(torch.float32)
     return dl, ml
@@ -181,8 +213,21 @@ def dequant(qt: QTensor, dtype=torch.float32) -> torch.Tensor:
     if qt.ggml_type == GGMLType.Q6_K:
         return (qt.q.to(torch.float32) * _expand(q6k_group_scales(qt), 16)
                 ).to(dtype)
+    if qt.ggml_type in LEGACY:
+        return _legacy_law(kquant_values(qt), qt.d, qt.dm, qt.ggml_type, dtype)
     raise NotImplementedError(
         f"dequant: {GGMLType(qt.ggml_type).name} is not ported yet")
+
+
+def _legacy_law(q: torch.Tensor, d: torch.Tensor, m: torch.Tensor | None,
+                t: GGMLType, dtype) -> torch.Tensor:
+    """A legacy weight from its values q (uint8 [N, K]) and per-32 d (and m):
+    (q − 8)·d, (q − 16)·d or q·d + m in f32, the JAX package's `dequant_tile`
+    law (one rounding, or two where m is added), rounded once to `dtype`."""
+    qf = q.to(torch.float32)
+    if t in (GGMLType.Q4_0, GGMLType.Q5_0):
+        return ((qf - (8.0 if t == GGMLType.Q4_0 else 16.0)) * _expand(d, 32)).to(dtype)
+    return (qf * _expand(d, 32) + _expand(m, 32)).to(dtype)
 
 
 def concat_qtensors(qts: list[QTensor]) -> QTensor:
@@ -223,6 +268,13 @@ def repack(blocks: torch.Tensor, ggml_type: GGMLType,
         raise NotImplementedError(f"repack: {t.name} is not ported")
     if k % tile_granule(t):
         raise ValueError(f"repack: K={k} is not a multiple of {tile_granule(t)}")
+    if t in LEGACY:
+        q, d, m, qh = _legacy_fields(blocks, t, n, k)
+        # element s·256 + r in the low nibble of byte r of superblock s,
+        # s·256 + 128 + r in its high one
+        h = (q & 0xF).reshape(n, k // QK_K, 2, 128)
+        return QTensor(t, (n, k), q=(h[:, :, 0] | (h[:, :, 1] << 4)).reshape(n, k // 2),
+                       sc=None, mn=None, d=d, dm=m, qh=qh)
     if t == GGMLType.Q8_0:
         # 34-byte blocks, not 16-byte aligned: the fields are cut from the
         # uint8 [N, K/32, 34] view, the f16 d in bytes 0-1, then 32 int8
@@ -272,6 +324,30 @@ def repack(blocks: torch.Tensor, ggml_type: GGMLType,
                    dm=None)
 
 
+def _legacy_fields(blocks: torch.Tensor, t: GGMLType, n: int, k: int):
+    """The fields of legacy blocks (uint8 [N·K/32, type_size]) in element
+    order: (values q uint8 [N, K], the nibble plus 16 x its high bit for
+    Q5_0/Q5_1; d f32 [N, K/32]; Q4_1/Q5_1's m f32 [N, K/32] or None; the
+    high-bit plane uint8 [N, K/8] or None). A block's 16 quant bytes hold
+    element j in the low nibble of byte j and element j + 16 in its high
+    one; its 4 qh bytes are a little-endian u32 with bit j for element j,
+    which is already the plane's bit order, so they are copied as they
+    are."""
+    b = blocks.reshape(n, k // 32, type_traits(t).type_size)
+    with_min = t in (GGMLType.Q4_1, GGMLType.Q5_1)
+    off = 4 if with_min else 2
+    m = _f16_field(b, 2) if with_min else None
+    qh = None
+    if t in FIVE_BIT:
+        qh = b[..., off:off + 4].reshape(n, k // 8)
+        off += 4
+    qs = b[..., off:off + 16]
+    q = torch.cat([qs & 0xF, qs >> 4], dim=-1).reshape(n, k)
+    if qh is not None:
+        q = q | (unpack_bits(qh) << 4)
+    return q, _f16_field(b, 0), m, qh
+
+
 def upload(a: np.ndarray, device) -> torch.Tensor:
     """A copy of numpy array `a` (a read-only mmap view is fine) on
     `device`."""
@@ -295,9 +371,12 @@ def load_quantized(blocks: np.ndarray, ggml_type: GGMLType,
                    device=None):
     """The JAX package's load policy (`load_quantized`), for the formats the
     port has:
-    - a 2-D Q8_0, Q4_K, Q5_K or Q6_K tensor stays quantized (a QTensor on
-      `device`; its blocks always fill K to the format's `tile_granule`),
-      unless keep_quantized=False: then it is dequantised there to bf16;
+    - a 2-D Q8_0, Q4_0, Q4_1, Q5_0, Q5_1, Q4_K, Q5_K or Q6_K tensor stays
+      quantized (a QTensor on `device`) where K holds whole blocks of the
+      format's `tile_granule` (always, but for a legacy tensor with
+      K % 256 != 0), unless keep_quantized=False; otherwise it is
+      dequantised there to bf16 (the JAX package widens such a legacy
+      tensor too);
     - F32, F16 and BF16 widen (an F16 weight becomes bf16, as in the JAX
       package: 3 mantissa bits fewer than llama.cpp keeps);
     - 1-D tensors (norms, biases) become f32, 2-D dense ones bf16;
@@ -318,7 +397,10 @@ def load_quantized(blocks: np.ndarray, ggml_type: GGMLType,
     if len(shape) not in (1, 2):
         raise NotImplementedError(f"load_quantized: {len(shape)}-D {t.name} tensor")
     n, k = (1, shape[0]) if len(shape) == 1 else shape
-    qt = repack(upload(np.asarray(blocks), device), t, (n, k))
-    if keep_quantized and len(shape) == 2:
-        return qt
-    return dequant(qt, out_dtype).reshape(shape)
+    b = upload(np.asarray(blocks), device)
+    if keep_quantized and len(shape) == 2 and k % tile_granule(t) == 0:
+        return repack(b, t, (n, k))
+    if t in LEGACY:  # whole 32-blocks, not necessarily whole planes
+        q, d, m, _ = _legacy_fields(b, t, n, k)
+        return _legacy_law(q, d, m, t, out_dtype).reshape(shape)
+    return dequant(repack(b, t, (n, k)), out_dtype).reshape(shape)

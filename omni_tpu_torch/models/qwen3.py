@@ -117,11 +117,13 @@ def fuse_layer(layer: dict) -> dict:
 
 def load_params(reader, fuse: bool = False, device=None) -> dict:
     """GGUF tensors -> the dense Qwen3 parameter dict on `device` (the
-    dense subset of omni_tpu's `qwen3.load_params`): Q8_0, Q4_K, Q5_K and
-    Q6_K weights stay quantized, F32/F16/BF16 weights become dense bf16, the
-    token embedding (Q5_K in a Q5_K_M file) is dequantised to dense bf16 (as
-    keep_q=False does), norms are f32, and `output` is None when the head is
-    tied to the embedding. Other quantized formats raise
+    dense subset of omni_tpu's `qwen3.load_params`): Q8_0, Q4_0, Q4_1, Q5_0,
+    Q5_1, Q4_K, Q5_K and Q6_K weights stay quantized (a Q4_0, Q4_1, Q5_0
+    or Q5_1 weight whose K is no multiple of 256 becomes dense bf16, as in
+    the JAX package), F32/F16/BF16 weights become dense bf16, the token
+    embedding (Q5_K in a Q5_K_M file, Q4_0 in a Q4_0 one) is dequantised to
+    dense bf16 (as keep_q=False does), norms are f32, and `output` is None
+    when the head is tied to the embedding. Other quantized formats raise
     NotImplementedError, as does a tensor the dense branch would not read.
     fuse=True merges QKV and gate+up, which needs one format per group: on
     a Q4_K_M or Q5_K_M layer (Q4_K or Q5_K wq, Q6_K wv) it raises, as the

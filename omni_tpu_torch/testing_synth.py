@@ -8,18 +8,25 @@ no multi-GB host-to-device copy happens. Three forms:
   uniform in [-0.02, 0.02). It streams 4.49 GB per decode token, less than
   a real Q4_K_M checkpoint (5.27 GB: its Q6_K tensors are larger).
 - `write_qwen3_gguf`: a GGUF file whose tensors take the types of a
-  quantization recipe (Q4_K_M, Q5_K_M or Q8_0: llama.cpp's rules, the
-  port's copy of `omni_tpu/cli/quantize.py`), with random block bytes: Q4_K
-  in the ranges above; Q5_K the same, its high bits random bytes too (values
-  0..31); Q6_K with its 6-bit values over their full signed range
+  quantization recipe (Q4_K_M, Q5_K_M, Q8_0, Q4_0 or Q5_0: llama.cpp's
+  rules, the port's copy of `omni_tpu/cli/quantize.py`, and for Q4_0 and
+  Q5_0 optionally llama.cpp's importance-matrix layout), with random block
+  bytes: Q4_K in the ranges above; Q5_K the same, its high bits random
+  bytes too (values 0..31); Q6_K with its 6-bit values over their full signed range
   (q - 32 in -32..31, as a real file's are), scales 20..63 and d uniform
   in [5e-6, 5.5e-5), so that its weights have about the Q4_K weights' RMS
   (0.027 against 0.025); Q8_0 with its int8 values over -127..127 (the
   range llama.cpp's quantizer writes) and d uniform in [2e-4, 4.5e-4), RMS
-  0.025. The Q4_K weights in these ranges have a common part (mean 0.017,
-  91 % positive); the Q6_K and Q8_0 weights have none (mean ~0), so a
-  Q6_K or Q8_0 output head gives logits of max ~10 where the all-Q4_K
-  model's reach ~110.
+  0.025; Q4_0 and Q5_0 (recipes of the same names) with every nibble and
+  high bit random and d uniform in [3.5e-3, 7.5e-3) and [1.75e-3, 3.75e-3),
+  RMS 0.026 (signed weights, (q - 8)·d and (q - 16)·d); Q4_1 and Q5_1 (the
+  importance-matrix layout's ffn_down) with the same d, an added min m
+  uniform in [-0.08, 0.01) (one in nine positive; weights of mean ~0.006,
+  RMS ~0.04), and d = 0 in about one block in 64, so that a kernel's
+  dl = 0 residual path runs. The Q4_K weights in these ranges have a
+  common part (mean 0.017, 91 % positive); the Q6_K,
+  Q8_0, Q4_0 and Q5_0 weights have none (mean ~0), so a Q6_K or Q8_0 output
+  head gives logits of max ~10 where the all-Q4_K model's reach ~110.
 - `synth_qwen3_dense_params`: the dense parameter dict of an F16 checkpoint
   as the port loads one (every weight bf16, drawn in F16 first), normal
   weights of RMS 0.025, unfused.
@@ -28,12 +35,14 @@ Dense decode speed does not depend on the values."""
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from .core.dtypes import GGMLType, type_traits
 from .core.gguf import GGUFWriter
-from .kernels.qformats import QTensor, repack
+from .kernels.qformats import LEGACY, QTensor, repack
 from .models.qwen3 import Qwen3Config, fuse_layer
 
 QWEN3_8B = Qwen3Config(
@@ -119,25 +128,55 @@ def q8_0_blocks(nb: int, device, generator: torch.Generator) -> torch.Tensor:
                       q.view(torch.uint8)], dim=1)
 
 
+def legacy_blocks(t: GGMLType, nb: int, device,
+                  generator: torch.Generator) -> torch.Tensor:
+    """nb random blocks [nb, type_size] of legacy format `t`: d (then
+    Q4_1/Q5_1's m) as f16, Q5_0/Q5_1's 4 bytes of high bits, 16 bytes of
+    nibbles, every bit random. d is uniform in [3.5e-3, 7.5e-3) for Q4_0
+    and Q4_1, [1.75e-3, 3.75e-3) for Q5_0 and Q5_1 (weights of RMS ~0.026
+    either way); m uniform in [-0.08, 0.01), and where a block's draw falls
+    below 1/64 its d is 0, keeping its m (w = m on all 32 elements: the
+    residual path of kernel B's centered law)."""
+    five = t in (GGMLType.Q5_0, GGMLType.Q5_1)
+    lo, hi = (1.75e-3, 3.75e-3) if five else (3.5e-3, 7.5e-3)
+    d = _unif_f16_bytes(nb, lo, hi, device, generator)
+    fields = [d]
+    if t in (GGMLType.Q4_1, GGMLType.Q5_1):
+        zero = torch.rand((nb, 1), device=device, generator=generator) < 1 / 64
+        fields = [d.masked_fill(zero, 0),
+                  _unif_f16_bytes(nb, -0.08, 0.01, device, generator)]
+    fields.append(_ints(0, 256, (nb, 20 if five else 16), device, generator))
+    return torch.cat(fields, dim=1)
+
+
+# format -> its random block maker, (nb, device, generator) -> uint8
+# [nb, type_size]
+BLOCKS = {GGMLType.Q4_K: q4k_blocks, GGMLType.Q5_K: q5k_blocks,
+          GGMLType.Q6_K: q6k_blocks, GGMLType.Q8_0: q8_0_blocks,
+          **{t: functools.partial(legacy_blocks, t) for t in LEGACY}}
+
+
+def synth_quant(t: GGMLType, n: int, k: int, device,
+                generator: torch.Generator) -> QTensor:
+    """Random QTensor [n, k] of format `t` in the port's layout (random
+    blocks from `BLOCKS`, repacked where they were made)."""
+    nb = n * k // type_traits(t).block_size
+    return repack(BLOCKS[t](nb, device, generator), t, (n, k))
+
+
 def synth_q8_0(n: int, k: int, device, generator: torch.Generator) -> QTensor:
-    """Random Q8_0 QTensor [n, k] in the port's layout (random blocks,
-    repacked where they were made)."""
-    return repack(q8_0_blocks(n * k // 32, device, generator), GGMLType.Q8_0,
-                  (n, k))
+    """Random Q8_0 QTensor [n, k] (`synth_quant`)."""
+    return synth_quant(GGMLType.Q8_0, n, k, device, generator)
 
 
 def synth_q5k(n: int, k: int, device, generator: torch.Generator) -> QTensor:
-    """Random Q5_K QTensor [n, k] in the port's layout (random blocks,
-    repacked where they were made)."""
-    return repack(q5k_blocks(n * k // 256, device, generator), GGMLType.Q5_K,
-                  (n, k))
+    """Random Q5_K QTensor [n, k] (`synth_quant`)."""
+    return synth_quant(GGMLType.Q5_K, n, k, device, generator)
 
 
 def synth_q6k(n: int, k: int, device, generator: torch.Generator) -> QTensor:
-    """Random Q6_K QTensor [n, k] in the port's layout (random blocks,
-    repacked where they were made)."""
-    return repack(q6k_blocks(n * k // 256, device, generator), GGMLType.Q6_K,
-                  (n, k))
+    """Random Q6_K QTensor [n, k] (`synth_quant`)."""
+    return synth_quant(GGMLType.Q6_K, n, k, device, generator)
 
 
 # ---- quantization recipes: the port's copy of omni_tpu/cli/quantize.py ----
@@ -151,16 +190,25 @@ def use_more_bits(i_layer: int, n_layers: int) -> bool:
 
 # recipe -> its default type
 RECIPES = {"Q4_K_M": GGMLType.Q4_K, "Q5_K_M": GGMLType.Q5_K,
-           "Q8_0": GGMLType.Q8_0}
+           "Q8_0": GGMLType.Q8_0, "Q4_0": GGMLType.Q4_0, "Q5_0": GGMLType.Q5_0}
+# the importance-matrix layout's type for the first ffn_down layers
+_IMATRIX_DOWN = {GGMLType.Q4_0: GGMLType.Q4_1, GGMLType.Q5_0: GGMLType.Q5_1}
 
 
-def pick_type(name: str, ftype: str, default: GGMLType,
-              n_layers: int) -> GGMLType:
+def pick_type(name: str, ftype: str, default: GGMLType, n_layers: int,
+              imatrix: bool = False) -> GGMLType:
     """Per-tensor type rules (the Q4_K_M and Q5_K_M schedules): the output
     head is Q6_K unless the recipe's type is Q8_0 (llama-quant.cpp keeps a
     Q8_0 head; the JAX package's quantizer makes it Q6_K under every
     recipe), the token embedding keeps the default, and Q4_K_M and Q5_K_M
-    promote attn_v and ffn_down on the use_more_bits layers to Q6_K."""
+    promote attn_v and ffn_down on the use_more_bits layers to Q6_K.
+
+    imatrix=True is the layout llama.cpp writes when the file is quantized
+    with an importance matrix (`llama-quant.cpp`, llama_tensor_get_type: for
+    LLAMA_FTYPE_MOSTLY_Q4_0 / _Q5_0 with `qs.has_imatrix`, the ffn_down of
+    layers i < n_layers / 8 becomes Q4_1 / Q5_1, a guard against those
+    first layers going wrong); the JAX package's quantizer has no such rule
+    (an importance matrix there weights the rounding only)."""
     i_layer = int(name.split(".")[1]) if name.startswith("blk.") else -1
     if name == "output.weight":
         return default if default == GGMLType.Q8_0 else GGMLType.Q6_K
@@ -170,15 +218,20 @@ def pick_type(name: str, ftype: str, default: GGMLType,
         if ((".attn_v.weight" in name or ".ffn_down.weight" in name)
                 and use_more_bits(i_layer, n_layers)):
             return GGMLType.Q6_K
+    if (imatrix and ftype in ("Q4_0", "Q5_0") and ".ffn_down.weight" in name
+            and 0 <= i_layer < n_layers // 8):
+        return _IMATRIX_DOWN[default]
     return default
 
 
 def write_qwen3_gguf(path, cfg: Qwen3Config, recipe: str,
-                     generator: torch.Generator) -> dict[str, GGMLType]:
+                     generator: torch.Generator,
+                     imatrix: bool = False) -> dict[str, GGMLType]:
     """Write a random `qwen3` GGUF of `cfg` (separate output head) whose
-    2-D tensors take the types of `recipe`; norms are F32 ones. The block
-    bytes are made on `generator`'s device, one tensor at a time, and
-    streamed to the file. Returns {tensor name: type}."""
+    2-D tensors take the types of `recipe` (`pick_type`; imatrix=True: the
+    importance-matrix layout of a Q4_0 or Q5_0 file); norms are F32 ones.
+    The block bytes are made on `generator`'s device, one tensor at a time,
+    and streamed to the file. Returns {tensor name: type}."""
     default = RECIPES[recipe]
     device = generator.device
     arch = "qwen3"
@@ -199,13 +252,10 @@ def write_qwen3_gguf(path, cfg: Qwen3Config, recipe: str,
     w.add_kv("tokenizer.ggml.tokens", [f"<t{i}>" for i in range(cfg.n_vocab)])
     types = {}
 
-    make = {GGMLType.Q4_K: q4k_blocks, GGMLType.Q5_K: q5k_blocks,
-            GGMLType.Q6_K: q6k_blocks, GGMLType.Q8_0: q8_0_blocks}
-
     def quant(name: str, n: int, k: int) -> None:
-        t = types[name] = pick_type(name, recipe, default, cfg.n_layers)
+        t = types[name] = pick_type(name, recipe, default, cfg.n_layers, imatrix)
         nb = n * k // type_traits(t).block_size
-        w.add_tensor(name, lambda: make[t](nb, device, generator).cpu().numpy(),
+        w.add_tensor(name, lambda: BLOCKS[t](nb, device, generator).cpu().numpy(),
                      t, (n, k))
 
     def norm(name: str, n: int) -> None:

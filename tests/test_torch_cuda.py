@@ -15,9 +15,11 @@ from omni_tpu_torch.kernels import dequant_matmul as dm
 from omni_tpu_torch.kernels import flash_attention as fa
 from omni_tpu_torch.models import qwen3
 from omni_tpu_torch.runtime import Batch, Context, SamplerParams
+from omni_tpu_torch.core.dtypes import GGMLType
 from omni_tpu_torch.core.gguf import GGUFReader
 from omni_tpu_torch.testing_synth import (synth_q4k, synth_q5k, synth_q6k,
-                                          synth_q8_0, synth_qwen3_dense_params,
+                                          synth_q8_0, synth_quant,
+                                          synth_qwen3_dense_params,
                                           synth_qwen3_params, write_qwen3_gguf)
 
 
@@ -84,9 +86,8 @@ def test_cuda_forward_goes_through_both_kernels(card):
         logits = logits[0]
         assert torch.isfinite(logits).all()
     per_step = 4 * cfg.n_layers + 1
-    assert dm.launches == {"q4k_gemm": per_step, "q4k_gemv": 3 * per_step,
-                           "q5k_gemv": 0, "q5k_gemm": 0, "q6k_gemv": 0,
-                           "qgemm": 0, "q8_0_gemv": 0}
+    assert dm.launches == {**dict.fromkeys(dm.launches, 0),
+                           "q4k_gemm": per_step, "q4k_gemv": 3 * per_step}
 
 
 @pytest.mark.cuda
@@ -110,9 +111,8 @@ def test_cuda_q4km_gguf_goes_through_all_four_kernels(card, tmp_path):
     assert torch.isfinite(logits).all()
     # layers 0, 3, 6 and 7 of 8 have Q6_K attn_v and ffn_down, and the
     # head is Q6_K: 9 Q6_K and 7 * 8 + 1 - 9 = 48 Q4_K weights
-    assert dm.launches == {"q4k_gemm": 48, "qgemm": 9, "q4k_gemv": 48,
-                           "q5k_gemv": 0, "q5k_gemm": 0, "q6k_gemv": 9,
-                           "q8_0_gemv": 0}
+    assert dm.launches == {**dict.fromkeys(dm.launches, 0), "q4k_gemm": 48,
+                           "qgemm": 9, "q4k_gemv": 48, "q6k_gemv": 9}
 
 
 _SMALL = dict(n_layers=2, d_model=2048, n_heads=16, n_kv_heads=4, head_dim=128,
@@ -135,8 +135,7 @@ def test_cuda_q8_0_gguf_goes_through_kernels_e_and_d(card, tmp_path):
     logits, _ = ctx.decode(Batch(tokens=[int(torch.argmax(logits))]))
     assert torch.isfinite(logits).all()
     n = 7 * cfg.n_layers + 1
-    assert dm.launches == {"q4k_gemm": 0, "qgemm": n, "q4k_gemv": 0,
-                           "q5k_gemv": 0, "q5k_gemm": 0, "q6k_gemv": 0,
+    assert dm.launches == {**dict.fromkeys(dm.launches, 0), "qgemm": n,
                            "q8_0_gemv": n}
 
 
@@ -178,9 +177,63 @@ def test_cuda_q5km_gguf_goes_through_g_b_c_and_d(card, tmp_path):
     logits, _ = ctx.decode(Batch(tokens=[int(torch.argmax(logits))]))
     assert torch.isfinite(logits).all()
     # as the Q4_K_M file: 9 Q6_K and 48 Q5_K weights
-    assert dm.launches == {"q4k_gemm": 0, "qgemm": 9, "q4k_gemv": 0,
-                           "q5k_gemv": 48, "q5k_gemm": 48, "q6k_gemv": 9,
-                           "q8_0_gemv": 0}
+    assert dm.launches == {**dict.fromkeys(dm.launches, 0), "qgemm": 9,
+                           "q5k_gemv": 48, "q5k_gemm": 48, "q6k_gemv": 9}
+
+
+LEGACY_CASES = [(t, m, k) for t in ("Q4_0", "Q4_1", "Q5_0", "Q5_1")
+                for m, k in ((1, 4096), (8, 1280), (9, 1280), (130, 4096))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt,m,k", LEGACY_CASES,
+                         ids=[f"{t}-m{m}-k{k}" for t, m, k in LEGACY_CASES])
+def test_cuda_legacy_kernel_matches_plain(card, fmt, m, k):
+    """Kernel A's (M <= 8) and B's (M > 8) Q4_0, Q4_1, Q5_0 and Q5_1
+    branches, through `matmul`, against their plain versions on a ragged N
+    (1000 rows), at K = 4096 and at K = 1280 (no multiple of 2048: the
+    legacy formats' granule is 256), both output dtypes, on
+    testing_synth's blocks (random high bits, m of both signs, some d = 0
+    blocks); one launch counted per call, none of kernel D."""
+    qtype = GGMLType[fmt]
+    gen = torch.Generator(device=card).manual_seed(m + k)
+    qt = synth_quant(qtype, 1000, k, card, gen)
+    x = torch.randn((m, k), device=card, generator=gen).to(torch.bfloat16)
+    kernel = (dm.HALVES_GEMV if m <= 8 else dm.HALVES_GEMM)[qtype]
+    plain = getattr(dm, kernel + "_plain")
+    for out_dtype in (torch.bfloat16, torch.float32):
+        dm.reset_launches()
+        got = dm.matmul(x, qt, out_dtype).float()
+        want = plain(x, qt, out_dtype).float()
+        torch.cuda.synchronize()
+        assert dm.launches == {**dict.fromkeys(dm.launches, 0), kernel: 1}
+        assert torch.isfinite(got).all() and limit_ratio(got, want) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("recipe", ["Q4_0", "Q5_0"])
+def test_cuda_legacy_gguf_goes_through_a_b_c_and_d(card, tmp_path, recipe):
+    """A small Q4_0 (Q5_0) Qwen3 in the importance-matrix layout (8 layers:
+    layer 0's ffn_down Q4_1 / Q5_1, the head Q6_K), written and loaded as a
+    GGUF, prefills and decodes on the card: the legacy weights through
+    kernel A's and B's branches, the head through C and D, finite
+    logits."""
+    cfg = qwen3.Qwen3Config(**{**_SMALL, "n_layers": 8})
+    path = tmp_path / f"{recipe}.gguf"
+    write_qwen3_gguf(path, cfg, recipe, torch.Generator(device=card).manual_seed(0),
+                     imatrix=True)
+    params = qwen3.load_params(GGUFReader(path), device=card)
+    ctx = Context(cfg, params, qwen3.forward, qwen3.embed, n_ctx=256,
+                  sampler=SamplerParams(greedy=True), device=card)
+    dm.reset_launches()
+    logits = ctx.prefill(list(range(20)))
+    assert torch.isfinite(logits).all()
+    logits, _ = ctx.decode(Batch(tokens=[int(torch.argmax(logits))]))
+    assert torch.isfinite(logits).all()
+    low, one = recipe.lower(), recipe.lower()[:3] + "1"
+    assert dm.launches == {**dict.fromkeys(dm.launches, 0), "qgemm": 1, "q6k_gemv": 1,
+                           f"{low}_gemv": 55, f"{low}_gemm": 55,
+                           f"{one}_gemv": 1, f"{one}_gemm": 1}
 
 
 @pytest.mark.cuda

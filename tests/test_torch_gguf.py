@@ -158,7 +158,7 @@ def test_load_quantized_widens_like_jax(qtype, shape, keep):
     np.testing.assert_array_equal(got.float().numpy(), want)
 
 
-@pytest.mark.parametrize("qtype", [GGMLType.Q4_0, GGMLType.Q2_K, GGMLType.IQ4_NL],
+@pytest.mark.parametrize("qtype", [GGMLType.IQ4_XS, GGMLType.Q2_K, GGMLType.IQ4_NL],
                          ids=lambda t: t.name)
 def test_load_quantized_refuses_unported_formats(qtype):
     """The JAX package keeps these quantized; the port raises, naming the

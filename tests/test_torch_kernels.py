@@ -118,7 +118,7 @@ def test_repack_is_the_transpose_of_jax_repack(qtype, n, k):
                                   quants.dequantize(blocks, qtype, (n, k)))
 
 
-@pytest.mark.parametrize("qtype", [GGMLType.Q2_K, GGMLType.Q4_0, GGMLType.F32],
+@pytest.mark.parametrize("qtype", [GGMLType.Q2_K, GGMLType.IQ4_NL, GGMLType.F32],
                          ids=lambda t: t.name)
 def test_unported_formats_raise_naming_them(qtype):
     blocks = np.zeros((1, 256), np.float32) if qtype == GGMLType.F32 else \
@@ -254,16 +254,15 @@ def test_chip_smoke_f64_law_is_the_kernels_law(name, qtype, m):
 
 def test_cpu_dispatch_launches_no_kernel():
     dm.reset_launches()
-    for qtype in (GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K, GGMLType.Q8_0):
+    for qtype in (GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K, GGMLType.Q8_0,
+                  GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1):
         _, pqt, _ = _pair(0, qtype=qtype, k=2048)
         for m in (1, 16):
             dm.matmul(torch.from_numpy(_x(m, m, 2048)), pqt)
-    assert dm.launches == {"q4k_gemv": 0, "q4k_gemm": 0, "q5k_gemv": 0,
-                           "q5k_gemm": 0, "q6k_gemv": 0, "qgemm": 0,
-                           "q8_0_gemv": 0}
+    assert not any(dm.launches.values())
 
 
-@pytest.mark.parametrize("qtype", [GGMLType.Q4_0, GGMLType.Q5_0],
+@pytest.mark.parametrize("qtype", [GGMLType.IQ4_NL, GGMLType.Q2_K],
                          ids=lambda t: t.name)
 def test_cuda_path_raises_for_unported_formats(qtype):
     """On the card a format without a ported kernel raises, naming the TPU
@@ -365,9 +364,7 @@ def test_cuda_wrapper_launches_or_raises(qtype):
                 with pytest.raises(RuntimeError, match="nvcc"):
                     dm.matmul(torch.from_numpy(_x(0, m, k)), pqt)
     assert not any(p.called for p in mocks.values())
-    assert dm.launches == {"q4k_gemv": 0, "q4k_gemm": 0, "q5k_gemv": 0,
-                           "q5k_gemm": 0, "q6k_gemv": 0, "qgemm": 0,
-                           "q8_0_gemv": 0}
+    assert not any(dm.launches.values())
 
 
 @pytest.mark.parametrize("case", ["m_too_big", "m_too_small", "k_mismatch",
