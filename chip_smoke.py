@@ -11,7 +11,7 @@ clearly more bf16 outputs otherwise than the f64 law than its plain
 version does (`flip_limit`). It holds the dense dot of a bf16 weight
 (cuBLAS, K split into chunks) against the widened-f32 product the same
 way, and the flash-decode kernels (bf16, int8 and int4 KV cells) against
-their plain versions and the attention law in f64. Then it drives seven
+their plain versions and the attention law in f64. Then it drives these
 paths at full width and depth (all 36 layers, random weights made on the
 card from seed S, 0 by default), one model resident at a time, each through
 `OmniPipeline.stream_prefill` / `stream_decode`:
@@ -34,7 +34,13 @@ card from seed S, 0 by default), one model resident at a time, each through
    branches, prefill through kernel B's, the head through C and D;
 5. a Q8_0 Qwen3-8B GGUF (about 8.7 GB in $TMPDIR, every weight Q8_0),
    loaded the same way: decode through kernel E, prefill through D;
-6. an F16 Qwen3-8B as `load_params` loads one (dense bf16 weights made on
+6. an IQ4_NL, an IQ4_XS and an MXFP4 Qwen3-8B GGUF (about 4.8, 4.5 and
+   4.5 GB, each deleted before the next path; every weight in the
+   recipe's type, the embedding too, the head Q6_K, as the JAX quantizer
+   writes them), loaded the same way: decode through kernel E's entries
+   `iq4_nl_gemv`, `iq4_xs_gemv` and `mxfp4_gemv`, prefill through kernel
+   D's IQ4_NL, IQ4_XS and MXFP4 branches, the head through C and D;
+7. an F16 Qwen3-8B as `load_params` loads one (dense bf16 weights made on
    the card): every matmul a dense dot, no hand-written kernel; its decode
    step must allocate less than 100 MB above its starting allocation.
 For each path it checks the launches of every kernel per decode step and
@@ -45,7 +51,8 @@ distance from the same forward with every matmul's law in f64 (over N
 prompts, 3 by default; on the quantized-KV turns the plain path's
 attention is the flash kernel's plain version and the f64 path's is the
 attention law in f64). Every argmax must agree with the plain path's,
-except on the Q8_0 and F16 models, whose logits lie at that floor itself:
+except on the Q8_0, IQ4_XS, MXFP4 and F16 models, whose logits lie at that
+floor itself:
 there a row may pick another token only where both the plain path and the
 f64 path have it in a near tie (F64_FACTOR). Last it times each kernel,
 the dense dot and the flash kernels beside their bounds. One flushed line per phase, each with
@@ -111,6 +118,15 @@ LEGACY_MIN_CALLS = {"down": 4}
 # a Q8_0 weight whose K is no multiple of 256 (kernel D's ragged K step;
 # Q8_0's K granule is 32)
 ODD_K_Q8_SHAPE = (4096, 1248)
+# the codebook recipes' files (the JAX quantizer's rule): every layer weight
+# in the recipe's type (252 calls per token), the embedding too, the head
+# Q6_K; per shape, as UNFUSED_CALLS
+CODEBOOK_RECIPES = ("IQ4_NL", "IQ4_XS", "MXFP4")
+CODEBOOK_SHAPES = {nm: UNFUSED_SHAPES[nm] for nm in ("wq", "wk", "gate", "down")}
+CODEBOOK_CALLS = {"wq": 72, "wk": 72, "gate": 72, "down": 36}
+# an IQ4_NL or MXFP4 weight whose K is no multiple of 256 (their K granule
+# is 32): kernel D at every M, M = 1 included
+ODD_K_CODEBOOK_SHAPE = (4096, 1056)
 GEMV_MS = (1, 2, 3, 8)
 GEMM_MS = (64, 256)
 QGEMM_MS = (1, 64, 256)
@@ -163,6 +179,18 @@ N_PROMPTS_Q4KM = 3
 # argmax agreed with the plain path's (27 of 27 rows each; RMS ratio 1.12
 # and 1.10; NVIDIA H100 80GB HBM3, 700.00 W). So they are held as the
 # Q4_K_M model is ("f64": argmax on every row).
+# Of the codebook models, the IQ4_XS and MXFP4 ones sit at that floor (kernel
+# vs plain 3.2-5.5 % of max|logit|, as Q8_0's 3.7-4.7 % in the same call;
+# one MXFP4 row of 27 picked another token on a near tie: the plain path's
+# gap 0.043, the f64 path's margin 0.015, the band 0.59), the IQ4_NL one
+# does not (0.10-0.12 %, every argmax agreed; RMS ratio 1.14; NVIDIA H100
+# 80GB HBM3, 700.00 W). The models at the floor are those whose weights
+# have no common part (mean / RMS ~0: Q8_0, F16, MXFP4's symmetric codebook,
+# IQ4_XS's sub-scales of both signs); IQ4_NL's codebook (mean −5.9, RMS
+# 67.4: −0.088), like Q4_0's and Q5_0's offsets (−0.11, −0.054) and Q4_K's
+# mins, gives them one. So:
+CODEBOOK_AGAINST = {"IQ4_NL": "f64", "IQ4_XS": "f64_near_tie",
+                    "MXFP4": "f64_near_tie"}
 
 N_CTX, N_PREFILL, N_DECODE, N_TEACHER = 2048, 64, 128, 8
 # the flash kernels at Qwen3-8B's attention shapes (32 query heads over 8 KV
@@ -187,6 +215,8 @@ N_Q5K = 216
 N_LEGACY, N_LEGACY_MIN = 248, 4
 # unfused Qwen3-8B: 36 x (wq, wk, wv, wo, gate, up, down) + output
 N_UNFUSED = 7 * N_LAYERS + 1
+# the codebook files: the 252 layer weights in the recipe's type, 1 Q6_K head
+N_CODEBOOK = 7 * N_LAYERS
 # the F16 path's decode step may allocate this much above its start: the
 # step's activations, logits, attention scores and the split dots' f32
 # partials (16 x 151748 x 4 B = 9.7 MB at the head) are ~12 MB; a widened
@@ -229,8 +259,9 @@ KERNELS = {
                  "replaces": "omni_tpu/kernels/dequant_matmul.py:333"},
     "qgemm": {"route": "cuda", "source": "omni_tpu_torch/csrc/qgemm.cu",
               "replaces": "omni_tpu/kernels/dequant_matmul.py:103"},
-    "q8_0_gemv": {"route": "cuda", "source": "omni_tpu_torch/csrc/q8_0_gemv.cu",
-                  "replaces": "omni_tpu/kernels/dequant_matmul.py:333"},
+    **{f"{f}_gemv": {"route": "cuda", "source": "omni_tpu_torch/csrc/q8_0_gemv.cu",
+                     "replaces": "omni_tpu/kernels/dequant_matmul.py:333"}
+       for f in ("q8_0", "iq4_nl", "iq4_xs", "mxfp4")},
     "flash_decode": {"route": "cuda", "source": "omni_tpu_torch/csrc/flash_decode.cu",
                      "replaces": "omni_tpu/kernels/flash_attention.py:141"},
     "flash_decode4": {"route": "cuda", "source": "omni_tpu_torch/csrc/flash_decode.cu",
@@ -363,8 +394,9 @@ def law_f64(name: str, x, qt, out_dtype):
     import torch
 
     from omni_tpu_torch.kernels import dequant_matmul as dm
-    from omni_tpu_torch.kernels.qformats import (dequant, kquant_values,
-                                                 q4k_group_scales, q6k_group_scales)
+    from omni_tpu_torch.kernels.qformats import (dequant, int8_group_scales,
+                                                 kquant_values, q4k_group_scales,
+                                                 q6k_group_scales)
 
     f64 = torch.float64
     if name == "dense_matmul":
@@ -380,8 +412,9 @@ def law_f64(name: str, x, qt, out_dtype):
     elif name == "q6k_gemv":
         dl = q6k_group_scales(qt).to(f64).repeat_interleave(16, 1)
         out = xd @ (qt.q.to(f64) * dl).T
-    elif name == "q8_0_gemv":  # q·d is exact in f64
-        out = xd @ (qt.q.to(f64) * qt.d.to(f64).repeat_interleave(32, 1)).T
+    elif name in dm.INT8_GEMV.values():  # q·dl is exact in f64 (dl in f32)
+        dl = int8_group_scales(qt).to(f64).repeat_interleave(32, 1)
+        out = xd @ (qt.q.to(f64) * dl).T
     elif name == "qgemm":
         out = xd @ dequant(qt, torch.bfloat16).to(f64).T
     else:
@@ -956,7 +989,7 @@ def main() -> int:
                     help="prompts of each f64-law teacher-forced check (each "
                          "64 random tokens; the first ones are the default run's)")
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the five models' random weights")
+                    help="seed of the models' random weights")
     args = ap.parse_args()
     import torch
 
@@ -1045,6 +1078,24 @@ def main() -> int:
             if nm != "output":
                 legacy_weights.setdefault(fmt, {})[nm] = qt
             del qt
+    # kernel E's codebook entries and kernel D's codebook branches at every
+    # layer shape of the codebook files (kept for the times), and D at a K
+    # of whole 32-blocks but no whole 256 (IQ4_NL and MXFP4)
+    codebook_weights = {}
+    for recipe in CODEBOOK_RECIPES:
+        fmt = GGMLType[recipe]
+        codebook_weights[fmt] = {nm: synth_quant(fmt, n, k, dev, gen)
+                                 for nm, (n, k) in CODEBOOK_SHAPES.items()}
+        cases = ((dm.INT8_GEMV[fmt], GEMV_MS), ("qgemm", GEMM_MS))
+        if fmt != GGMLType.IQ4_XS:
+            codebook_weights[fmt]["odd_k"] = synth_quant(fmt, *ODD_K_CODEBOOK_SHAPE,
+                                                         dev, gen)
+        for nm, qt in codebook_weights[fmt].items():
+            for name, ms in (cases if nm != "odd_k" else (("qgemm", (1, N_PREFILL)),)):
+                for m in ms:
+                    check_kernel(name, getattr(dm, name), getattr(dm, name + "_plain"),
+                                 qt, nm, m, torch.bfloat16, gen, max_err)
+        codebook_weights[fmt].pop("odd_k", None)
     # the dense dot (cuBLAS, K split) at the F16 path's shapes, against the
     # widened-f32 product
     dense_weights = {nm: synth_dense(n, k, dev, gen)
@@ -1186,7 +1237,7 @@ def main() -> int:
         finish(f"{recipe.lower()}_imatrix_gguf", f"served-turn-{recipe.lower()}",
                launches, {**stats, **io}, tf, t0)
 
-    # ---- path 4: Q8_0 Qwen3-8B from a GGUF file (kernels E and D) ----------
+    # ---- path 5: Q8_0 Qwen3-8B from a GGUF file (kernels E and D) ----------
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         free = shutil.disk_usage(tmp).free
@@ -1212,7 +1263,36 @@ def main() -> int:
     del params, qts
     finish("q8_0_gguf", "served-turn-q8_0", launches, {**stats, **io}, tf, t0)
 
-    # ---- path 5: F16 Qwen3-8B, dense bf16 weights (no hand kernel) ---------
+    # ---- path 6: IQ4_NL, IQ4_XS and MXFP4 Qwen3-8B from GGUF files (kernel
+    # E's codebook entries, D's codebook branches, C, D) ---------------------
+    for recipe in CODEBOOK_RECIPES:
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            params, qts, io = write_and_load(cfg, recipe, dev, qwen3, tmp, args.seed)
+        fmt = GGMLType[recipe]
+        counts = [sum(w.ggml_type == t for w in qts) for t in (fmt, GGMLType.Q6_K)]
+        if counts != [N_CODEBOOK, 1] or len(qts) != N_UNFUSED:
+            raise SystemExit(f"{counts} {recipe} and Q6_K weights of {len(qts)}, "
+                             f"want {[N_CODEBOOK, 1]} of {N_UNFUSED}")
+        phase(f"gguf-{recipe.lower()}", t0,
+              f"{json.dumps(io)}; {N_CODEBOOK} {recipe} + 1 Q6_K weights, "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+        t0 = time.perf_counter()
+        rng = torch.Generator().manual_seed(0)
+        launches, stats = serve_turn(
+            f"{recipe} from GGUF", cfg, params, dev, qwen3,
+            {**zero, dm.INT8_GEMV[fmt]: N_CODEBOOK, "q6k_gemv": 1},
+            {**zero, "qgemm": N_CODEBOOK + 1, f"qgemm {recipe}": N_CODEBOOK,
+             "qgemm Q6_K": 1}, rng)
+        prompts = [torch.randint(0, 1000, (N_PREFILL,), generator=rng).numpy()
+                   for _ in range(args.prompts)]
+        tf = teacher_forced(cfg, params, dev, dm, qwen3, prompts,
+                            CODEBOOK_AGAINST[recipe])
+        del params, qts
+        finish(f"{recipe.lower()}_gguf", f"served-turn-{recipe.lower()}", launches,
+               {**stats, **io}, tf, t0)
+
+    # ---- path 7: F16 Qwen3-8B, dense bf16 weights (no hand kernel) ---------
     t0 = time.perf_counter()
     params = synth_qwen3_dense_params(
         cfg, dev, torch.Generator(device=dev).manual_seed(args.seed))
@@ -1271,7 +1351,13 @@ def main() -> int:
             name = table[fmt]
             time_kernels(name, getattr(dm, name), getattr(dm, name + "_plain"), ws,
                          ms, gen, synth, rows)
-    del weights, q6_weights, q8_weights, q5_weights, legacy_weights
+    for fmt, ws in codebook_weights.items():
+        synth = functools.partial(synth_quant, fmt)
+        time_kernels(dm.INT8_GEMV[fmt], getattr(dm, dm.INT8_GEMV[fmt]),
+                     dm.q8_0_gemv_plain, ws, GEMV_MS, gen, synth, rows)
+        time_kernels("qgemm", dm.qgemm, dm.qgemm_plain, ws, (N_PREFILL,), gen,
+                     synth, rows)
+    del weights, q6_weights, q8_weights, q5_weights, legacy_weights, codebook_weights
     torch.cuda.empty_cache()
     time_kernels("dense_matmul", dm.dense_matmul, dm.dense_matmul_plain,
                  dense_weights, (1, N_PREFILL), gen, synth_dense, rows)
@@ -1302,6 +1388,11 @@ def main() -> int:
     legacy_work.update({
         f: (f"the {N_LEGACY_MIN} {f} weights of {r} Qwen3-8B (importance-matrix "
             "layout): the down of layers 0-3") for r, f in LEGACY_RECIPES.items()})
+    codebook_work = {
+        f: (f"M={{m}}, the {N_CODEBOOK} {f} weights of {f} Qwen3-8B: 36 x (wq, wk, "
+            "wv, wo, gate, up, down)") for f in CODEBOOK_RECIPES}
+    codebook_rows = [(dm.INT8_GEMV[GGMLType[f]], f, 1, CODEBOOK_CALLS,
+                      codebook_work[f].format(m=1)) for f in CODEBOOK_RECIPES]
     legacy_rows = [
         (table[GGMLType[f]], f, m,
          LEGACY_CALLS if f in LEGACY_RECIPES else LEGACY_MIN_CALLS,
@@ -1328,7 +1419,8 @@ def main() -> int:
             ("q5k_gemm", "Q5_K", 64, Q5_CALLS, f"M=64, {q5_work}"),
             ("q6k_gemv", "Q6_K", 1, q6k_calls, q6k_work),
             ("qgemm", "Q6_K", 64, q6k_calls, q6k_work),
-            ("q8_0_gemv", "Q8_0", 1, UNFUSED_CALLS, q8_work), *legacy_rows):
+            ("q8_0_gemv", "Q8_0", 1, UNFUSED_CALLS, q8_work), *legacy_rows,
+            *codebook_rows):
         tot = summed(name, fmt, m, calls)
         entry = {"name": name, **KERNELS[name], "launches": launches[name],
                  "launches_by_path": {p: lp[name] for p, lp in launches_by_path.items()},
@@ -1338,7 +1430,14 @@ def main() -> int:
                  "planes_bound_ms": tot["planes_bound_ms"], "work": work}
         if name == "qgemm":
             entry["launches_by_format"] = {
-                f: launches[f"qgemm {f}"] for f in ("Q4_K", "Q5_K", "Q6_K", "Q8_0")}
+                f: launches[f"qgemm {f}"] for f in dm.qgemm_launches}
+            # the codebook branches: every prefill weight of their files
+            for f in CODEBOOK_RECIPES:
+                entry[f.lower()] = {**KERNELS["qgemm"],
+                                    **summed("qgemm", f, N_PREFILL, CODEBOOK_CALLS),
+                                    "launches": launches[f"qgemm {f}"],
+                                    "max_abs_err": max_err[f"qgemm {f}"],
+                                    "work": codebook_work[f].format(m=N_PREFILL)}
             entry["q8_0"] = {**summed("qgemm", "Q8_0", 64, UNFUSED_CALLS),
                              "launches": launches["qgemm Q8_0"],
                              "max_abs_err": max_err["qgemm Q8_0"], "work": q8_work}

@@ -1,10 +1,11 @@
 """Numpy dequantisers: the bit-exact oracle inside the port.
 
-A copy of the Q8_0, Q4_0, Q4_1, Q5_0, Q5_1, Q4_K, Q5_K and Q6_K paths of
-`omni_tpu/core/quants.py` (ggml-quants.c dequantize_row_q8_0 / _q4_0 /
-_q4_1 / _q5_0 / _q5_1 / _q4_K / _q5_K / _q6_K semantics), plus the widening
-of the plain float types. The effective group scale is the single f32
-product d*sc:
+A copy of the Q8_0, Q4_0, Q4_1, Q5_0, Q5_1, Q4_K, Q5_K, Q6_K, IQ4_NL,
+IQ4_XS and MXFP4 paths of `omni_tpu/core/quants.py` (ggml-quants.c
+dequantize_row_q8_0 / _q4_0 / _q4_1 / _q5_0 / _q5_1 / _q4_K / _q5_K /
+_q6_K / _iq4_nl / _iq4_xs / _mxfp4 semantics), plus the widening of the
+plain float types. The effective group scale is the single f32 product
+d*sc:
 - Q8_0: w = q*d per 32-element block (34 bytes: f16 d, then 32 int8 q);
 - Q4_0: w = (q - 8)*d per 32-element block (18 bytes: f16 d, then 16
   bytes whose low nibbles are elements 0..15 and high nibbles 16..31);
@@ -15,7 +16,16 @@ product d*sc:
 - Q4_K: w = q*(d*sc) - dmin*mn per 32-element group, q in 0..15;
 - Q5_K: the same with q in 0..31, its high bit from a 32-byte plane (176
   bytes: f16 d, f16 dmin, 12 bytes of scales, qh[32], then the nibbles);
-- Q6_K: w = (d*sc)*(q - 32) per 16-element group, q in 0..63.
+- Q6_K: w = (d*sc)*(q - 32) per 16-element group, q in 0..63;
+- IQ4_NL: w = d*kv[i] per 32-element block, kv the 16-entry non-linear
+  codebook, i a nibble (18 bytes: f16 d, then 16 bytes whose low nibbles
+  are elements 0..15 and high nibbles 16..31);
+- IQ4_XS: w = (d*(ls - 32))*kv[i] per 32-element group of a 256-element
+  superblock, ls a 6-bit scale: 4 low bits from scales_l, 2 high bits from
+  the u16 scales_h (136 bytes: f16 d, scales_h, scales_l[4], the nibbles);
+- MXFP4: w = d*kv[i] per 32-element block with the e2m1 codebook
+  pre-doubled and d = 2^(e - 128) from an e8m0 exponent byte (17 bytes: e,
+  then the nibbles); d is subnormal in f32 for e = 0 and 1.
 """
 
 from __future__ import annotations
@@ -149,10 +159,60 @@ def _deq_q6_k(b: np.ndarray) -> np.ndarray:
     return (dl * q.reshape(n, 16, 16)).reshape(n, QK_K)
 
 
+# the IQ4 codebook (ggml-common.h kvalues_iq4nl)
+_IQ4NL_KVALUES = np.array(
+    [-127, -104, -83, -65, -49, -35, -22, -10, 1, 13, 25, 38, 53, 69, 89, 113],
+    np.int8)
+
+
+def _deq_iq4_nl(b: np.ndarray) -> np.ndarray:
+    d = _f16(b[:, :2])
+    idx = _split_nibbles(b[:, 2:], 16).astype(np.int64)
+    return d * _IQ4NL_KVALUES[idx].astype(np.float32)
+
+
+def _deq_iq4_xs(b: np.ndarray) -> np.ndarray:
+    n = b.shape[0]
+    d = _f16(b[:, :2])
+    sh = b[:, 2:4].copy().view("<u2").astype(np.uint32)  # [n, 1]
+    lo4 = _split_nibbles(b[:, 4:4 + QK_K // 64], 1)  # [n, 8] group low bits
+    hi2 = ((sh >> (2 * np.arange(QK_K // 32, dtype=np.uint32)[None, :]))
+           & np.uint32(3)).astype(np.uint8)
+    scales = (lo4 | (hi2 << np.uint8(4))).astype(np.int16) - 32  # [n, 8]
+    dl = d * scales.astype(np.float32)  # [n, 8]
+    idx = _split_nibbles(b[:, 4 + QK_K // 64:].reshape(n * (QK_K // 32), 16),
+                         16).astype(np.int64)  # per-32-group element order
+    vals = _IQ4NL_KVALUES[idx].astype(np.float32).reshape(n, QK_K // 32, 32)
+    return (dl[:, :, None] * vals).reshape(n, QK_K)
+
+
+# MXFP4's e2m1 codebook, pre-doubled so that the e8m0 scale drops one
+# exponent step (ggml-impl.h ggml_e8m0_to_fp32_half)
+_MXFP4_KVALUES = np.array(
+    [0, 1, 2, 3, 4, 6, 8, 12, 0, -1, -2, -3, -4, -6, -8, -12], dtype=np.float32)
+
+
+def _e8m0_half(e: np.ndarray) -> np.ndarray:
+    """e8m0 exponent byte -> 2^(e-127)/2 as f32, built from its bits
+    (subnormal below e = 2)."""
+    e = e.astype(np.uint32)
+    bits = np.where(e < 2, np.uint32(0x0020_0000) << e,
+                    (e - np.uint32(1)) << np.uint32(23))
+    return bits.view(np.float32)
+
+
+def _deq_mxfp4(b: np.ndarray) -> np.ndarray:
+    d = _e8m0_half(b[:, :1])
+    idx = _split_nibbles(b[:, 1:], 16).astype(np.int64)
+    return d * _MXFP4_KVALUES[idx]
+
+
 _DEQUANT = {GGMLType.Q8_0: _deq_q8_0, GGMLType.Q4_0: _deq_q4_0,
             GGMLType.Q4_1: _deq_q4_1, GGMLType.Q5_0: _deq_q5_0,
             GGMLType.Q5_1: _deq_q5_1, GGMLType.Q4_K: _deq_q4_k,
-            GGMLType.Q5_K: _deq_q5_k, GGMLType.Q6_K: _deq_q6_k}
+            GGMLType.Q5_K: _deq_q5_k, GGMLType.Q6_K: _deq_q6_k,
+            GGMLType.IQ4_NL: _deq_iq4_nl, GGMLType.IQ4_XS: _deq_iq4_xs,
+            GGMLType.MXFP4: _deq_mxfp4}
 
 
 def dequantize(blocks: np.ndarray, ggml_type: GGMLType | int,

@@ -1,13 +1,16 @@
 // qgemm: out[m, n] = sum_k bf16(x)[m, k] * bf16(dequant(W))[n, k], any M,
-// W in Q4_K, Q5_K, Q6_K or Q8_0 — the generic fused dequant x matmul.
+// W in Q4_K, Q5_K, Q6_K, Q8_0, IQ4_NL, IQ4_XS or MXFP4 — the generic fused
+// dequant x matmul.
 //
 // Replaces omni_tpu/kernels/dequant_matmul.py::qmatmul_pallas (:103, body
 // _make_kernel :55-76, law qformats.dequant_tile :289-360) for Q4_K, Q5_K,
-// Q6_K and Q8_0. On a Q4_K_M or Q5_K_M checkpoint it runs the prefill
-// (M > 8) of the Q6_K tensors (attn_v and ffn_down on the promoted layers,
-// the output head), and every Q4_K or Q5_K weight whose K is not a multiple
-// of 2048, at any M. On a Q8_0 checkpoint it runs the prefill of every
-// weight, and any Q8_0 weight whose K is not a multiple of 256.
+// Q6_K, Q8_0, IQ4_NL, IQ4_XS and MXFP4. On a Q4_K_M or Q5_K_M checkpoint it
+// runs the prefill (M > 8) of the Q6_K tensors (attn_v and ffn_down on the
+// promoted layers, the output head), and every Q4_K or Q5_K weight whose K
+// is not a multiple of 2048, at any M. On a Q8_0, IQ4_NL, IQ4_XS or MXFP4
+// checkpoint it runs the prefill of every weight, and any Q8_0, IQ4_NL or
+// MXFP4 weight whose K is not a multiple of 256 (any IQ4_XS one whose K is
+// not a multiple of 2048), at any M.
 //
 // The law is the TPU kernel's: each weight element is dequantised in f32
 // and rounded once to bf16, then multiplied against bf16 x with f32
@@ -18,7 +21,14 @@
 // - Q5_K: the same with q = nibble + 16 * bit (0..31), the bit from the
 //   plane qh u8 [N, K/8] (decoded by kquant.cuh);
 // - Q6_K: w = bf16((q - 32) * dl), dl = d * sc per 16-group;
-// - Q8_0: w = bf16(q * d), d per 32-group.
+// - Q8_0: w = bf16(q * d), d per 32-group;
+// - IQ4_NL and MXFP4: the same on their int8 value planes (the codebook
+//   applied at load; MXFP4's d = 2^(e - 128) may be subnormal, and the
+//   default build keeps subnormals: no -ftz, no fast math);
+// - IQ4_XS: w = bf16(q * dl), dl = d * sc per 32-group formed first in f32
+//   (d per 256, sc the int8 sub-scale), in dequant_tile's order (d holds an
+//   f16's 11 significant bits, q and sc 7 and 6: both f32 products are
+//   exact, and the cast to bf16 is the one rounding).
 // The products and the difference are rounded one at a time (__fmul_rn,
 // __fsub_rn: no fused multiply-add), so the bf16 weights equal the plain
 // version's bit for bit.
@@ -28,8 +38,9 @@
 // bytes. This first version is simple and right rather than fast:
 // - a 2-D grid of 64 x 64 output tiles, 4 warps, each a 32 x 32 sub-tile of
 //   2 x 2 WMMA m16n16k16 bf16 products with f32 accumulators;
-// - per K step of 256 elements (one superblock; for Q8_0, eight 32-blocks,
-//   the last step ragged where K % 256 != 0, its missing chunks staged as
+// - per K step of 256 elements (one superblock; for Q8_0, IQ4_NL and MXFP4,
+//   eight 32-blocks, the last step ragged where K % 256 != 0, its missing
+//   chunks staged as
 //   zeros in x and w), the x tile [64, 256] (cp.async)
 //   and the weight tile [64, 256], dequantised on the way in by the
 //   format's own device function, are staged in shared memory; every
@@ -54,7 +65,11 @@ namespace {
 
 using namespace nvcuda;
 
-constexpr int kQ8_0 = 8, kQ4K = 12, kQ5K = 13, kQ6K = 14;  // GGML type ids
+// GGML type ids
+constexpr int kQ8_0 = 8, kQ4K = 12, kQ5K = 13, kQ6K = 14, kIQ4NL = 20, kIQ4XS = 23,
+              kMXFP4 = 39;
+// the formats with an int8 value plane and one scale per 32 elements
+constexpr bool int8_plane(int qt) { return qt == kQ8_0 || qt == kIQ4NL || qt == kMXFP4; }
 constexpr int BM = 64, BN = 64, BK = 256;
 constexpr int LD = BK + 8;   // bf16 row pitch of the staged tiles
 constexpr int LDC = BN + 4;  // f32 row pitch of the epilogue tile
@@ -205,15 +220,19 @@ __device__ __forceinline__ void stage_w_q6k(const Planes& p, __nv_bfloat16* ws_t
   }
 }
 
-// Q8_0 weight tile of K step s: BN rows x 16 chunks of 16 int8 values;
-// chunk c is half of 32-group s*8 + c/2, elements s*256 + 16c... Chunks past
-// K (K % 32 == 0, so a chunk is wholly in or out) and rows past N are zero.
-__device__ __forceinline__ void stage_w_q8_0(const Planes& p, __nv_bfloat16* ws_t,
+// Int8-plane weight tile of K step s: BN rows x 16 chunks of 16 int8
+// values; chunk c is half of 32-group s*8 + c/2, elements s*256 + 16c...
+// Chunks past K (K % 32 == 0, so a chunk is wholly in or out) and rows past
+// N are zero. The group scale is d (Q8_0, IQ4_NL, MXFP4) or, kSub (IQ4_XS,
+// K % 256 == 0), dl = d[superblock s] * sc[group], rounded once.
+template <bool kSub>
+__device__ __forceinline__ void stage_w_int8(const Planes& p, __nv_bfloat16* ws_t,
                                              int n0, int N, int K, int s, int tid) {
   constexpr int kLoads = BN * 16 / kThreads;
   const int n_groups = K >> 5;
   uint4 qv[kLoads];
   float dv[kLoads];
+  int scv[kLoads];
 #pragma unroll
   for (int i = 0; i < kLoads; ++i) {
     const int idx = tid + kThreads * i;
@@ -222,16 +241,23 @@ __device__ __forceinline__ void stage_w_q8_0(const Planes& p, __nv_bfloat16* ws_
     const int k0 = s * BK + c * 16;
     qv[i] = make_uint4(0, 0, 0, 0);
     dv[i] = 0.f;
+    scv[i] = 0;
     if (gn < N && k0 < K) {
       const int8_t* qrow = static_cast<const int8_t*>(p.q) + (size_t)gn * K;
       qv[i] = __ldg(reinterpret_cast<const uint4*>(qrow + k0));
-      dv[i] = __ldg(p.d + (size_t)gn * n_groups + (k0 >> 5));
+      if constexpr (kSub) {
+        dv[i] = __ldg(p.d + (size_t)gn * (K >> 8) + s);
+        scv[i] = __ldg(p.sc + (size_t)gn * n_groups + (k0 >> 5));
+      } else {
+        dv[i] = __ldg(p.d + (size_t)gn * n_groups + (k0 >> 5));
+      }
     }
   }
 #pragma unroll
   for (int i = 0; i < kLoads; ++i) {
     const int idx = tid + kThreads * i;
     const int r = idx >> 4, c = idx & 15;
+    if constexpr (kSub) dv[i] = __fmul_rn(dv[i], (float)scv[i]);  // 0 past N
     const uint32_t w32[4] = {qv[i].x, qv[i].y, qv[i].z, qv[i].w};
     uint32_t wv[8];
 #pragma unroll
@@ -260,7 +286,7 @@ qgemm_kernel(const __nv_bfloat16* __restrict__ x, Planes p, void* __restrict__ o
   const int warp = tid >> 5;
   const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int n_steps = (K + BK - 1) / BK;  // whole superblocks but for Q8_0
+  const int n_steps = (K + BK - 1) / BK;  // whole superblocks but for int8_plane
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
 #pragma unroll
@@ -285,7 +311,7 @@ qgemm_kernel(const __nv_bfloat16* __restrict__ x, Planes p, void* __restrict__ o
     else if constexpr (QT == kQ6K)
       stage_w_q6k(p, ws_t, n0, N, K, s, tid);
     else
-      stage_w_q8_0(p, ws_t, n0, N, K, s, tid);
+      stage_w_int8<QT == kIQ4XS>(p, ws_t, n0, N, K, s, tid);
     cp_async_wait_all();
     __syncthreads();
     // this superblock's products in fresh accumulators, then added to the
@@ -349,9 +375,9 @@ qgemm_kernel(const __nv_bfloat16* __restrict__ x, Planes p, void* __restrict__ o
 template <int QT>
 int launch(const void* x, Planes p, void* out, int m, int n, int k, int out_f32,
            void* stream) {
-  constexpr int granule = QT == kQ8_0 ? 32 : 256;  // K multiple of the planes
+  constexpr int granule = int8_plane(QT) ? 32 : 256;  // K multiple of the planes
   if (m < 1 || n < 1 || k < granule || k % granule != 0 || (m + BM - 1) / BM > 65535 ||
-      (QT == kQ5K && p.qh == nullptr))
+      (QT == kQ5K && p.qh == nullptr) || (QT == kIQ4XS && p.sc == nullptr))
     return (int)cudaErrorInvalidValue;
   static bool attr_set = false;
   if (!attr_set) {
@@ -369,8 +395,8 @@ int launch(const void* x, Planes p, void* out, int m, int n, int k, int out_f32,
 }  // namespace
 
 // One entry point per format, each with the signature of the other kernels;
-// the planes a format lacks are unused (Q4_K: qh; Q6_K: mn, dm, qh; Q8_0:
-// all but q and d). Each returns the first CUDA error of the attribute call
+// the planes a format lacks are unused (Q4_K: qh; Q6_K: mn, dm, qh; Q8_0,
+// IQ4_NL, MXFP4: all but q and d; IQ4_XS: mn, dm, qh). Each returns the first CUDA error of the attribute call
 // or the launch (0 = launched).
 #define QGEMM_ENTRY(NAME, QT)                                                      \
   extern "C" int NAME(const void* x, const void* q, const void* sc, const void* mn, \
@@ -386,3 +412,6 @@ QGEMM_ENTRY(qgemm_q4k, kQ4K)
 QGEMM_ENTRY(qgemm_q5k, kQ5K)
 QGEMM_ENTRY(qgemm_q6k, kQ6K)
 QGEMM_ENTRY(qgemm_q8_0, kQ8_0)
+QGEMM_ENTRY(qgemm_iq4_nl, kIQ4NL)
+QGEMM_ENTRY(qgemm_iq4_xs, kIQ4XS)
+QGEMM_ENTRY(qgemm_mxfp4, kMXFP4)

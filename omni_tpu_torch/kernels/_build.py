@@ -43,9 +43,11 @@ SOURCES = {
         ("q4k_gemm", "q5k_gemm", "q4_0_gemm", "q4_1_gemm", "q5_0_gemm",
          "q5_1_gemm"), MATMUL_ARGS),
     "q6k_gemv.cu": {"q6k_gemv": MATMUL_ARGS},
-    "q8_0_gemv.cu": {"q8_0_gemv": MATMUL_ARGS},
-    "qgemm.cu": dict.fromkeys(("qgemm_q4k", "qgemm_q5k", "qgemm_q6k", "qgemm_q8_0"),
-                              MATMUL_ARGS),
+    "q8_0_gemv.cu": dict.fromkeys(
+        ("q8_0_gemv", "iq4_nl_gemv", "mxfp4_gemv", "iq4_xs_gemv"), MATMUL_ARGS),
+    "qgemm.cu": dict.fromkeys(
+        ("qgemm_q4k", "qgemm_q5k", "qgemm_q6k", "qgemm_q8_0", "qgemm_iq4_nl",
+         "qgemm_iq4_xs", "qgemm_mxfp4"), MATMUL_ARGS),
     "flash_decode.cu": dict.fromkeys(
         ("flash_decode_bf16", "flash_decode_i8", "flash_decode_i4"), FLASH_ARGS)}
 

@@ -8,14 +8,21 @@ dispatcher chooses its Pallas kernel (`matmul`, dequant_matmul.py:665-672):
   Q4_K, kernel G `q5k_gemv` for Q5_K (A's template with the high bit),
   A's legacy branches `q4_0_gemv`, `q4_1_gemv`, `q5_0_gemv` and
   `q5_1_gemv` (a scale per 32 in place of d·sc), kernel C `q6k_gemv` for
-  Q6_K, kernel E `q8_0_gemv` for Q8_0 (all replace qmatmul_gp_pallas);
+  Q6_K, kernel E `q8_0_gemv` for Q8_0, and E's entries `iq4_nl_gemv`,
+  `mxfp4_gemv` (E's device code: the same int8 value plane and per-32
+  scale) and `iq4_xs_gemv` (dl = d·sc per 32) for the codebook formats
+  (all replace qmatmul_gp_pallas; IQ4_XS, with one d per 256, needs
+  K % 2048 as the K-quants do);
 - `sh_supported` (M > 8, the halves-packed formats Q4_K, Q5_K, Q4_0,
   Q4_1, Q5_0 and Q5_1 at the same K multiples): kernel B `q4k_gemm`, and
   its branches `q5k_gemm`, `q4_0_gemm`, `q4_1_gemm`, `q5_0_gemm` and
   `q5_1_gemm` (replace qmatmul_splith_pallas);
-- every other Q4_K, Q5_K, Q6_K or Q8_0 weight, at any M: kernel D `qgemm`,
-  the generic dequant-GEMM (replaces qmatmul_pallas; its launches of every
-  format count under "qgemm", and each format's also in `qgemm_launches`).
+- every other Q4_K, Q5_K, Q6_K, Q8_0, IQ4_NL, IQ4_XS or MXFP4 weight, at
+  any M: kernel D `qgemm`, the generic dequant-GEMM (replaces
+  qmatmul_pallas; its launches of every format count under "qgemm", and
+  each format's also in `qgemm_launches`). That is every prefill (M > 8)
+  of a codebook weight, and an IQ4_NL or MXFP4 weight with K % 256 != 0
+  (their granule is 32) or an IQ4_XS one with K % 2048 != 0 at any M.
 A legacy weight never reaches kernel D: its planes need K % 256 == 0, and
 the load policy widens any other to bf16, as the JAX package's does.
 Other formats raise NotImplementedError on the card, naming the TPU
@@ -37,14 +44,16 @@ from __future__ import annotations
 import torch
 
 from ..core.dtypes import GGMLType
-from .qformats import (LEGACY, PLANES, QTensor, check_qtensor, dequant,
-                       kquant_values, q4k_group_scales, q6k_group_scales)
+from .qformats import (CODEBOOK, LEGACY, PLANES, QTensor, check_qtensor,
+                       dequant, int8_group_scales, kquant_values,
+                       q4k_group_scales, q6k_group_scales)
 
 GP_MAX_M = 8  # decode rows kernels A, C, E and G take (the TPU's _GP_MAX_M)
 # the K multiple of the gp and sh paths per format (the TPU kernels'
 # `_gp_min_tk`: 2048 where a plane has one row per 256 elements, else 256)
 GP_MIN_K = {GGMLType.Q4_K: 2048, GGMLType.Q5_K: 2048, GGMLType.Q6_K: 2048,
-            GGMLType.Q8_0: 256, **dict.fromkeys(LEGACY, 256)}
+            GGMLType.Q8_0: 256, **dict.fromkeys(LEGACY, 256),
+            GGMLType.IQ4_NL: 256, GGMLType.MXFP4: 256, GGMLType.IQ4_XS: 2048}
 # the name of kernel A's (M = 1..8) and kernel B's (M > 8) wrapper and C
 # entry point for each halves-packed format
 HALVES_GEMV = {GGMLType.Q4_K: "q4k_gemv", GGMLType.Q5_K: "q5k_gemv",
@@ -52,15 +61,21 @@ HALVES_GEMV = {GGMLType.Q4_K: "q4k_gemv", GGMLType.Q5_K: "q5k_gemv",
 HALVES_GEMM = {GGMLType.Q4_K: "q4k_gemm", GGMLType.Q5_K: "q5k_gemm",
                **{t: f"{t.name.lower()}_gemm" for t in LEGACY}}
 
+# the name of kernel E's wrapper and C entry point for each int8-plane
+# format (M = 1..8)
+INT8_GEMV = {GGMLType.Q8_0: "q8_0_gemv",
+             **{t: f"{t.name.lower()}_gemv" for t in CODEBOOK}}
+
 # kernel launches, one count per wrapper; a run resets and reads them
 launches = dict.fromkeys([*HALVES_GEMV.values(), *HALVES_GEMM.values(),
-                          "q6k_gemv", "qgemm", "q8_0_gemv"], 0)
-# kernel D's launches per format (their sum is launches["qgemm"])
-qgemm_launches = {"Q4_K": 0, "Q5_K": 0, "Q6_K": 0, "Q8_0": 0}
+                          "q6k_gemv", "qgemm", *INT8_GEMV.values()], 0)
 
 # the C entry point of kernel D for each format
 _QGEMM_ENTRY = {GGMLType.Q4_K: "qgemm_q4k", GGMLType.Q5_K: "qgemm_q5k",
-                GGMLType.Q6_K: "qgemm_q6k", GGMLType.Q8_0: "qgemm_q8_0"}
+                GGMLType.Q6_K: "qgemm_q6k", GGMLType.Q8_0: "qgemm_q8_0",
+                **{t: f"qgemm_{t.name.lower()}" for t in CODEBOOK}}
+# kernel D's launches per format (their sum is launches["qgemm"])
+qgemm_launches = {t.name: 0 for t in _QGEMM_ENTRY}
 
 
 def reset_launches() -> None:
@@ -207,22 +222,29 @@ def q8_0_gemv_plain(x: torch.Tensor, qt: QTensor,
                     out_dtype=torch.bfloat16) -> torch.Tensor:
     """Kernel E's law in plain PyTorch (the int8-plane group law of
     qmatmul_gp_pallas, `_gp_slice`): per 32-group P = x_bf16 · q, exact
-    products summed in f32, then out = Σ_g d·P, all in f32."""
+    products summed in f32, then out = Σ_g dl·P, all in f32; dl = d (Q8_0,
+    IQ4_NL, MXFP4) or the f32 product d·sc (IQ4_XS), as
+    `int8_group_scales` gives it."""
     m, k = x.shape
     n = qt.shape[0]
     g = k // 32
     xb = x.to(torch.bfloat16).to(torch.float32).reshape(m, g, 32)
     q = qt.q.to(torch.float32).reshape(n, g, 32)
     p = torch.einsum("mgk,ngk->mng", xb, q)  # [M, N, G]
-    return (qt.d[None] * p).sum(-1).to(out_dtype)
+    return (int8_group_scales(qt)[None] * p).sum(-1).to(out_dtype)
+
+
+# the codebook entries' law is kernel E's: the values are int8, exact in
+# bf16, and only IQ4_XS's dl differs
+iq4_nl_gemv_plain = mxfp4_gemv_plain = iq4_xs_gemv_plain = q8_0_gemv_plain
 
 
 def qgemm_plain(x: torch.Tensor, qt: QTensor,
                 out_dtype=torch.bfloat16) -> torch.Tensor:
     """Kernel D's law in plain PyTorch (qmatmul_pallas with dequant_tile):
     each weight dequantised in f32 and rounded once to bf16 (uncentered for
-    Q4_K and Q5_K: bf16(q·dl − ml); bf16(q·d) for Q8_0), then a dot with
-    bf16 x in f32."""
+    Q4_K and Q5_K: bf16(q·dl − ml); bf16(q·d) for Q8_0, IQ4_NL and MXFP4;
+    bf16(q·(d·sc)) for IQ4_XS), then a dot with bf16 x in f32."""
     w = dequant(qt, torch.bfloat16).to(torch.float32)
     return (x.to(torch.bfloat16).to(torch.float32) @ w.T).to(out_dtype)
 
@@ -284,19 +306,35 @@ def q6k_gemv(x: torch.Tensor, qt: QTensor,
     return _run("q6k_gemv", "q6k_gemv", q6k_gemv_plain, x, qt, out_dtype)
 
 
-def q8_0_gemv(x: torch.Tensor, qt: QTensor,
-              out_dtype=torch.bfloat16) -> torch.Tensor:
-    """Kernel E (replaces qmatmul_gp_pallas for Q8_0): M = 1..8, K % 32."""
-    _check(x, qt, out_dtype, GGMLType.Q8_0)
-    _check_gemv_m("q8_0_gemv", x)
-    return _run("q8_0_gemv", "q8_0_gemv", q8_0_gemv_plain, x, qt, out_dtype)
+def _int8_gemv(t: GGMLType, what: str, ks: str):
+    """The wrapper of kernel E's entry for int8-plane format `t`
+    (M = 1..8), named as its C entry point."""
+    name = INT8_GEMV[t]
+
+    def wrapper(x: torch.Tensor, qt: QTensor,
+                out_dtype=torch.bfloat16) -> torch.Tensor:
+        _check(x, qt, out_dtype, t)
+        _check_gemv_m(name, x)
+        return _run(name, name, q8_0_gemv_plain, x, qt, out_dtype)
+
+    wrapper.__name__ = wrapper.__qualname__ = name
+    wrapper.__doc__ = (f"{what} (replaces qmatmul_gp_pallas for {t.name}): "
+                       f"M = 1..8, {ks}.")
+    return wrapper
+
+
+q8_0_gemv = _int8_gemv(GGMLType.Q8_0, "Kernel E", "K % 32")
+iq4_nl_gemv = _int8_gemv(GGMLType.IQ4_NL, "Kernel E's IQ4_NL entry", "K % 32")
+mxfp4_gemv = _int8_gemv(GGMLType.MXFP4, "Kernel E's MXFP4 entry", "K % 32")
+iq4_xs_gemv = _int8_gemv(GGMLType.IQ4_XS, "Kernel E's IQ4_XS branch", "K % 256")
 
 
 def qgemm(x: torch.Tensor, qt: QTensor,
           out_dtype=torch.bfloat16) -> torch.Tensor:
-    """Kernel D (replaces qmatmul_pallas for Q4_K, Q5_K, Q6_K and Q8_0): any M,
-    any K that holds whole blocks of the format's granule (256 for the
-    K-quants, 32 for Q8_0)."""
+    """Kernel D (replaces qmatmul_pallas for Q4_K, Q5_K, Q6_K, Q8_0, IQ4_NL,
+    IQ4_XS and MXFP4): any M, any K that holds whole blocks of the format's
+    granule (256 for the K-quants and IQ4_XS, 32 for Q8_0, IQ4_NL and
+    MXFP4)."""
     _check(x, qt, out_dtype, *_QGEMM_ENTRY)
     return _run("qgemm", _QGEMM_ENTRY[qt.ggml_type], qgemm_plain, x, qt,
                 out_dtype)
@@ -305,7 +343,9 @@ def qgemm(x: torch.Tensor, qt: QTensor,
 _GEMV = {GGMLType.Q4_K: q4k_gemv, GGMLType.Q5_K: q5k_gemv,
          GGMLType.Q4_0: q4_0_gemv, GGMLType.Q4_1: q4_1_gemv,
          GGMLType.Q5_0: q5_0_gemv, GGMLType.Q5_1: q5_1_gemv,
-         GGMLType.Q6_K: q6k_gemv, GGMLType.Q8_0: q8_0_gemv}
+         GGMLType.Q6_K: q6k_gemv, GGMLType.Q8_0: q8_0_gemv,
+         GGMLType.IQ4_NL: iq4_nl_gemv, GGMLType.IQ4_XS: iq4_xs_gemv,
+         GGMLType.MXFP4: mxfp4_gemv}
 _GEMM = {GGMLType.Q4_K: q4k_gemm, GGMLType.Q5_K: q5k_gemm,
          GGMLType.Q4_0: q4_0_gemm, GGMLType.Q4_1: q4_1_gemm,
          GGMLType.Q5_0: q5_0_gemm, GGMLType.Q5_1: q5_1_gemm}
@@ -387,9 +427,9 @@ def matmul(x: torch.Tensor, w, out_dtype=torch.bfloat16) -> torch.Tensor:
                 f"no CUDA kernel for {GGMLType(w.ggml_type).name} at M = "
                 f"{x.shape[0]}, K = {w.shape[1]}: qmatmul_pallas (the generic "
                 "fused dequant x matmul, omni_tpu/kernels/dequant_matmul.py:103)"
-                " is ported for Q4_K, Q5_K, Q6_K and Q8_0 only, "
-                "qmatmul_gp_pallas (:333) for those and Q4_0, Q4_1, Q5_0 and "
-                "Q5_1, and qmatmul_splith_pallas (:565) for Q4_K, Q5_K, Q4_0, "
-                "Q4_1, Q5_0 and Q5_1")
+                " is ported for Q4_K, Q5_K, Q6_K, Q8_0, IQ4_NL, IQ4_XS and "
+                "MXFP4 only, qmatmul_gp_pallas (:333) for those and Q4_0, "
+                "Q4_1, Q5_0 and Q5_1, and qmatmul_splith_pallas (:565) for "
+                "Q4_K, Q5_K, Q4_0, Q4_1, Q5_0 and Q5_1")
         return kernel(x.to(torch.bfloat16).contiguous(), w, out_dtype)
     return dense_matmul(x, w, out_dtype)

@@ -40,10 +40,23 @@ K-quants' q and qh planes, a scale per 32 instead of d·sc):
                      Q5_K's
 Q4_0 and Q5_0 dequantise as (q − 8)·d and (q − 16)·d.
 
+IQ4_NL, IQ4_XS and MXFP4 planes (the codebook formats, as the JAX package
+keeps them: the 16-entry codebook applied at load, int8 VALUE planes):
+- q  int8 [N, K]     the codebook value, element order (IQ4_NL and IQ4_XS
+                     -127..113; MXFP4 the e2m1 values pre-doubled,
+                     0, ±1, ±2, ±3, ±4, ±6, ±8, ±12)
+- d  f32  [N, K/32]  IQ4_NL: the block's f16 d, widened; MXFP4: 2^(e − 128)
+                     built from the e8m0 byte's bits (subnormal for e < 2)
+IQ4_XS has Q8_0's q plane, and
+- sc int8 [N, K/32]  the 6-bit group scale minus 32, in −32..31
+- d  f32  [N, K/256] the superblock's f16 d, widened
+IQ4_NL and MXFP4 dequantise as Q8_0 does (q·d), IQ4_XS as q·(d·sc), the
+f32 product d·sc formed first.
+
 `repack` builds these planes from GGUF block bytes ON THE DEVICE, as torch
 ops on the uploaded blocks: a host pass over a 5 GB checkpoint would take
-minutes. Only Q8_0, Q4_0, Q4_1, Q5_0, Q5_1, Q4_K, Q5_K and Q6_K have
-planes, dequantisers and kernels in the port so far.
+minutes. Only Q8_0, Q4_0, Q4_1, Q5_0, Q5_1, Q4_K, Q5_K, Q6_K, IQ4_NL,
+IQ4_XS and MXFP4 have planes, dequantisers and kernels in the port so far.
 """
 
 from __future__ import annotations
@@ -59,14 +72,16 @@ from ..core.dtypes import QK_K, GGMLType, type_traits
 PLANES = ("q", "sc", "mn", "d", "dm", "qh")
 # the 32-element legacy formats, whose q plane is the K-quants' halves
 LEGACY = (GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1)
+# the codebook formats, whose q plane holds int8 values
+CODEBOOK = (GGMLType.IQ4_NL, GGMLType.IQ4_XS, GGMLType.MXFP4)
 QUANTIZED = (GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K, GGMLType.Q8_0,
-             *LEGACY)
+             *LEGACY, *CODEBOOK)
 # the formats whose values carry a fifth bit from the qh plane
 FIVE_BIT = (GGMLType.Q5_K, GGMLType.Q5_0, GGMLType.Q5_1)
 # int8 value planes with one scale per 32 elements need only whole 32-blocks
 # in K; the packed K-quant planes need whole 256-superblocks (the JAX
 # package's tile_granule)
-_INT8_PLANE = (GGMLType.Q8_0,)
+_INT8_PLANE = (GGMLType.Q8_0, GGMLType.IQ4_NL, GGMLType.MXFP4)
 
 
 def tile_granule(t: GGMLType) -> int:
@@ -98,8 +113,11 @@ class QTensor:
 
 def plane_specs(t: GGMLType, n: int, k: int) -> dict[str, tuple[tuple, torch.dtype]]:
     """The planes of an [n, k] weight of type `t`: name -> (shape, dtype)."""
-    if t == GGMLType.Q8_0:
+    if t in _INT8_PLANE:
         return {"q": ((n, k), torch.int8), "d": ((n, k // 32), torch.float32)}
+    if t == GGMLType.IQ4_XS:
+        return {"q": ((n, k), torch.int8), "sc": ((n, k // 32), torch.int8),
+                "d": ((n, k // QK_K), torch.float32)}
     if t in (GGMLType.Q4_K, GGMLType.Q5_K):
         specs = {"q": ((n, k // 2), torch.uint8), "sc": ((n, k // 32), torch.int8),
                  "mn": ((n, k // 32), torch.int8),
@@ -201,11 +219,21 @@ def q6k_group_scales(qt: QTensor) -> torch.Tensor:
     return _expand(qt.d, 16) * qt.sc.to(torch.float32)
 
 
+def int8_group_scales(qt: QTensor) -> torch.Tensor:
+    """Per-32-group dl as f32 [N, K/32] of a weight with an int8 value
+    plane, w = q·dl: d for Q8_0, IQ4_NL and MXFP4; the f32 product d·sc for
+    IQ4_XS (the reference's and `_gp_slice`'s dl)."""
+    if qt.ggml_type == GGMLType.IQ4_XS:
+        return _expand(qt.d, 8) * qt.sc.to(torch.float32)
+    return qt.d
+
+
 def dequant(qt: QTensor, dtype=torch.float32) -> torch.Tensor:
     """Full dequantization -> logical [N, K] (bit-exact with the reference
     in f32): the law of `dequant_tile`, rounded once to `dtype`."""
-    if qt.ggml_type == GGMLType.Q8_0:
-        return (qt.q.to(torch.float32) * _expand(qt.d, 32)).to(dtype)
+    if qt.ggml_type in (*_INT8_PLANE, GGMLType.IQ4_XS):
+        return (qt.q.to(torch.float32) * _expand(int8_group_scales(qt), 32)
+                ).to(dtype)
     if qt.ggml_type in (GGMLType.Q4_K, GGMLType.Q5_K):
         q = kquant_values(qt).to(torch.float32)
         dl, ml = q4k_group_scales(qt)
@@ -275,6 +303,8 @@ def repack(blocks: torch.Tensor, ggml_type: GGMLType,
         h = (q & 0xF).reshape(n, k // QK_K, 2, 128)
         return QTensor(t, (n, k), q=(h[:, :, 0] | (h[:, :, 1] << 4)).reshape(n, k // 2),
                        sc=None, mn=None, d=d, dm=m, qh=qh)
+    if t in CODEBOOK:
+        return _codebook_repack(blocks, t, n, k)
     if t == GGMLType.Q8_0:
         # 34-byte blocks, not 16-byte aligned: the fields are cut from the
         # uint8 [N, K/32, 34] view, the f16 d in bytes 0-1, then 32 int8
@@ -348,6 +378,57 @@ def _legacy_fields(blocks: torch.Tensor, t: GGMLType, n: int, k: int):
     return q, _f16_field(b, 0), m, qh
 
 
+# the codebooks of `omni_tpu/core/quants.py` (kvalues_iq4nl; MXFP4's e2m1
+# values pre-doubled, as the JAX planes hold them)
+IQ4NL_KVALUES = (-127, -104, -83, -65, -49, -35, -22, -10,
+                 1, 13, 25, 38, 53, 69, 89, 113)
+MXFP4_KVALUES = (0, 1, 2, 3, 4, 6, 8, 12, 0, -1, -2, -3, -4, -6, -8, -12)
+
+
+def _codebook_values(qs: torch.Tensor, kvalues: tuple) -> torch.Tensor:
+    """[..., 16] quant bytes of 32-element groups -> int8 [..., 32]
+    codebook values in element order: byte j holds element j in its low
+    nibble and element j + 16 in its high one."""
+    idx = torch.cat([qs & 0xF, qs >> 4], dim=-1)
+    table = torch.tensor(kvalues, dtype=torch.int8, device=qs.device)
+    return table[idx.long()]
+
+
+def e8m0_half(e: torch.Tensor) -> torch.Tensor:
+    """e8m0 exponent bytes -> 2^(e − 128) as f32, built from the bits as
+    `_e8m0_half` builds them: 0x200000 << e for e < 2 (subnormal), else the
+    biased exponent e − 1. No exp2: the subnormals are exact."""
+    e = e.to(torch.int32)
+    bits = torch.where(e < 2, 0x0020_0000 << e, (e - 1) << 23)
+    return bits.view(torch.float32)
+
+
+def _codebook_repack(blocks: torch.Tensor, t: GGMLType, n: int,
+                     k: int) -> QTensor:
+    """IQ4_NL, MXFP4 (blocks of 32) and IQ4_XS (superblocks of 256) block
+    bytes -> their planes: values through the codebook, scales widened."""
+    if t == GGMLType.IQ4_XS:
+        nsb = k // QK_K
+        b = blocks.reshape(n, nsb, type_traits(t).type_size)
+        # scales_h: a little-endian u16, 2 bits per group; scales_l: 4 bytes,
+        # group j's low 4 bits in nibble j % 2 of byte j // 2
+        sh = b[..., 2].to(torch.int32) | (b[..., 3].to(torch.int32) << 8)
+        sl = b[..., 4:8].to(torch.int32)
+        lo4 = torch.stack([sl & 0xF, sl >> 4], dim=-1).reshape(n, nsb, 8)
+        hi2 = (sh[..., None] >> (2 * torch.arange(8, device=b.device))) & 3
+        sc = ((lo4 | (hi2 << 4)) - 32).to(torch.int8).reshape(n, nsb * 8)
+        q = _codebook_values(b[..., 8:].reshape(n, nsb, 8, 16), IQ4NL_KVALUES)
+        return QTensor(t, (n, k), q=q.reshape(n, k), sc=sc, mn=None,
+                       d=_f16_field(b, 0), dm=None)
+    b = blocks.reshape(n, k // 32, type_traits(t).type_size)
+    if t == GGMLType.IQ4_NL:
+        q, d = _codebook_values(b[..., 2:], IQ4NL_KVALUES), _f16_field(b, 0)
+    else:
+        q, d = _codebook_values(b[..., 1:], MXFP4_KVALUES), e8m0_half(b[..., 0])
+    return QTensor(t, (n, k), q=q.reshape(n, k), sc=None, mn=None, d=d,
+                   dm=None)
+
+
 def upload(a: np.ndarray, device) -> torch.Tensor:
     """A copy of numpy array `a` (a read-only mmap view is fine) on
     `device`."""
@@ -371,18 +452,20 @@ def load_quantized(blocks: np.ndarray, ggml_type: GGMLType,
                    device=None):
     """The JAX package's load policy (`load_quantized`), for the formats the
     port has:
-    - a 2-D Q8_0, Q4_0, Q4_1, Q5_0, Q5_1, Q4_K, Q5_K or Q6_K tensor stays
-      quantized (a QTensor on `device`) where K holds whole blocks of the
-      format's `tile_granule` (always, but for a legacy tensor with
-      K % 256 != 0), unless keep_quantized=False; otherwise it is
-      dequantised there to bf16 (the JAX package widens such a legacy
+    - a 2-D Q8_0, Q4_0, Q4_1, Q5_0, Q5_1, Q4_K, Q5_K, Q6_K, IQ4_NL, IQ4_XS
+      or MXFP4 tensor stays quantized (a QTensor on `device`) where K holds
+      whole blocks of the format's `tile_granule` (always, but for a legacy
+      tensor with K % 256 != 0), unless keep_quantized=False; otherwise it
+      is dequantised there to bf16 (the JAX package widens such a legacy
       tensor too);
     - F32, F16 and BF16 widen (an F16 weight becomes bf16, as in the JAX
       package: 3 mantissa bits fewer than llama.cpp keeps);
     - 1-D tensors (norms, biases) become f32, 2-D dense ones bf16;
-    - every other format raises NotImplementedError naming it: the JAX
-      package keeps those quantized, so the port must not quietly widen
-      them."""
+    - every other format raises NotImplementedError naming it. The JAX
+      package keeps Q2_K and Q3_K quantized, and widens the rest (TQ1_0,
+      TQ2_0, IQ1_S, IQ1_M, IQ2_*, IQ3_*) to dense bf16 at load with a
+      warning; the port has neither their kernels nor their dequantisers
+      yet, so it refuses both kinds rather than guess."""
     from .. import resolve_device
 
     t = GGMLType(ggml_type)

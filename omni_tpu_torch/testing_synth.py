@@ -8,9 +8,10 @@ no multi-GB host-to-device copy happens. Three forms:
   uniform in [-0.02, 0.02). It streams 4.49 GB per decode token, less than
   a real Q4_K_M checkpoint (5.27 GB: its Q6_K tensors are larger).
 - `write_qwen3_gguf`: a GGUF file whose tensors take the types of a
-  quantization recipe (Q4_K_M, Q5_K_M, Q8_0, Q4_0 or Q5_0: llama.cpp's
-  rules, the port's copy of `omni_tpu/cli/quantize.py`, and for Q4_0 and
-  Q5_0 optionally llama.cpp's importance-matrix layout), with random block
+  quantization recipe (Q4_K_M, Q5_K_M, Q8_0, Q4_0, Q5_0, IQ4_NL, IQ4_XS or
+  MXFP4: llama.cpp's rules, the port's copy of `omni_tpu/cli/quantize.py`,
+  and for Q4_0 and Q5_0 optionally llama.cpp's importance-matrix layout),
+  with random block
   bytes: Q4_K in the ranges above; Q5_K the same, its high bits random
   bytes too (values 0..31); Q6_K with its 6-bit values over their full signed range
   (q - 32 in -32..31, as a real file's are), scales 20..63 and d uniform
@@ -23,7 +24,12 @@ no multi-GB host-to-device copy happens. Three forms:
   importance-matrix layout's ffn_down) with the same d, an added min m
   uniform in [-0.08, 0.01) (one in nine positive; weights of mean ~0.006,
   RMS ~0.04), and d = 0 in about one block in 64, so that a kernel's
-  dl = 0 residual path runs. The Q4_K weights in these ranges have a
+  dl = 0 residual path runs; IQ4_NL, IQ4_XS and MXFP4 (the codebook
+  recipes) with every nibble random, so every codebook index appears:
+  IQ4_NL's d uniform in [2.5e-4, 5e-4) (RMS 0.026), IQ4_XS's 6-bit group
+  scales random, so ls − 32 spans −32..31, under a d uniform in
+  [1.5e-5, 2.5e-5) (RMS 0.025), MXFP4's e8m0 exponents 119..121 (d 2^-9 to
+  2^-7, mid-range of the byte; RMS 0.030). The Q4_K weights in these ranges have a
   common part (mean 0.017, 91 % positive); the Q6_K,
   Q8_0, Q4_0 and Q5_0 weights have none (mean ~0), so a Q6_K or Q8_0 output
   head gives logits of max ~10 where the all-Q4_K model's reach ~110.
@@ -149,11 +155,38 @@ def legacy_blocks(t: GGMLType, nb: int, device,
     return torch.cat(fields, dim=1)
 
 
+def iq4_nl_blocks(nb: int, device, generator: torch.Generator) -> torch.Tensor:
+    """nb random IQ4_NL blocks [nb, 18]: d uniform in [2.5e-4, 5e-4) as f16
+    (the codebook's RMS is 67.4: weights of RMS 0.026), then 16 bytes of
+    random codebook indices."""
+    return torch.cat([_unif_f16_bytes(nb, 2.5e-4, 5e-4, device, generator),
+                      _ints(0, 256, (nb, 16), device, generator)], dim=1)
+
+
+def iq4_xs_blocks(nb: int, device, generator: torch.Generator) -> torch.Tensor:
+    """nb random IQ4_XS superblocks [nb, 136]: d uniform in [1.5e-5,
+    2.5e-5) as f16, then scales_h, scales_l and the codebook indices, all
+    random bytes: the 6-bit scales ls − 32 cover −32..31 (RMS 18.5; weights
+    of RMS 0.025)."""
+    return torch.cat([_unif_f16_bytes(nb, 1.5e-5, 2.5e-5, device, generator),
+                      _ints(0, 256, (nb, 134), device, generator)], dim=1)
+
+
+def mxfp4_blocks(nb: int, device, generator: torch.Generator) -> torch.Tensor:
+    """nb random MXFP4 blocks [nb, 17]: the e8m0 exponent 119..121 (d =
+    2^(e − 128), 2^-9..2^-7; the pre-doubled e2m1 codebook's RMS is 5.85:
+    weights of RMS 0.030), then 16 bytes of random indices."""
+    return torch.cat([_ints(119, 122, (nb, 1), device, generator),
+                      _ints(0, 256, (nb, 16), device, generator)], dim=1)
+
+
 # format -> its random block maker, (nb, device, generator) -> uint8
 # [nb, type_size]
 BLOCKS = {GGMLType.Q4_K: q4k_blocks, GGMLType.Q5_K: q5k_blocks,
           GGMLType.Q6_K: q6k_blocks, GGMLType.Q8_0: q8_0_blocks,
-          **{t: functools.partial(legacy_blocks, t) for t in LEGACY}}
+          **{t: functools.partial(legacy_blocks, t) for t in LEGACY},
+          GGMLType.IQ4_NL: iq4_nl_blocks, GGMLType.IQ4_XS: iq4_xs_blocks,
+          GGMLType.MXFP4: mxfp4_blocks}
 
 
 def synth_quant(t: GGMLType, n: int, k: int, device,
@@ -190,7 +223,9 @@ def use_more_bits(i_layer: int, n_layers: int) -> bool:
 
 # recipe -> its default type
 RECIPES = {"Q4_K_M": GGMLType.Q4_K, "Q5_K_M": GGMLType.Q5_K,
-           "Q8_0": GGMLType.Q8_0, "Q4_0": GGMLType.Q4_0, "Q5_0": GGMLType.Q5_0}
+           "Q8_0": GGMLType.Q8_0, "Q4_0": GGMLType.Q4_0, "Q5_0": GGMLType.Q5_0,
+           "IQ4_NL": GGMLType.IQ4_NL, "IQ4_XS": GGMLType.IQ4_XS,
+           "MXFP4": GGMLType.MXFP4}
 # the importance-matrix layout's type for the first ffn_down layers
 _IMATRIX_DOWN = {GGMLType.Q4_0: GGMLType.Q4_1, GGMLType.Q5_0: GGMLType.Q5_1}
 
@@ -208,7 +243,15 @@ def pick_type(name: str, ftype: str, default: GGMLType, n_layers: int,
     LLAMA_FTYPE_MOSTLY_Q4_0 / _Q5_0 with `qs.has_imatrix`, the ffn_down of
     layers i < n_layers / 8 becomes Q4_1 / Q5_1, a guard against those
     first layers going wrong); the JAX package's quantizer has no such rule
-    (an importance matrix there weights the rounding only)."""
+    (an importance matrix there weights the rounding only).
+
+    The codebook recipes (IQ4_NL, IQ4_XS, MXFP4) follow the JAX quantizer:
+    every 2-D weight in the recipe's type, the token embedding too, the
+    head Q6_K (`quantize.py:46-60`; Qwen3's weights all have K % 256 == 0).
+    llama.cpp's own IQ4_NL and IQ4_XS recipes promote some tensors (the
+    head, attn_v, ffn_down on some layers), and its MXFP4 recipe,
+    MXFP4_MOE, targets the expert tensors of a mixture-of-experts model;
+    this repo's reference models neither, so neither does this copy."""
     i_layer = int(name.split(".")[1]) if name.startswith("blk.") else -1
     if name == "output.weight":
         return default if default == GGMLType.Q8_0 else GGMLType.Q6_K

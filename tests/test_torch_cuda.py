@@ -236,6 +236,65 @@ def test_cuda_legacy_gguf_goes_through_a_b_c_and_d(card, tmp_path, recipe):
                            f"{one}_gemv": 1, f"{one}_gemm": 1}
 
 
+CODEBOOK_CASES = [(t, m, k) for t in ("IQ4_NL", "IQ4_XS", "MXFP4")
+                  for m, k in ((1, 4096), (8, 2048), (9, 4096), (130, 1280))] + [
+    ("IQ4_NL", 1, 1056), ("MXFP4", 3, 1056), ("IQ4_XS", 1, 1280)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt,m,k", CODEBOOK_CASES,
+                         ids=[f"{t}-m{m}-k{k}" for t, m, k in CODEBOOK_CASES])
+def test_cuda_codebook_kernel_matches_plain(card, fmt, m, k):
+    """Kernel E's `iq4_nl_gemv`, `iq4_xs_gemv` and `mxfp4_gemv` (M <= 8 with
+    K % 256, IQ4_XS K % 2048) and kernel D's IQ4_NL, IQ4_XS and MXFP4
+    branches (M > 8, and IQ4_NL/MXFP4 at K = 1056 = 33 blocks, IQ4_XS at
+    K = 1280, at any M), through `matmul`, against their plain versions on
+    a ragged N (1000 rows), both output dtypes, on testing_synth's blocks;
+    one launch counted per call, under the kernel's name (D's also under its
+    format)."""
+    qtype = GGMLType[fmt]
+    gen = torch.Generator(device=card).manual_seed(m + k)
+    qt = synth_quant(qtype, 1000, k, card, gen)
+    x = torch.randn((m, k), device=card, generator=gen).to(torch.bfloat16)
+    kernel = dm.kernel_for(m, qt).__name__
+    assert kernel == (dm.INT8_GEMV[qtype] if m <= 8 and k % dm.GP_MIN_K[qtype] == 0
+                      else "qgemm")
+    plain = getattr(dm, kernel + "_plain")
+    for out_dtype in (torch.bfloat16, torch.float32):
+        dm.reset_launches()
+        got = dm.matmul(x, qt, out_dtype).float()
+        want = plain(x, qt, out_dtype).float()
+        torch.cuda.synchronize()
+        assert dm.launches == {**dict.fromkeys(dm.launches, 0), kernel: 1}
+        if kernel == "qgemm":
+            assert dm.qgemm_launches[fmt] == 1
+        assert torch.isfinite(got).all() and limit_ratio(got, want) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("recipe", ["IQ4_NL", "IQ4_XS", "MXFP4"])
+def test_cuda_codebook_gguf_goes_through_e_c_and_d(card, tmp_path, recipe):
+    """A small IQ4_NL (IQ4_XS, MXFP4) Qwen3 (8 layers, K multiples of 2048),
+    written and loaded as a GGUF, prefills and decodes on the card: the
+    layer weights through kernel E's entry and D's branch of the format,
+    the Q6_K head through C and D, finite logits."""
+    cfg = qwen3.Qwen3Config(**{**_SMALL, "n_layers": 8})
+    path = tmp_path / f"{recipe}.gguf"
+    write_qwen3_gguf(path, cfg, recipe, torch.Generator(device=card).manual_seed(0))
+    params = qwen3.load_params(GGUFReader(path), device=card)
+    ctx = Context(cfg, params, qwen3.forward, qwen3.embed, n_ctx=256,
+                  sampler=SamplerParams(greedy=True), device=card)
+    dm.reset_launches()
+    logits = ctx.prefill(list(range(20)))
+    assert torch.isfinite(logits).all()
+    logits, _ = ctx.decode(Batch(tokens=[int(torch.argmax(logits))]))
+    assert torch.isfinite(logits).all()
+    assert dm.launches == {**dict.fromkeys(dm.launches, 0), "qgemm": 57,
+                           "q6k_gemv": 1, f"{recipe.lower()}_gemv": 56}
+    assert dm.qgemm_launches == {**dict.fromkeys(dm.qgemm_launches, 0),
+                                 recipe: 56, "Q6_K": 1}
+
+
 @pytest.mark.cuda
 def test_cuda_dense_dot_matches_the_widened_product(card):
     """The dense dot on the card (bf16 operands, f32 outputs, K split)

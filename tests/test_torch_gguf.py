@@ -158,11 +158,12 @@ def test_load_quantized_widens_like_jax(qtype, shape, keep):
     np.testing.assert_array_equal(got.float().numpy(), want)
 
 
-@pytest.mark.parametrize("qtype", [GGMLType.IQ4_XS, GGMLType.Q2_K, GGMLType.IQ4_NL],
+@pytest.mark.parametrize("qtype", [GGMLType.Q3_K, GGMLType.Q2_K, GGMLType.TQ2_0],
                          ids=lambda t: t.name)
 def test_load_quantized_refuses_unported_formats(qtype):
-    """The JAX package keeps these quantized; the port raises, naming the
-    format, rather than widening them quietly."""
+    """The JAX package keeps Q2_K and Q3_K quantized and widens TQ2_0 at
+    load; the port has neither their kernels nor their dequantisers yet, so
+    it raises, naming the format, rather than widening them quietly."""
     blocks = quants.quantize(np.zeros((2, 256), np.float32), qtype)
     with pytest.raises(NotImplementedError, match=qtype.name):
         load_quantized(blocks, qtype, (2, 256), device="cpu")

@@ -135,11 +135,13 @@ def test_kernel_build_runs_nvcc_per_source_in_parallel(tmp_path):
     out_dirs = {Path(c[c.index("-o") + 1]).parent for c in started}
     assert out_dirs == {want_dir} and want_dir.parent == tmp_path
     assert sorted(fns) == ["flash_decode_bf16", "flash_decode_i4", "flash_decode_i8",
+                           "iq4_nl_gemv", "iq4_xs_gemv", "mxfp4_gemv",
                            "q4_0_gemm", "q4_0_gemv", "q4_1_gemm", "q4_1_gemv",
                            "q4k_gemm", "q4k_gemv", "q5_0_gemm", "q5_0_gemv",
                            "q5_1_gemm", "q5_1_gemv", "q5k_gemm", "q5k_gemv",
-                           "q6k_gemv", "q8_0_gemv", "qgemm_q4k", "qgemm_q5k",
-                           "qgemm_q6k", "qgemm_q8_0"]
+                           "q6k_gemv", "q8_0_gemv", "qgemm_iq4_nl", "qgemm_iq4_xs",
+                           "qgemm_mxfp4", "qgemm_q4k", "qgemm_q5k", "qgemm_q6k",
+                           "qgemm_q8_0"]
     for name, fn in fns.items():
         assert fn.argtypes[:7] == [ctypes.c_void_p] * 7
         if name.startswith("flash"):  # 8 pointers, int64 strides, f32 scale

@@ -118,7 +118,7 @@ def test_repack_is_the_transpose_of_jax_repack(qtype, n, k):
                                   quants.dequantize(blocks, qtype, (n, k)))
 
 
-@pytest.mark.parametrize("qtype", [GGMLType.Q2_K, GGMLType.IQ4_NL, GGMLType.F32],
+@pytest.mark.parametrize("qtype", [GGMLType.Q2_K, GGMLType.Q3_K, GGMLType.F32],
                          ids=lambda t: t.name)
 def test_unported_formats_raise_naming_them(qtype):
     blocks = np.zeros((1, 256), np.float32) if qtype == GGMLType.F32 else \
@@ -262,7 +262,7 @@ def test_cpu_dispatch_launches_no_kernel():
     assert not any(dm.launches.values())
 
 
-@pytest.mark.parametrize("qtype", [GGMLType.IQ4_NL, GGMLType.Q2_K],
+@pytest.mark.parametrize("qtype", [GGMLType.Q3_K, GGMLType.Q2_K],
                          ids=lambda t: t.name)
 def test_cuda_path_raises_for_unported_formats(qtype):
     """On the card a format without a ported kernel raises, naming the TPU
