@@ -1,9 +1,10 @@
 """Numpy dequantisers: the bit-exact oracle inside the port.
 
-A copy of the Q8_0, Q4_0, Q4_1, Q5_0, Q5_1, Q4_K, Q5_K, Q6_K, IQ4_NL,
-IQ4_XS and MXFP4 paths of `omni_tpu/core/quants.py` (ggml-quants.c
-dequantize_row_q8_0 / _q4_0 / _q4_1 / _q5_0 / _q5_1 / _q4_K / _q5_K /
-_q6_K / _iq4_nl / _iq4_xs / _mxfp4 semantics), plus the widening of the
+A copy of the Q8_0, Q4_0, Q4_1, Q5_0, Q5_1, Q2_K, Q3_K, Q4_K, Q5_K, Q6_K,
+IQ4_NL, IQ4_XS and MXFP4 paths of `omni_tpu/core/quants.py` (ggml-quants.c
+dequantize_row_q8_0 / _q4_0 / _q4_1 / _q5_0 / _q5_1 / _q2_K / _q3_K /
+_q4_K / _q5_K / _q6_K / _iq4_nl / _iq4_xs / _mxfp4 semantics), plus the
+widening of the
 plain float types. The effective group scale is the single f32 product
 d*sc:
 - Q8_0: w = q*d per 32-element block (34 bytes: f16 d, then 32 int8 q);
@@ -13,6 +14,15 @@ d*sc:
 - Q5_0: w = (q - 16)*d, q in 0..31, its fifth bit from a little-endian
   u32 whose bit j is element j's (22 bytes: d, qh, the nibbles);
 - Q5_1: w = q*d + m (24 bytes: d, m, qh, the nibbles);
+- Q2_K: w = q*(d*sc) - dmin*mn per 16-element group, q in 0..3, sc and
+  mn 4 bits each (84 bytes: scales[16] with the scale in the low nibble
+  and the min in the high one, qs[64], f16 d, f16 dmin); each 32-byte run
+  of qs holds 128 elements, 32 per 2-bit shift 0, 2, 4, 6;
+- Q3_K: w = (d*sc)*q per 16-element group, q = ql - 4 where the group's
+  hmask bit is clear (a set bit means "do not subtract 4"), in -4..3, sc a
+  signed 6-bit scale packed in 12 bytes (110 bytes: hmask[32], qs[64] laid
+  out as Q2_K's, scales[12], f16 d); bit b of hmask byte l is element
+  32b + l;
 - Q4_K: w = q*(d*sc) - dmin*mn per 32-element group, q in 0..15;
 - Q5_K: the same with q in 0..31, its high bit from a 32-byte plane (176
   bytes: f16 d, f16 dmin, 12 bytes of scales, qh[32], then the nibbles);
@@ -109,6 +119,38 @@ def _deq_q5_1(b: np.ndarray) -> np.ndarray:
     lo = _split_nibbles(b[:, 8:], 16)
     q = (lo | (hi << np.uint8(4))).astype(np.float32)
     return d * q + m
+
+
+def _deq_q2_k(b: np.ndarray) -> np.ndarray:
+    n = b.shape[0]
+    scales, qs = b[:, :16], b[:, 16:80]
+    d, dmin = _f16(b[:, 80:82]), _f16(b[:, 82:84])
+    dl = (d * (scales & np.uint8(0xF)).astype(np.float32)).reshape(n, 16, 1)
+    ml = (dmin * (scales >> np.uint8(4)).astype(np.float32)).reshape(n, 16, 1)
+    q = _expand_bits(qs, [0, 2, 4, 6], 32, 3).reshape(n, 16, 16).astype(np.float32)
+    return (dl * q - ml).reshape(n, QK_K)
+
+
+def _unpack_scales_q3k(scales: np.ndarray) -> np.ndarray:
+    """12 bytes -> 16 signed 6-bit scales (ggml-quants.c's layout): the low
+    4 bits of scale i in nibble i // 8 of byte i % 8, the high 2 bits at
+    shift 2·(i // 4) of byte 8 + i % 4, minus 32."""
+    lo = _expand_bits(scales[:, :8], [0, 4], 8, 0xF)
+    hi = _expand_bits(scales[:, 8:12], [0, 2, 4, 6], 4, 0x3)
+    return (lo | (hi << np.uint8(4))).astype(np.int8) - np.int8(32)
+
+
+def _deq_q3_k(b: np.ndarray) -> np.ndarray:
+    n = b.shape[0]
+    hmask, qs, scales = b[:, :32], b[:, 32:96], b[:, 96:108]
+    d = _f16(b[:, 108:110])
+    sc = _unpack_scales_q3k(scales).astype(np.float32)
+    dl = (d * sc).reshape(n, 16, 1)
+    ql = _expand_bits(qs, [0, 2, 4, 6], 32, 3).reshape(n, 16, 16)
+    qh = _expand_bits(hmask, list(range(8)), 32, 1).reshape(n, 16, 16)
+    qh = qh ^ np.uint8(1)  # a set hmask bit means "do not subtract 4"
+    q = (ql.astype(np.int8) - (qh << np.uint8(2)).astype(np.int8)).astype(np.float32)
+    return (dl * q).reshape(n, QK_K)
 
 
 def _deq_q4_k(b: np.ndarray) -> np.ndarray:
@@ -209,7 +251,8 @@ def _deq_mxfp4(b: np.ndarray) -> np.ndarray:
 
 _DEQUANT = {GGMLType.Q8_0: _deq_q8_0, GGMLType.Q4_0: _deq_q4_0,
             GGMLType.Q4_1: _deq_q4_1, GGMLType.Q5_0: _deq_q5_0,
-            GGMLType.Q5_1: _deq_q5_1, GGMLType.Q4_K: _deq_q4_k,
+            GGMLType.Q5_1: _deq_q5_1, GGMLType.Q2_K: _deq_q2_k,
+            GGMLType.Q3_K: _deq_q3_k, GGMLType.Q4_K: _deq_q4_k,
             GGMLType.Q5_K: _deq_q5_k, GGMLType.Q6_K: _deq_q6_k,
             GGMLType.IQ4_NL: _deq_iq4_nl, GGMLType.IQ4_XS: _deq_iq4_xs,
             GGMLType.MXFP4: _deq_mxfp4}

@@ -1,16 +1,20 @@
 // qgemm: out[m, n] = sum_k bf16(x)[m, k] * bf16(dequant(W))[n, k], any M,
-// W in Q4_K, Q5_K, Q6_K, Q8_0, IQ4_NL, IQ4_XS or MXFP4 — the generic fused
-// dequant x matmul.
+// W in any of the thirteen formats the JAX package keeps quantized (Q4_K,
+// Q5_K, Q6_K, Q8_0, Q2_K, Q3_K, Q4_0, Q4_1, Q5_0, Q5_1, IQ4_NL, IQ4_XS,
+// MXFP4) — the generic fused dequant x matmul.
 //
 // Replaces omni_tpu/kernels/dequant_matmul.py::qmatmul_pallas (:103, body
-// _make_kernel :55-76, law qformats.dequant_tile :289-360) for Q4_K, Q5_K,
-// Q6_K, Q8_0, IQ4_NL, IQ4_XS and MXFP4. On a Q4_K_M or Q5_K_M checkpoint it
-// runs the prefill (M > 8) of the Q6_K tensors (attn_v and ffn_down on the
-// promoted layers, the output head), and every Q4_K or Q5_K weight whose K
-// is not a multiple of 2048, at any M. On a Q8_0, IQ4_NL, IQ4_XS or MXFP4
-// checkpoint it runs the prefill of every weight, and any Q8_0, IQ4_NL or
-// MXFP4 weight whose K is not a multiple of 256 (any IQ4_XS one whose K is
-// not a multiple of 2048), at any M.
+// _make_kernel :55-76, law qformats.dequant_tile :289-360) for all of them.
+// On a Q4_K_M or Q5_K_M checkpoint it runs the prefill (M > 8) of the Q6_K
+// tensors (attn_v and ffn_down on the promoted layers, the output head),
+// and every Q4_K or Q5_K weight whose K is not a multiple of 2048, at any
+// M. On a Q8_0, Q2_K, Q3_K, IQ4_NL, IQ4_XS or MXFP4 checkpoint it runs the
+// prefill of every weight (neither Q2_K nor Q3_K is a halves-packed format
+// that kernel B takes), any Q8_0, IQ4_NL or MXFP4 weight whose K is not a
+// multiple of 256 and any Q2_K, Q3_K or IQ4_XS one whose K is not a
+// multiple of 2048, at any M. The legacy formats reach it only with one of
+// the dispatcher's switches off (OMNI_GP_DECODE, OMNI_GP_SMALLM,
+// OMNI_SH_PREFILL).
 //
 // The law is the TPU kernel's: each weight element is dequantised in f32
 // and rounded once to bf16, then multiplied against bf16 x with f32
@@ -28,10 +32,24 @@
 // - IQ4_XS: w = bf16(q * dl), dl = d * sc per 32-group formed first in f32
 //   (d per 256, sc the int8 sub-scale), in dequant_tile's order (d holds an
 //   f16's 11 significant bits, q and sc 7 and 6: both f32 products are
-//   exact, and the cast to bf16 is the one rounding).
-// The products and the difference are rounded one at a time (__fmul_rn,
-// __fsub_rn: no fused multiply-add), so the bf16 weights equal the plain
-// version's bit for bit.
+//   exact, and the cast to bf16 is the one rounding);
+// - Q2_K: w = bf16(q * dl - ml), q in 0..3 from the quarter plane, dl =
+//   d * sc and ml = dm * mn per 16-group;
+// - Q3_K: w = bf16(q * dl), q = quarter + 4 * hbit - 4 in -4..3, dl =
+//   d * sc per 16-group (sc signed 6-bit). For both, d and dm hold an
+//   f16's 11 significant bits and sc, mn at most 6, so dl and ml are exact
+//   in f32, and so is q * dl (q needs at most 3 bits): the one rounding of
+//   a Q3_K weight is the cast to bf16, and a Q2_K weight's f32 difference
+//   is the correctly rounded q * dl - ml, so a contracted multiply-add
+//   would round it the same way;
+// - Q4_0 and Q5_0: w = bf16((q - 8) * d) and bf16((q - 16) * d), q the
+//   nibble (plus 16 x the high bit), d per 32; Q4_1 and Q5_1: w =
+//   bf16(q * d + m), m the added min per 32. This is dequant_tile's law,
+//   not kernel B's centered one (bf16((q - t) * d) with t = -m / d, the
+//   rest folded through the sums of x), which rounds otherwise.
+// The products, sums and differences are rounded one at a time (__fmul_rn,
+// __fadd_rn, __fsub_rn: no fused multiply-add), so the bf16 weights equal
+// the plain version's bit for bit.
 //
 // Bound on the H100: at prefill M (64..512) the bf16 tensor-core work per
 // weight byte nears the card's ~295 operations per byte; at M = 1 it is
@@ -40,8 +58,8 @@
 //   2 x 2 WMMA m16n16k16 bf16 products with f32 accumulators;
 // - per K step of 256 elements (one superblock; for Q8_0, IQ4_NL and MXFP4,
 //   eight 32-blocks, the last step ragged where K % 256 != 0, its missing
-//   chunks staged as
-//   zeros in x and w), the x tile [64, 256] (cp.async)
+//   chunks staged as zeros in x and w; for the legacy formats eight
+//   32-blocks of the halves plane), the x tile [64, 256] (cp.async)
 //   and the weight tile [64, 256], dequantised on the way in by the
 //   format's own device function, are staged in shared memory; every
 //   global load of the step is issued before any is used;
@@ -51,8 +69,8 @@
 // - ragged M and N edges are masked; 64-bit offsets throughout (the head's
 //   Q6_K plane is 621.6 MB).
 // 66 KB of dynamic shared memory, above the 48 KB default, so the launcher
-// raises the limit with cudaFuncSetAttribute. A later format adds one
-// device function and one branch.
+// raises the limit with cudaFuncSetAttribute. Each kind of plane has one
+// staging device function (halves, quarters, int8 values, Q6_K's values).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,11 +83,25 @@ namespace {
 
 using namespace nvcuda;
 
+using kquant::Fmt;
+
 // GGML type ids
-constexpr int kQ8_0 = 8, kQ4K = 12, kQ5K = 13, kQ6K = 14, kIQ4NL = 20, kIQ4XS = 23,
-              kMXFP4 = 39;
+constexpr int kQ4_0 = 2, kQ4_1 = 3, kQ5_0 = 6, kQ5_1 = 7, kQ8_0 = 8, kQ2K = 10, kQ3K = 11,
+              kQ4K = 12, kQ5K = 13, kQ6K = 14, kIQ4NL = 20, kIQ4XS = 23, kMXFP4 = 39;
 // the formats with an int8 value plane and one scale per 32 elements
 constexpr bool int8_plane(int qt) { return qt == kQ8_0 || qt == kIQ4NL || qt == kMXFP4; }
+// the halves-packed formats (kquant.cuh), and each one's Fmt
+__host__ __device__ constexpr bool halves(int qt) {
+  return qt == kQ4K || qt == kQ5K || qt == kQ4_0 || qt == kQ4_1 || qt == kQ5_0 || qt == kQ5_1;
+}
+__host__ __device__ constexpr Fmt fmt_of(int qt) {
+  return qt == kQ5K    ? Fmt::kQ5K
+         : qt == kQ4_0 ? Fmt::kQ4_0
+         : qt == kQ4_1 ? Fmt::kQ4_1
+         : qt == kQ5_0 ? Fmt::kQ5_0
+         : qt == kQ5_1 ? Fmt::kQ5_1
+                       : Fmt::kQ4K;
+}
 constexpr int BM = 64, BN = 64, BK = 256;
 constexpr int LD = BK + 8;   // bf16 row pitch of the staged tiles
 constexpr int LDC = BN + 4;  // f32 row pitch of the epilogue tile
@@ -108,18 +140,34 @@ struct Planes {
   const uint8_t* qh;
 };
 
-// Q4_K (Q5_K where kFive) weight tile of superblock s: BN rows x 8 chunks of
-// 16 packed bytes; chunk c holds the low nibbles of elements 16c.. (group
-// c/2) and the high nibbles of elements 128+16c.. (group 4+c/2), with
-// Q5_K's high bits of both.
-template <bool kFive>
-__device__ __forceinline__ void stage_w_q4k(const Planes& p, __nv_bfloat16* ws_t,
-                                            int n0, int N, int K, int s, int tid) {
+// A halves-packed weight element from its value q and its group's (a, b):
+// the K-quants' bf16(q * dl - ml) with (a, b) = (dl, ml); Q4_1 and Q5_1's
+// q * d + m with (a, b) = (d, m); Q4_0 and Q5_0's (q - 8) * d and
+// (q - 16) * d with a = d (dequant_tile's order in each).
+template <Fmt F>
+__device__ __forceinline__ float halves_weight(uint32_t q, float a, float b) {
+  if constexpr (!kquant::legacy(F))
+    return __fsub_rn(__fmul_rn((float)q, a), b);
+  else if constexpr (kquant::added_min(F))
+    return __fadd_rn(__fmul_rn((float)q, a), b);
+  else
+    return __fmul_rn(__fsub_rn((float)q, F == Fmt::kQ5_0 ? 16.f : 8.f), a);
+}
+
+// Halves-packed weight tile of superblock s (Q4_K, Q5_K and the legacy
+// formats): BN rows x 8 chunks of 16 packed bytes; chunk c holds the low
+// nibbles of elements 16c.. (group c/2) and the high nibbles of elements
+// 128+16c.. (group 4+c/2), with the high bits of both for the five-bit
+// formats. A K-quant's group scale is d * sc and min dm * mn, d and dm per
+// superblock; a legacy format's d (and Q4_1/Q5_1's m) come per 32-group.
+template <Fmt F>
+__device__ __forceinline__ void stage_w_halves(const Planes& p, __nv_bfloat16* ws_t,
+                                               int n0, int N, int K, int s, int tid) {
   constexpr int kLoads = BN * 8 / kThreads;
   const size_t half = (size_t)(K >> 1);
   const int n_groups = K >> 5, n_sb = K >> 8;
   uint4 qv[kLoads];
-  float dsv[kLoads], dmsv[kLoads];
+  float s0[kLoads][2], s1[kLoads][2];  // K-quants: d, dm; legacy: d, m per half
   int scv[kLoads][2], mnv[kLoads][2];
   uint2 hbv[kLoads];
 #pragma unroll
@@ -128,31 +176,43 @@ __device__ __forceinline__ void stage_w_q4k(const Planes& p, __nv_bfloat16* ws_t
     const int r = idx >> 3, c = idx & 7;
     const int gn = n0 + r;
     qv[i] = make_uint4(0, 0, 0, 0);
-    dsv[i] = dmsv[i] = 0.f;
+    s0[i][0] = s0[i][1] = s1[i][0] = s1[i][1] = 0.f;
     scv[i][0] = scv[i][1] = mnv[i][0] = mnv[i][1] = 0;
     hbv[i] = make_uint2(0u, 0u);
     if (gn < N) {
-      hbv[i] = kquant::high_words<kFive>(p.qh, (size_t)gn * (K >> 3), s, c);
+      hbv[i] = kquant::high_words<kquant::five_bit(F)>(p.qh, (size_t)gn * (K >> 3), s, c);
       const uint8_t* qrow = static_cast<const uint8_t*>(p.q) + (size_t)gn * half;
       qv[i] = __ldg(reinterpret_cast<const uint4*>(qrow + (size_t)s * 128) + c);
-      dsv[i] = __ldg(p.d + (size_t)gn * n_sb + s);
-      dmsv[i] = __ldg(p.dm + (size_t)gn * n_sb + s);
       const size_t g = (size_t)gn * n_groups + s * 8 + (c >> 1);
-      scv[i][0] = __ldg(p.sc + g);
-      scv[i][1] = __ldg(p.sc + g + 4);
-      mnv[i][0] = __ldg(p.mn + g);
-      mnv[i][1] = __ldg(p.mn + g + 4);
+      if constexpr (kquant::legacy(F)) {
+        s0[i][0] = __ldg(p.d + g);
+        s0[i][1] = __ldg(p.d + g + 4);
+        if constexpr (kquant::added_min(F)) {
+          s1[i][0] = __ldg(p.dm + g);
+          s1[i][1] = __ldg(p.dm + g + 4);
+        }
+      } else {
+        s0[i][0] = s0[i][1] = __ldg(p.d + (size_t)gn * n_sb + s);
+        s1[i][0] = s1[i][1] = __ldg(p.dm + (size_t)gn * n_sb + s);
+        scv[i][0] = __ldg(p.sc + g);
+        scv[i][1] = __ldg(p.sc + g + 4);
+        mnv[i][0] = __ldg(p.mn + g);
+        mnv[i][1] = __ldg(p.mn + g + 4);
+      }
     }
   }
 #pragma unroll
   for (int i = 0; i < kLoads; ++i) {
     const int idx = tid + kThreads * i;
     const int r = idx >> 3, c = idx & 7;
-    // rows past N have d = dm = 0: zero weights
-    const float dl_lo = __fmul_rn(dsv[i], (float)scv[i][0]);
-    const float ml_lo = __fmul_rn(dmsv[i], (float)mnv[i][0]);
-    const float dl_hi = __fmul_rn(dsv[i], (float)scv[i][1]);
-    const float ml_hi = __fmul_rn(dmsv[i], (float)mnv[i][1]);
+    // rows past N have zero scales: zero weights
+    float a_lo = s0[i][0], b_lo = s1[i][0], a_hi = s0[i][1], b_hi = s1[i][1];
+    if constexpr (!kquant::legacy(F)) {
+      a_lo = __fmul_rn(s0[i][0], (float)scv[i][0]);
+      b_lo = __fmul_rn(s1[i][0], (float)mnv[i][0]);
+      a_hi = __fmul_rn(s0[i][1], (float)scv[i][1]);
+      b_hi = __fmul_rn(s1[i][1], (float)mnv[i][1]);
+    }
     const uint32_t w32[4] = {qv[i].x, qv[i].y, qv[i].z, qv[i].w};
     __nv_bfloat16* wrow = ws_t + r * LD;
 #pragma unroll
@@ -163,14 +223,87 @@ __device__ __forceinline__ void stage_w_q4k(const Planes& p, __nv_bfloat16* ws_t
         const uint32_t word = w32[v * 2 + (e >> 1)];
         const int sh = (e & 1) * 16;  // bytes 2e, 2e+1 of this 8-byte run
         const uint32_t q0 = (word >> sh) & 0xFFu, q1 = (word >> (sh + 8)) & 0xFFu;
-        const uint4 w = kquant::values<kFive>(q0, q1, hbv[i], v * 8 + 2 * e);
-        lo[e] = pack_bf16(__fsub_rn(__fmul_rn((float)w.x, dl_lo), ml_lo),
-                          __fsub_rn(__fmul_rn((float)w.y, dl_lo), ml_lo));
-        hi[e] = pack_bf16(__fsub_rn(__fmul_rn((float)w.z, dl_hi), ml_hi),
-                          __fsub_rn(__fmul_rn((float)w.w, dl_hi), ml_hi));
+        const uint4 w = kquant::values<kquant::five_bit(F)>(q0, q1, hbv[i], v * 8 + 2 * e);
+        lo[e] = pack_bf16(halves_weight<F>(w.x, a_lo, b_lo), halves_weight<F>(w.y, a_lo, b_lo));
+        hi[e] = pack_bf16(halves_weight<F>(w.z, a_hi, b_hi), halves_weight<F>(w.w, a_hi, b_hi));
       }
       *reinterpret_cast<uint4*>(wrow + c * 16 + v * 8) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
       *reinterpret_cast<uint4*>(wrow + 128 + c * 16 + v * 8) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    }
+  }
+}
+
+// Q2_K (Q3_K where kQ3) weight tile of superblock s: BN rows x 4 chunks of
+// 16 quarter bytes; byte i of chunk c holds, at shift 2j, element
+// 64j + 16c + i of the superblock (group 4j + c), with Q3_K's high bit in
+// bit i of the 16-bit word s*16 + 4j + c of the row's qh (element order).
+template <bool kQ3>
+__device__ __forceinline__ void stage_w_lowbit(const Planes& p, __nv_bfloat16* ws_t,
+                                               int n0, int N, int K, int s, int tid) {
+  constexpr int kLoads = BN * 4 / kThreads;
+  const int n_groups = K >> 4, n_sb = K >> 8;
+  uint4 qv[kLoads];
+  float dsv[kLoads], dmsv[kLoads];
+  int scv[kLoads][4], mnv[kLoads][4];
+  uint32_t hbv[kLoads][4];
+#pragma unroll
+  for (int i = 0; i < kLoads; ++i) {
+    const int idx = tid + kThreads * i;
+    const int r = idx >> 2, c = idx & 3;
+    const int gn = n0 + r;
+    qv[i] = make_uint4(0, 0, 0, 0);
+    dsv[i] = dmsv[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) scv[i][j] = mnv[i][j] = 0, hbv[i][j] = 0u;
+    if (gn < N) {
+      const uint8_t* qrow = static_cast<const uint8_t*>(p.q) + (size_t)gn * (K >> 2);
+      qv[i] = __ldg(reinterpret_cast<const uint4*>(qrow + (size_t)s * 64) + c);
+      dsv[i] = __ldg(p.d + (size_t)gn * n_sb + s);
+      if constexpr (!kQ3) dmsv[i] = __ldg(p.dm + (size_t)gn * n_sb + s);
+      const size_t g = (size_t)gn * n_groups + s * 16 + c;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        scv[i][j] = __ldg(p.sc + g + 4 * j);
+        if constexpr (kQ3)
+          hbv[i][j] = __ldg(reinterpret_cast<const uint16_t*>(p.qh + (size_t)gn * (K >> 3)) +
+                            s * 16 + 4 * j + c);
+        else
+          mnv[i][j] = __ldg(p.mn + g + 4 * j);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kLoads; ++i) {
+    const int idx = tid + kThreads * i;
+    const int r = idx >> 2, c = idx & 3;
+    const uint32_t w32[4] = {qv[i].x, qv[i].y, qv[i].z, qv[i].w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      // rows past N have d = dm = 0: zero weights
+      const float dl = __fmul_rn(dsv[i], (float)scv[i][j]);
+      const float ml = __fmul_rn(dmsv[i], (float)mnv[i][j]);
+      uint32_t wv[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {  // bytes 2e, 2e+1 of the chunk
+        const uint32_t word = w32[e >> 1];
+        const int sh = (e & 1) * 16;
+        int v0 = (int)((word >> (sh + 2 * j)) & 3u);
+        int v1 = (int)((word >> (sh + 8 + 2 * j)) & 3u);
+        float w0, w1;
+        if constexpr (kQ3) {
+          v0 += 4 * (int)((hbv[i][j] >> (2 * e)) & 1u) - 4;
+          v1 += 4 * (int)((hbv[i][j] >> (2 * e + 1)) & 1u) - 4;
+          w0 = __fmul_rn((float)v0, dl);
+          w1 = __fmul_rn((float)v1, dl);
+        } else {
+          w0 = __fsub_rn(__fmul_rn((float)v0, dl), ml);
+          w1 = __fsub_rn(__fmul_rn((float)v1, dl), ml);
+        }
+        wv[e] = pack_bf16(w0, w1);
+      }
+      __nv_bfloat16* dst = ws_t + r * LD + 64 * j + 16 * c;
+      *reinterpret_cast<uint4*>(dst) = make_uint4(wv[0], wv[1], wv[2], wv[3]);
+      *reinterpret_cast<uint4*>(dst + 8) = make_uint4(wv[4], wv[5], wv[6], wv[7]);
     }
   }
 }
@@ -306,8 +439,10 @@ qgemm_kernel(const __nv_bfloat16* __restrict__ x, Planes p, void* __restrict__ o
       cp_async16(xs_t + r * LD + c * 8, src, live);
     }
     cp_async_commit();
-    if constexpr (QT == kQ4K || QT == kQ5K)
-      stage_w_q4k<QT == kQ5K>(p, ws_t, n0, N, K, s, tid);
+    if constexpr (halves(QT))
+      stage_w_halves<fmt_of(QT)>(p, ws_t, n0, N, K, s, tid);
+    else if constexpr (QT == kQ2K || QT == kQ3K)
+      stage_w_lowbit<QT == kQ3K>(p, ws_t, n0, N, K, s, tid);
     else if constexpr (QT == kQ6K)
       stage_w_q6k(p, ws_t, n0, N, K, s, tid);
     else
@@ -376,8 +511,12 @@ template <int QT>
 int launch(const void* x, Planes p, void* out, int m, int n, int k, int out_f32,
            void* stream) {
   constexpr int granule = int8_plane(QT) ? 32 : 256;  // K multiple of the planes
+  const bool needs_qh = QT == kQ5K || QT == kQ5_0 || QT == kQ5_1 || QT == kQ3K;
+  const bool needs_sc = QT == kIQ4XS || QT == kQ2K || QT == kQ3K;
+  const bool needs_min = QT == kQ2K || QT == kQ4_1 || QT == kQ5_1;  // dm (and Q2_K's mn)
   if (m < 1 || n < 1 || k < granule || k % granule != 0 || (m + BM - 1) / BM > 65535 ||
-      (QT == kQ5K && p.qh == nullptr) || (QT == kIQ4XS && p.sc == nullptr))
+      (needs_qh && p.qh == nullptr) || (needs_sc && p.sc == nullptr) ||
+      (needs_min && p.dm == nullptr) || (QT == kQ2K && p.mn == nullptr))
     return (int)cudaErrorInvalidValue;
   static bool attr_set = false;
   if (!attr_set) {
@@ -396,8 +535,10 @@ int launch(const void* x, Planes p, void* out, int m, int n, int k, int out_f32,
 
 // One entry point per format, each with the signature of the other kernels;
 // the planes a format lacks are unused (Q4_K: qh; Q6_K: mn, dm, qh; Q8_0,
-// IQ4_NL, MXFP4: all but q and d; IQ4_XS: mn, dm, qh). Each returns the first CUDA error of the attribute call
-// or the launch (0 = launched).
+// IQ4_NL, MXFP4: all but q and d; IQ4_XS: mn, dm, qh; Q2_K: qh; Q3_K: mn,
+// dm; the legacy formats: sc, mn, and dm for Q4_0/Q5_0, qh for Q4_0/Q4_1).
+// Each returns the first CUDA error of the attribute call or the launch
+// (0 = launched).
 #define QGEMM_ENTRY(NAME, QT)                                                      \
   extern "C" int NAME(const void* x, const void* q, const void* sc, const void* mn, \
                       const void* d, const void* dm, const void* qh, void* out,     \
@@ -415,3 +556,9 @@ QGEMM_ENTRY(qgemm_q8_0, kQ8_0)
 QGEMM_ENTRY(qgemm_iq4_nl, kIQ4NL)
 QGEMM_ENTRY(qgemm_iq4_xs, kIQ4XS)
 QGEMM_ENTRY(qgemm_mxfp4, kMXFP4)
+QGEMM_ENTRY(qgemm_q2k, kQ2K)
+QGEMM_ENTRY(qgemm_q3k, kQ3K)
+QGEMM_ENTRY(qgemm_q4_0, kQ4_0)
+QGEMM_ENTRY(qgemm_q4_1, kQ4_1)
+QGEMM_ENTRY(qgemm_q5_0, kQ5_0)
+QGEMM_ENTRY(qgemm_q5_1, kQ5_1)

@@ -45,9 +45,11 @@ SOURCES = {
     "q6k_gemv.cu": {"q6k_gemv": MATMUL_ARGS},
     "q8_0_gemv.cu": dict.fromkeys(
         ("q8_0_gemv", "iq4_nl_gemv", "mxfp4_gemv", "iq4_xs_gemv"), MATMUL_ARGS),
+    "lowbit_gemv.cu": dict.fromkeys(("q2k_gemv", "q3k_gemv"), MATMUL_ARGS),
     "qgemm.cu": dict.fromkeys(
         ("qgemm_q4k", "qgemm_q5k", "qgemm_q6k", "qgemm_q8_0", "qgemm_iq4_nl",
-         "qgemm_iq4_xs", "qgemm_mxfp4"), MATMUL_ARGS),
+         "qgemm_iq4_xs", "qgemm_mxfp4", "qgemm_q2k", "qgemm_q3k", "qgemm_q4_0",
+         "qgemm_q4_1", "qgemm_q5_0", "qgemm_q5_1"), MATMUL_ARGS),
     "flash_decode.cu": dict.fromkeys(
         ("flash_decode_bf16", "flash_decode_i8", "flash_decode_i4"), FLASH_ARGS)}
 

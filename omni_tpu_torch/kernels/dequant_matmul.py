@@ -2,35 +2,42 @@
 
 Counterpart of `omni_tpu/kernels/dequant_matmul.py`. On a CUDA tensor a
 weight goes to a kernel written by hand for Hopper, chosen as the JAX
-dispatcher chooses its Pallas kernel (`matmul`, dequant_matmul.py:665-672):
-- `gp_supported` (M = 1..8, K % 2048 == 0 for the K-quants, K % 256 == 0
-  for Q8_0 and the legacy formats: `_gp_min_tk`): kernel A `q4k_gemv` for
-  Q4_K, kernel G `q5k_gemv` for Q5_K (A's template with the high bit),
-  A's legacy branches `q4_0_gemv`, `q4_1_gemv`, `q5_0_gemv` and
-  `q5_1_gemv` (a scale per 32 in place of d·sc), kernel C `q6k_gemv` for
-  Q6_K, kernel E `q8_0_gemv` for Q8_0, and E's entries `iq4_nl_gemv`,
-  `mxfp4_gemv` (E's device code: the same int8 value plane and per-32
-  scale) and `iq4_xs_gemv` (dl = d·sc per 32) for the codebook formats
-  (all replace qmatmul_gp_pallas; IQ4_XS, with one d per 256, needs
-  K % 2048 as the K-quants do);
-- `sh_supported` (M > 8, the halves-packed formats Q4_K, Q5_K, Q4_0,
-  Q4_1, Q5_0 and Q5_1 at the same K multiples): kernel B `q4k_gemm`, and
-  its branches `q5k_gemm`, `q4_0_gemm`, `q4_1_gemm`, `q5_0_gemm` and
+dispatcher chooses its Pallas kernel (`matmul`, dequant_matmul.py:665-672),
+under the same three switches, read once at import (`GP_DECODE`,
+`GP_SMALLM`, `SH_PREFILL` below):
+- the gp path, where `GP_DECODE` is on, the weight is `gp_supported` (M =
+  1..8, K % 2048 == 0 for the K-quants and IQ4_XS, K % 256 == 0 for Q8_0,
+  the legacy and the other codebook formats: `_gp_min_tk`) and M == 1 or
+  `GP_SMALLM` is on: kernel A `q4k_gemv` for Q4_K, kernel G `q5k_gemv` for
+  Q5_K (A's template with the high bit), A's legacy branches `q4_0_gemv`,
+  `q4_1_gemv`, `q5_0_gemv` and `q5_1_gemv` (a scale per 32 in place of
+  d·sc), kernel C `q6k_gemv` for Q6_K, kernel E `q8_0_gemv` for Q8_0, E's
+  entries `iq4_nl_gemv`, `mxfp4_gemv` (E's device code: the same int8
+  value plane and per-32 scale) and `iq4_xs_gemv` (dl = d·sc per 32) for
+  the codebook formats, and kernel H `q2k_gemv` and `q3k_gemv` for Q2_K
+  and Q3_K (2-bit quarters, a scale per 16; all replace
+  qmatmul_gp_pallas);
+- else the sh path, where `SH_PREFILL` is on and the weight is
+  `sh_supported` (M > 8, the halves-packed formats Q4_K, Q5_K, Q4_0, Q4_1,
+  Q5_0 and Q5_1 at the same K multiples): kernel B `q4k_gemm`, and its
+  branches `q5k_gemm`, `q4_0_gemm`, `q4_1_gemm`, `q5_0_gemm` and
   `q5_1_gemm` (replace qmatmul_splith_pallas);
-- every other Q4_K, Q5_K, Q6_K, Q8_0, IQ4_NL, IQ4_XS or MXFP4 weight, at
-  any M: kernel D `qgemm`, the generic dequant-GEMM (replaces
-  qmatmul_pallas; its launches of every format count under "qgemm", and
-  each format's also in `qgemm_launches`). That is every prefill (M > 8)
-  of a codebook weight, and an IQ4_NL or MXFP4 weight with K % 256 != 0
-  (their granule is 32) or an IQ4_XS one with K % 2048 != 0 at any M.
-A legacy weight never reaches kernel D: its planes need K % 256 == 0, and
-the load policy widens any other to bf16, as the JAX package's does.
-Other formats raise NotImplementedError on the card, naming the TPU
-kernels still to port. Each kernel has a plain PyTorch version of the same law
-beside it: the wrapper runs it only for a tensor that lies on the CPU, and
-on a CUDA tensor it launches the kernel or raises. Off the card the
-dispatcher runs kernel D's plain law, which is `qmatmul_xla`'s: dequantise
-to bf16, then a dot with f32 accumulation.
+- else kernel D `qgemm`, the generic dequant-GEMM, at any M, for all
+  thirteen formats (replaces qmatmul_pallas; its launches of every format
+  count under "qgemm", and each format's also in `qgemm_launches`). With
+  the switches at their defaults that is every prefill (M > 8) of a
+  codebook, Q6_K, Q8_0, Q2_K or Q3_K weight, an IQ4_NL or MXFP4 weight
+  with K % 256 != 0 (their granule is 32), and a K-quant or IQ4_XS one
+  with K % 2048 != 0, at any M. A legacy weight reaches D only with a
+  switch off: its planes need K % 256 == 0, the load policy widens any
+  other to bf16, and every such weight is gp- or sh-supported.
+Every format the JAX package keeps quantized has a kernel on every route;
+a QTensor of another format raises NotImplementedError on the card. Each
+kernel has a plain PyTorch version of the same law beside it: the wrapper
+runs it only for a tensor that lies on the CPU, and on a CUDA tensor it
+launches the kernel or raises. Off the card the dispatcher runs kernel D's
+plain law, which is `qmatmul_xla`'s: dequantise to bf16, then a dot with
+f32 accumulation.
 
 A dense weight (bf16) is a plain product, which the JAX package leaves to
 XLA: bf16 operands, f32 accumulation. On the card that is cuBLAS with bf16
@@ -41,19 +48,31 @@ weight is made.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from ..core.dtypes import GGMLType
-from .qformats import (CODEBOOK, LEGACY, PLANES, QTensor, check_qtensor,
-                       dequant, int8_group_scales, kquant_values,
+from .qformats import (CODEBOOK, LEGACY, LOWBIT, PLANES, QUANTIZED, QTensor,
+                       check_qtensor, dequant, int8_group_scales,
+                       kquant_values, lowbit_group_scales, lowbit_values,
                        q4k_group_scales, q6k_group_scales)
 
-GP_MAX_M = 8  # decode rows kernels A, C, E and G take (the TPU's _GP_MAX_M)
+# The JAX dispatcher's switches (omni_tpu/kernels/dequant_matmul.py:25-32),
+# read once at import with its defaults: OMNI_GP_DECODE=0 sends decode to
+# the generic kernel, OMNI_GP_SMALLM=0 keeps the gp path to M = 1,
+# OMNI_SH_PREFILL=0 sends the halves-packed prefill to the generic kernel.
+GP_DECODE = os.environ.get("OMNI_GP_DECODE", "1") == "1"
+GP_SMALLM = os.environ.get("OMNI_GP_SMALLM", "1") == "1"
+SH_PREFILL = os.environ.get("OMNI_SH_PREFILL", "1") == "1"
+
+GP_MAX_M = 8  # decode rows kernels A, C, E, G and H take (the TPU's _GP_MAX_M)
 # the K multiple of the gp and sh paths per format (the TPU kernels'
 # `_gp_min_tk`: 2048 where a plane has one row per 256 elements, else 256)
 GP_MIN_K = {GGMLType.Q4_K: 2048, GGMLType.Q5_K: 2048, GGMLType.Q6_K: 2048,
             GGMLType.Q8_0: 256, **dict.fromkeys(LEGACY, 256),
-            GGMLType.IQ4_NL: 256, GGMLType.MXFP4: 256, GGMLType.IQ4_XS: 2048}
+            GGMLType.IQ4_NL: 256, GGMLType.MXFP4: 256, GGMLType.IQ4_XS: 2048,
+            **dict.fromkeys(LOWBIT, 2048)}
 # the name of kernel A's (M = 1..8) and kernel B's (M > 8) wrapper and C
 # entry point for each halves-packed format
 HALVES_GEMV = {GGMLType.Q4_K: "q4k_gemv", GGMLType.Q5_K: "q5k_gemv",
@@ -66,14 +85,21 @@ HALVES_GEMM = {GGMLType.Q4_K: "q4k_gemm", GGMLType.Q5_K: "q5k_gemm",
 INT8_GEMV = {GGMLType.Q8_0: "q8_0_gemv",
              **{t: f"{t.name.lower()}_gemv" for t in CODEBOOK}}
 
+# the name of kernel H's wrapper and C entry point for each 2- or 3-bit
+# K-quant (M = 1..8)
+LOWBIT_GEMV = {GGMLType.Q2_K: "q2k_gemv", GGMLType.Q3_K: "q3k_gemv"}
+
 # kernel launches, one count per wrapper; a run resets and reads them
 launches = dict.fromkeys([*HALVES_GEMV.values(), *HALVES_GEMM.values(),
-                          "q6k_gemv", "qgemm", *INT8_GEMV.values()], 0)
+                          "q6k_gemv", "qgemm", *INT8_GEMV.values(),
+                          *LOWBIT_GEMV.values()], 0)
 
-# the C entry point of kernel D for each format
+# the C entry point of kernel D for each format: all thirteen
 _QGEMM_ENTRY = {GGMLType.Q4_K: "qgemm_q4k", GGMLType.Q5_K: "qgemm_q5k",
                 GGMLType.Q6_K: "qgemm_q6k", GGMLType.Q8_0: "qgemm_q8_0",
-                **{t: f"qgemm_{t.name.lower()}" for t in CODEBOOK}}
+                GGMLType.Q2_K: "qgemm_q2k", GGMLType.Q3_K: "qgemm_q3k",
+                **{t: f"qgemm_{t.name.lower()}" for t in (*CODEBOOK, *LEGACY)}}
+assert set(_QGEMM_ENTRY) == set(QUANTIZED)
 # kernel D's launches per format (their sum is launches["qgemm"])
 qgemm_launches = {t.name: 0 for t in _QGEMM_ENTRY}
 
@@ -239,12 +265,38 @@ def q8_0_gemv_plain(x: torch.Tensor, qt: QTensor,
 iq4_nl_gemv_plain = mxfp4_gemv_plain = iq4_xs_gemv_plain = q8_0_gemv_plain
 
 
+def q2k_gemv_plain(x: torch.Tensor, qt: QTensor,
+                   out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Kernel H's law in plain PyTorch (the Q2_K and Q3_K group law of
+    qmatmul_gp_pallas, `_gp_slice`): per 16-group P = x_bf16 · q (the raw
+    values: Q2_K 0..3, Q3_K quarter + 4·hbit − 4), out = Σ_g dl·P − ml·xs
+    with xs the group sums of x_bf16 (Q2_K only: Q3_K has no min), all in
+    f32; dl and ml as `lowbit_group_scales` gives them."""
+    m, k = x.shape
+    n = qt.shape[0]
+    g = k // 16
+    xb = x.to(torch.bfloat16).to(torch.float32).reshape(m, g, 16)
+    q = lowbit_values(qt).to(torch.float32).reshape(n, g, 16)
+    p = torch.einsum("mgk,ngk->mng", xb, q)  # [M, N, G]
+    dl, ml = lowbit_group_scales(qt)  # [N, G]
+    out = dl[None] * p
+    if ml is not None:
+        out = out - ml[None] * xb.sum(-1)[:, None, :]
+    return out.sum(-1).to(out_dtype)
+
+
+# kernel H's Q3_K branch runs the same law: no min term, signed values
+q3k_gemv_plain = q2k_gemv_plain
+
+
 def qgemm_plain(x: torch.Tensor, qt: QTensor,
                 out_dtype=torch.bfloat16) -> torch.Tensor:
     """Kernel D's law in plain PyTorch (qmatmul_pallas with dequant_tile):
     each weight dequantised in f32 and rounded once to bf16 (uncentered for
-    Q4_K and Q5_K: bf16(q·dl − ml); bf16(q·d) for Q8_0, IQ4_NL and MXFP4;
-    bf16(q·(d·sc)) for IQ4_XS), then a dot with bf16 x in f32."""
+    Q4_K, Q5_K and Q2_K: bf16(q·dl − ml); bf16(q·d) for Q8_0, IQ4_NL and
+    MXFP4; bf16(q·(d·sc)) for IQ4_XS, Q6_K and Q3_K; bf16((q − 8)·d) and
+    bf16((q − 16)·d) for Q4_0 and Q5_0, bf16(q·d + m) for Q4_1 and Q5_1),
+    then a dot with bf16 x in f32."""
     w = dequant(qt, torch.bfloat16).to(torch.float32)
     return (x.to(torch.bfloat16).to(torch.float32) @ w.T).to(out_dtype)
 
@@ -329,11 +381,32 @@ mxfp4_gemv = _int8_gemv(GGMLType.MXFP4, "Kernel E's MXFP4 entry", "K % 32")
 iq4_xs_gemv = _int8_gemv(GGMLType.IQ4_XS, "Kernel E's IQ4_XS branch", "K % 256")
 
 
+def _lowbit_gemv(t: GGMLType):
+    """The wrapper of kernel H's branch for Q2_K or Q3_K (M = 1..8), named
+    as its C entry point."""
+    name = LOWBIT_GEMV[t]
+
+    def wrapper(x: torch.Tensor, qt: QTensor,
+                out_dtype=torch.bfloat16) -> torch.Tensor:
+        _check(x, qt, out_dtype, t)
+        _check_gemv_m(name, x)
+        return _run(name, name, q2k_gemv_plain, x, qt, out_dtype)
+
+    wrapper.__name__ = wrapper.__qualname__ = name
+    wrapper.__doc__ = (f"Kernel H's {t.name} branch (replaces qmatmul_gp_pallas "
+                       f"for {t.name}): M = 1..8, K % 256.")
+    return wrapper
+
+
+q2k_gemv = _lowbit_gemv(GGMLType.Q2_K)
+q3k_gemv = _lowbit_gemv(GGMLType.Q3_K)
+
+
 def qgemm(x: torch.Tensor, qt: QTensor,
           out_dtype=torch.bfloat16) -> torch.Tensor:
-    """Kernel D (replaces qmatmul_pallas for Q4_K, Q5_K, Q6_K, Q8_0, IQ4_NL,
-    IQ4_XS and MXFP4): any M, any K that holds whole blocks of the format's
-    granule (256 for the K-quants and IQ4_XS, 32 for Q8_0, IQ4_NL and
+    """Kernel D (replaces qmatmul_pallas for all thirteen formats): any M,
+    any K that holds whole blocks of the format's granule (256 for the
+    K-quants, the legacy formats and IQ4_XS, 32 for Q8_0, IQ4_NL and
     MXFP4)."""
     _check(x, qt, out_dtype, *_QGEMM_ENTRY)
     return _run("qgemm", _QGEMM_ENTRY[qt.ggml_type], qgemm_plain, x, qt,
@@ -345,23 +418,37 @@ _GEMV = {GGMLType.Q4_K: q4k_gemv, GGMLType.Q5_K: q5k_gemv,
          GGMLType.Q5_0: q5_0_gemv, GGMLType.Q5_1: q5_1_gemv,
          GGMLType.Q6_K: q6k_gemv, GGMLType.Q8_0: q8_0_gemv,
          GGMLType.IQ4_NL: iq4_nl_gemv, GGMLType.IQ4_XS: iq4_xs_gemv,
-         GGMLType.MXFP4: mxfp4_gemv}
+         GGMLType.MXFP4: mxfp4_gemv, GGMLType.Q2_K: q2k_gemv,
+         GGMLType.Q3_K: q3k_gemv}
 _GEMM = {GGMLType.Q4_K: q4k_gemm, GGMLType.Q5_K: q5k_gemm,
          GGMLType.Q4_0: q4_0_gemm, GGMLType.Q4_1: q4_1_gemm,
          GGMLType.Q5_0: q5_0_gemm, GGMLType.Q5_1: q5_1_gemm}
 
 
-def kernel_for(m: int, qt: QTensor):
-    """The kernel wrapper the card runs for an [m, K] x and weight `qt`
-    (the JAX dispatcher's order: gp, then sh, then the generic kernel), or
-    None where no kernel is ported."""
+def gp_supported(m: int, qt: QTensor) -> bool:
+    """The JAX `gp_supported`: M = 1..8 and K a multiple of the format's
+    gp granule."""
     t = qt.ggml_type
-    if t in GP_MIN_K and qt.shape[1] % GP_MIN_K[t] == 0:
-        if m <= GP_MAX_M:
-            return _GEMV[t]
-        if t in _GEMM:
-            return _GEMM[t]
-    return qgemm if t in _QGEMM_ENTRY else None
+    return 1 <= m <= GP_MAX_M and t in _GEMV and qt.shape[1] % GP_MIN_K[t] == 0
+
+
+def sh_supported(m: int, qt: QTensor) -> bool:
+    """The JAX `sh_supported`: M > 8 on a halves-packed format with K a
+    multiple of its granule."""
+    t = qt.ggml_type
+    return m > GP_MAX_M and t in _GEMM and qt.shape[1] % GP_MIN_K[t] == 0
+
+
+def kernel_for(m: int, qt: QTensor):
+    """The kernel wrapper the card runs for an [m, K] x and weight `qt`,
+    in the JAX dispatcher's order under its switches (dequant_matmul.py:
+    665-672): gp, then sh, then the generic kernel D; None for a format
+    with no planes in the port."""
+    if GP_DECODE and gp_supported(m, qt) and (m == 1 or GP_SMALLM):
+        return _GEMV[qt.ggml_type]
+    if SH_PREFILL and sh_supported(m, qt):
+        return _GEMM[qt.ggml_type]
+    return qgemm if qt.ggml_type in _QGEMM_ENTRY else None
 
 
 # K per cuBLAS product of a dense dot on the card. One tensor-core
@@ -425,11 +512,10 @@ def matmul(x: torch.Tensor, w, out_dtype=torch.bfloat16) -> torch.Tensor:
         if kernel is None:
             raise NotImplementedError(
                 f"no CUDA kernel for {GGMLType(w.ggml_type).name} at M = "
-                f"{x.shape[0]}, K = {w.shape[1]}: qmatmul_pallas (the generic "
-                "fused dequant x matmul, omni_tpu/kernels/dequant_matmul.py:103)"
-                " is ported for Q4_K, Q5_K, Q6_K, Q8_0, IQ4_NL, IQ4_XS and "
-                "MXFP4 only, qmatmul_gp_pallas (:333) for those and Q4_0, "
-                "Q4_1, Q5_0 and Q5_1, and qmatmul_splith_pallas (:565) for "
-                "Q4_K, Q5_K, Q4_0, Q4_1, Q5_0 and Q5_1")
+                f"{x.shape[0]}, K = {w.shape[1]}: the port's matmul kernels "
+                "take the thirteen formats the JAX package keeps quantized "
+                f"({', '.join(t.name for t in QUANTIZED)}) on every route; "
+                "the one TPU kernel still to port is qffn_pallas "
+                "(omni_tpu/kernels/fused_ffn.py:80)")
         return kernel(x.to(torch.bfloat16).contiguous(), w, out_dtype)
     return dense_matmul(x, w, out_dtype)

@@ -53,10 +53,31 @@ IQ4_XS has Q8_0's q plane, and
 IQ4_NL and MXFP4 dequantise as Q8_0 does (q·d), IQ4_XS as q·(d·sc), the
 f32 product d·sc formed first.
 
+Q2_K planes (the 2-bit K-quant, a scale and a min per 16 elements):
+- q  u8   [N, K/4]   superblock-local quarters: byte r of superblock s holds
+                     element s·256 + 64j + r at shift 2j (j = 0..3), the
+                     value 0..3 (`_pack_sb_quarters` of the JAX package;
+                     the file's qs group by 32 instead, per 128 elements)
+- sc int8 [N, K/16]  4-bit group scales 0..15
+- mn int8 [N, K/16]  4-bit group mins 0..15
+- d  f32  [N, K/256] super-scale
+- dm f32  [N, K/256] super-min-scale
+Q2_K dequantises as q·dl − ml with dl = d·sc and ml = dm·mn per 16.
+
+Q3_K planes (the 3-bit K-quant, signed, no min), holding q + 4 in 0..7:
+- q  u8   [N, K/4]   (q + 4) & 3 in quarters, as Q2_K's q
+- qh u8   [N, K/8]   bit 2 of q + 4 in element order, as Q5_K's qh (the
+                     file's hmask bit: set means "do not subtract 4")
+- sc int8 [N, K/16]  the 6-bit group scale minus 32, in −32..31
+- d  f32  [N, K/256] super-scale
+Q3_K dequantises as (quarter + 4·hbit − 4)·dl with dl = d·sc per 16.
+
 `repack` builds these planes from GGUF block bytes ON THE DEVICE, as torch
 ops on the uploaded blocks: a host pass over a 5 GB checkpoint would take
-minutes. Only Q8_0, Q4_0, Q4_1, Q5_0, Q5_1, Q4_K, Q5_K, Q6_K, IQ4_NL,
-IQ4_XS and MXFP4 have planes, dequantisers and kernels in the port so far.
+minutes. Every format the JAX package keeps quantized (its
+`NATIVE_QTYPES`: Q8_0, Q4_0, Q4_1, Q5_0, Q5_1, Q2_K, Q3_K, Q4_K, Q5_K,
+Q6_K, IQ4_NL, IQ4_XS and MXFP4) has planes, dequantisers and kernels in
+the port.
 """
 
 from __future__ import annotations
@@ -74,8 +95,11 @@ PLANES = ("q", "sc", "mn", "d", "dm", "qh")
 LEGACY = (GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1)
 # the codebook formats, whose q plane holds int8 values
 CODEBOOK = (GGMLType.IQ4_NL, GGMLType.IQ4_XS, GGMLType.MXFP4)
+# the 2- and 3-bit K-quants, whose q plane holds superblock-local quarters
+# and whose scales (and Q2_K's mins) come per 16 elements
+LOWBIT = (GGMLType.Q2_K, GGMLType.Q3_K)
 QUANTIZED = (GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K, GGMLType.Q8_0,
-             *LEGACY, *CODEBOOK)
+             *LEGACY, *CODEBOOK, *LOWBIT)
 # the formats whose values carry a fifth bit from the qh plane
 FIVE_BIT = (GGMLType.Q5_K, GGMLType.Q5_0, GGMLType.Q5_1)
 # int8 value planes with one scale per 32 elements need only whole 32-blocks
@@ -129,6 +153,15 @@ def plane_specs(t: GGMLType, n: int, k: int) -> dict[str, tuple[tuple, torch.dty
     if t == GGMLType.Q6_K:
         return {"q": ((n, k), torch.int8), "sc": ((n, k // 16), torch.int8),
                 "d": ((n, k // QK_K), torch.float32)}
+    if t in LOWBIT:
+        specs = {"q": ((n, k // 4), torch.uint8), "sc": ((n, k // 16), torch.int8),
+                 "d": ((n, k // QK_K), torch.float32)}
+        if t == GGMLType.Q2_K:
+            specs["mn"] = ((n, k // 16), torch.int8)
+            specs["dm"] = ((n, k // QK_K), torch.float32)
+        else:
+            specs["qh"] = ((n, k // 8), torch.uint8)
+        return specs
     if t in LEGACY:
         specs = {"q": ((n, k // 2), torch.uint8), "d": ((n, k // 32), torch.float32)}
         if t in (GGMLType.Q4_1, GGMLType.Q5_1):
@@ -179,6 +212,16 @@ def unpack_sb_halves(qp: torch.Tensor) -> torch.Tensor:
     return torch.cat([lo, hi], dim=2).reshape(n, half * 2)
 
 
+def unpack_sb_quarters(qp: torch.Tensor) -> torch.Tensor:
+    """[N, K/4] packed quarters -> [N, K] uint8 values 0..3 in element
+    order: byte r of superblock s holds element s·256 + 64j + r at shift
+    2j."""
+    n, quarter = qp.shape
+    sh = torch.tensor([0, 2, 4, 6], dtype=torch.uint8, device=qp.device)
+    v = (qp.reshape(n, quarter // 64, 1, 64) >> sh.reshape(1, 1, 4, 1)) & 3
+    return v.reshape(n, quarter * 4)
+
+
 def unpack_bits(qh: torch.Tensor) -> torch.Tensor:
     """[N, K/8] bit plane -> [N, K] uint8 0/1, bit b of byte r as element
     8r+b."""
@@ -215,8 +258,28 @@ def q4k_group_scales(qt: QTensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def q6k_group_scales(qt: QTensor) -> torch.Tensor:
-    """Per-16-group dl = d·sc as f32 [N, K/16]."""
+    """Per-16-group dl = d·sc as f32 [N, K/16] (Q6_K, Q2_K and Q3_K)."""
     return _expand(qt.d, 16) * qt.sc.to(torch.float32)
+
+
+def lowbit_values(qt: QTensor) -> torch.Tensor:
+    """The raw values q of a Q2_K or Q3_K weight, int8 [N, K] in element
+    order: Q2_K's quarters 0..3; Q3_K's quarter + 4·hbit − 4, in −4..3."""
+    q = unpack_sb_quarters(qt.q).to(torch.int8)
+    if qt.ggml_type == GGMLType.Q3_K:
+        q = q + 4 * unpack_bits(qt.qh).to(torch.int8) - 4
+    return q
+
+
+def lowbit_group_scales(qt: QTensor) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Per-16-group (dl, ml) as f32 [N, K/16] of a Q2_K or Q3_K weight, the
+    law w = q·dl − ml of `_gp_slice`: dl = d·sc and, for Q2_K, ml = dm·mn
+    (the exact f32 products the reference dequantiser forms); Q3_K has no
+    min (None)."""
+    ml = None
+    if qt.ggml_type == GGMLType.Q2_K:
+        ml = _expand(qt.dm, 16) * qt.mn.to(torch.float32)
+    return q6k_group_scales(qt), ml
 
 
 def int8_group_scales(qt: QTensor) -> torch.Tensor:
@@ -243,6 +306,10 @@ def dequant(qt: QTensor, dtype=torch.float32) -> torch.Tensor:
                 ).to(dtype)
     if qt.ggml_type in LEGACY:
         return _legacy_law(kquant_values(qt), qt.d, qt.dm, qt.ggml_type, dtype)
+    if qt.ggml_type in LOWBIT:
+        dl, ml = lowbit_group_scales(qt)
+        w = lowbit_values(qt).to(torch.float32) * _expand(dl, 16)
+        return (w if ml is None else w - _expand(ml, 16)).to(dtype)
     raise NotImplementedError(
         f"dequant: {GGMLType(qt.ggml_type).name} is not ported yet")
 
@@ -305,6 +372,8 @@ def repack(blocks: torch.Tensor, ggml_type: GGMLType,
                        sc=None, mn=None, d=d, dm=m, qh=qh)
     if t in CODEBOOK:
         return _codebook_repack(blocks, t, n, k)
+    if t in LOWBIT:
+        return _lowbit_repack(blocks, t, n, k)
     if t == GGMLType.Q8_0:
         # 34-byte blocks, not 16-byte aligned: the fields are cut from the
         # uint8 [N, K/32, 34] view, the f16 d in bytes 0-1, then 32 int8
@@ -324,17 +393,7 @@ def repack(blocks: torch.Tensor, ggml_type: GGMLType,
         qs = b[..., (16 if t == GGMLType.Q4_K else 48):].reshape(n, nsb, 4, 1, 32)
         v = torch.cat([qs & 0xF, qs >> 4], dim=3).reshape(n, nsb, 2, 128)
         q = (v[:, :, 0] | (v[:, :, 1] << 4)).reshape(n, k // 2)
-        qh = None
-        if t == GGMLType.Q5_K:
-            # bit i of the block's qh byte l is the high bit of element
-            # 32i + l; the plane packs eight elements in order per byte
-            sh = torch.arange(8, dtype=torch.uint8, device=b.device)
-            bits = ((b[..., 16:48].reshape(n, nsb, 1, 32) >> sh.reshape(8, 1)) & 1
-                    ).reshape(n, nsb, 32, 8)
-            qh = bits[..., 0]
-            for j in range(1, 8):
-                qh = qh | (bits[..., j] << j)
-            qh = qh.reshape(n, k // 8)
+        qh = _high_bit_plane(b[..., 16:48], n, k) if t == GGMLType.Q5_K else None
         return QTensor(t, (n, k), q=q,
                        sc=sc.to(torch.int8).reshape(n, nsb * 8),
                        mn=mn.to(torch.int8).reshape(n, nsb * 8),
@@ -352,6 +411,48 @@ def repack(blocks: torch.Tensor, ggml_type: GGMLType,
     sc = b[..., 192:208].contiguous().view(torch.int8).reshape(n, nsb * 16)
     return QTensor(t, (n, k), q=q, sc=sc, mn=None, d=_f16_field(b, 208),
                    dm=None)
+
+
+def _high_bit_plane(hb: torch.Tensor, n: int, k: int) -> torch.Tensor:
+    """The 32 bytes of high bits of each superblock (uint8 [N, K/256, 32];
+    bit i of byte l is element 32i + l's: Q5_K's qh, Q3_K's hmask) -> the
+    [N, K/8] plane in element order, element 8r + b in bit b of byte r."""
+    sh = torch.arange(8, dtype=torch.uint8, device=hb.device).reshape(8, 1)
+    bits = ((hb.reshape(n, k // QK_K, 1, 32) >> sh) & 1).reshape(n, k // 8, 8)
+    out = bits[..., 0]
+    for j in range(1, 8):
+        out = out | (bits[..., j] << j)
+    return out
+
+
+def _lowbit_repack(blocks: torch.Tensor, t: GGMLType, n: int, k: int) -> QTensor:
+    """Q2_K and Q3_K superblocks -> their planes. A superblock's qs[64]
+    hold its elements in two runs of 32 bytes, 128 elements each: bits 2i
+    and 2i + 1 of byte l of run h are element 128h + 32i + l. The plane
+    regroups them into quarters: byte r holds elements 64j + r at shift
+    2j."""
+    nsb = k // QK_K
+    b = blocks.reshape(n, nsb, type_traits(t).type_size)
+    off = 16 if t == GGMLType.Q2_K else 32  # where qs starts
+    sh = torch.tensor([0, 2, 4, 6], dtype=torch.uint8, device=b.device)
+    qs = b[..., off:off + 64].reshape(n, nsb, 2, 1, 32)
+    v = ((qs >> sh.reshape(4, 1)) & 3).reshape(n, nsb, 4, 64)  # element order
+    q = (v[:, :, 0] | (v[:, :, 1] << 2) | (v[:, :, 2] << 4) | (v[:, :, 3] << 6)
+         ).reshape(n, k // 4)
+    if t == GGMLType.Q2_K:
+        s = b[..., :16]
+        return QTensor(t, (n, k), q=q, sc=(s & 0xF).to(torch.int8).reshape(n, nsb * 16),
+                       mn=(s >> 4).to(torch.int8).reshape(n, nsb * 16),
+                       d=_f16_field(b, 80), dm=_f16_field(b, 82))
+    # hmask: each element's "do not subtract 4" bit, bit 2 of q + 4
+    qh = _high_bit_plane(b[..., :32], n, k)
+    s = b[..., 96:108].to(torch.int32)
+    lo = torch.cat([s[..., :8] & 0xF, s[..., :8] >> 4], dim=-1)  # scale i: i % 8, i // 8
+    hi = (s[..., 8:12].reshape(n, nsb, 1, 4) >> (2 * torch.arange(
+        4, device=b.device)).reshape(4, 1)) & 3  # scale i: byte 8 + i % 4, i // 4
+    sc = ((lo | (hi.reshape(n, nsb, 16) << 4)) - 32).to(torch.int8)
+    return QTensor(t, (n, k), q=q, sc=sc.reshape(n, nsb * 16), mn=None,
+                   d=_f16_field(b, 108), dm=None, qh=qh)
 
 
 def _legacy_fields(blocks: torch.Tensor, t: GGMLType, n: int, k: int):
@@ -452,8 +553,9 @@ def load_quantized(blocks: np.ndarray, ggml_type: GGMLType,
                    device=None):
     """The JAX package's load policy (`load_quantized`), for the formats the
     port has:
-    - a 2-D Q8_0, Q4_0, Q4_1, Q5_0, Q5_1, Q4_K, Q5_K, Q6_K, IQ4_NL, IQ4_XS
-      or MXFP4 tensor stays quantized (a QTensor on `device`) where K holds
+    - a 2-D Q8_0, Q4_0, Q4_1, Q5_0, Q5_1, Q2_K, Q3_K, Q4_K, Q5_K, Q6_K,
+      IQ4_NL, IQ4_XS or MXFP4 tensor (the JAX package's NATIVE_QTYPES)
+      stays quantized (a QTensor on `device`) where K holds
       whole blocks of the format's `tile_granule` (always, but for a legacy
       tensor with K % 256 != 0), unless keep_quantized=False; otherwise it
       is dequantised there to bf16 (the JAX package widens such a legacy
@@ -462,10 +564,9 @@ def load_quantized(blocks: np.ndarray, ggml_type: GGMLType,
       package: 3 mantissa bits fewer than llama.cpp keeps);
     - 1-D tensors (norms, biases) become f32, 2-D dense ones bf16;
     - every other format raises NotImplementedError naming it. The JAX
-      package keeps Q2_K and Q3_K quantized, and widens the rest (TQ1_0,
-      TQ2_0, IQ1_S, IQ1_M, IQ2_*, IQ3_*) to dense bf16 at load with a
-      warning; the port has neither their kernels nor their dequantisers
-      yet, so it refuses both kinds rather than guess."""
+      package widens those (TQ1_0, TQ2_0, IQ1_S, IQ1_M, IQ2_*, IQ3_*) to
+      dense bf16 at load with a warning; the port has no dequantisers for
+      them yet, so it refuses them rather than guess."""
     from .. import resolve_device
 
     t = GGMLType(ggml_type)

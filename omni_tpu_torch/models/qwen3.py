@@ -118,11 +118,12 @@ def fuse_layer(layer: dict) -> dict:
 def load_params(reader, fuse: bool = False, device=None) -> dict:
     """GGUF tensors -> the dense Qwen3 parameter dict on `device` (the
     dense subset of omni_tpu's `qwen3.load_params`): Q8_0, Q4_0, Q4_1, Q5_0,
-    Q5_1, Q4_K, Q5_K, Q6_K, IQ4_NL, IQ4_XS and MXFP4 weights stay quantized
-    (a Q4_0, Q4_1, Q5_0 or Q5_1 weight whose K is no multiple of 256
-    becomes dense bf16, as in the JAX package), F32/F16/BF16 weights become
-    dense bf16, the token embedding (Q5_K in a Q5_K_M file, Q4_0 in a Q4_0
-    one, IQ4_NL in an IQ4_NL one) is dequantised to dense bf16 (as
+    Q5_1, Q2_K, Q3_K, Q4_K, Q5_K, Q6_K, IQ4_NL, IQ4_XS and MXFP4 weights
+    stay quantized (a Q4_0, Q4_1, Q5_0 or Q5_1 weight whose K is no multiple
+    of 256 becomes dense bf16, as in the JAX package), F32/F16/BF16 weights
+    become dense bf16, the token embedding (Q5_K in a Q5_K_M file, Q4_0 in a
+    Q4_0 one, IQ4_NL in an IQ4_NL one, Q2_K in a Q2_K one) is dequantised to
+    dense bf16 (as
     keep_q=False does; the JAX package widens it through its numpy
     dequantiser, whose f32 values the port's `dequant` gives bit for bit),
     norms are f32, and `output` is None

@@ -106,7 +106,7 @@ class Context:
             raise KVCacheFull(
                 f"KV pool exhausted: batch of {t} (padded to {tb}) needs "
                 f"{tb} free cells, have {free} of {self.cache.size}; "
-                f"shift or seq_rm first")
+                f"free cells with seq_rm first")
         pos = batch.pos if batch.pos is not None else self._auto_pos(batch)
         seq = (batch.seq_id if batch.seq_id is not None
                else np.zeros(t, np.int32))
@@ -150,6 +150,43 @@ class Context:
             pos[i] = counters.get(int(s), 0)
             counters[int(s)] = pos[i] + 1
         return pos
+
+    # ---- KV session ops (llama_memory_* counterparts) ----------------------
+    # Each re-syncs the host shadows cells_used and kv_high exactly where
+    # the JAX Context does (omni_tpu/runtime/context.py:311-358).
+    def sync_cells_used(self) -> int:
+        """Re-sync the host-side occupied-cell count from the device (one
+        transfer; cold paths only), and the ragged-KV high-water mark
+        exactly (the highest occupied cell index + 1)."""
+        occupied = self.cache.seq_mask != 0
+        idx = torch.arange(1, self.cache.size + 1, device=occupied.device)
+        used, high = torch.stack([occupied.sum(),
+                                  torch.where(occupied, idx, 0).max()]).tolist()
+        self.cells_used, self.kv_high = int(used), int(high)
+        return self.cells_used
+
+    def seq_rm(self, seq_id: int, p0: int = -1, p1: int = -1) -> None:
+        self.cache.seq_rm(seq_id, p0, p1)
+        self.sync_cells_used()
+
+    def seq_cp(self, seq_src: int, seq_dst: int, p0: int = -1,
+               p1: int = -1) -> None:
+        self.cache.seq_cp(seq_src, seq_dst, p0, p1)  # occupies no new cell
+
+    def seq_rm_all(self, p0: int = -1, p1: int = -1) -> None:
+        """llama_memory_seq_rm(seq = -1): drop positions from every seq."""
+        self.cache.seq_rm_all(p0, p1)
+        self.sync_cells_used()
+
+    def seq_keep(self, seq_id: int) -> None:
+        self.cache.seq_keep(seq_id)
+        self.sync_cells_used()
+
+    def clear_kv(self) -> None:
+        self.cache.clear()
+        self.n_past.clear()
+        self.cells_used = 0
+        self.kv_high = 0
 
     def prefill(self, tokens, seq_id: int = 0, chunk: int = 256):
         """Chunked prompt ingestion; returns logits of the last position."""

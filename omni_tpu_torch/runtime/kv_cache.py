@@ -14,8 +14,12 @@ scale (the JAX package's law, not llama.cpp's per-32 blocks): int8 rows
 for bit.
 
 Unlike the JAX cache, which is an immutable pytree, this one is UPDATED IN
-PLACE: write, write_all, commit and seq_rm mutate the tensors and return
-`self`, so a step never copies the pool.
+PLACE: write, write_all, commit and the session operations (seq_rm,
+seq_cp, seq_rm_all, seq_keep, clear) mutate the tensors and return `self`,
+so a step never copies the pool. The session operations touch only the
+cells' (pos, seq_mask) metadata, never a cell's values, so they work alike
+on bf16, q8_0 and q4_0 pools; seq_add and seq_div, which re-rotate K, are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -192,11 +196,38 @@ class KVCache:
 
     def seq_rm(self, seq_id: int, p0: int = -1, p1: int = -1) -> "KVCache":
         sel = self._owned(seq_id) & self._in_range(p0, p1)
-        new_mask = torch.where(sel, self.seq_mask & ~(1 << seq_id),
-                               self.seq_mask)
+        return self._drop_emptied(torch.where(sel, self.seq_mask & ~(1 << seq_id),
+                                              self.seq_mask))
+
+    def seq_cp(self, seq_src: int, seq_dst: int, p0: int = -1,
+               p1: int = -1) -> "KVCache":
+        """Add seq_dst to the cells of seq_src in [p0, p1)."""
+        sel = self._owned(seq_src) & self._in_range(p0, p1)
+        self.seq_mask.copy_(torch.where(sel, self.seq_mask | (1 << seq_dst),
+                                        self.seq_mask))
+        return self
+
+    def _drop_emptied(self, new_mask: torch.Tensor) -> "KVCache":
+        """Store `new_mask` and free (pos = -1) every cell it leaves empty."""
         self.seq_mask.copy_(new_mask)
         self.pos.copy_(torch.where(new_mask == 0,
                                    torch.full_like(self.pos, -1), self.pos))
+        return self
+
+    def seq_rm_all(self, p0: int = -1, p1: int = -1) -> "KVCache":
+        """Remove the cells in [p0, p1) from every sequence (the seq_id = -1
+        form of llama_memory_seq_rm)."""
+        sel = self._in_range(p0, p1)
+        return self._drop_emptied(torch.where(sel, torch.zeros_like(self.seq_mask),
+                                              self.seq_mask))
+
+    def seq_keep(self, seq_id: int) -> "KVCache":
+        """Drop every sequence but seq_id."""
+        return self._drop_emptied(self.seq_mask & (1 << seq_id))
+
+    def clear(self) -> "KVCache":
+        self.pos.fill_(-1)
+        self.seq_mask.zero_()
         return self
 
     def attn_mask(self, q_pos: torch.Tensor, q_seq: torch.Tensor,

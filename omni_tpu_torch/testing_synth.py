@@ -8,8 +8,9 @@ no multi-GB host-to-device copy happens. Three forms:
   uniform in [-0.02, 0.02). It streams 4.49 GB per decode token, less than
   a real Q4_K_M checkpoint (5.27 GB: its Q6_K tensors are larger).
 - `write_qwen3_gguf`: a GGUF file whose tensors take the types of a
-  quantization recipe (Q4_K_M, Q5_K_M, Q8_0, Q4_0, Q5_0, IQ4_NL, IQ4_XS or
-  MXFP4: llama.cpp's rules, the port's copy of `omni_tpu/cli/quantize.py`,
+  quantization recipe (Q4_K_M, Q5_K_M, Q8_0, Q4_0, Q5_0, IQ4_NL, IQ4_XS,
+  MXFP4, Q2_K or Q3_K: llama.cpp's rules, the port's copy of
+  `omni_tpu/cli/quantize.py`,
   and for Q4_0 and Q5_0 optionally llama.cpp's importance-matrix layout),
   with random block
   bytes: Q4_K in the ranges above; Q5_K the same, its high bits random
@@ -29,10 +30,21 @@ no multi-GB host-to-device copy happens. Three forms:
   IQ4_NL's d uniform in [2.5e-4, 5e-4) (RMS 0.026), IQ4_XS's 6-bit group
   scales random, so ls − 32 spans −32..31, under a d uniform in
   [1.5e-5, 2.5e-5) (RMS 0.025), MXFP4's e8m0 exponents 119..121 (d 2^-9 to
-  2^-7, mid-range of the byte; RMS 0.030). The Q4_K weights in these ranges have a
-  common part (mean 0.017, 91 % positive); the Q6_K,
-  Q8_0, Q4_0 and Q5_0 weights have none (mean ~0), so a Q6_K or Q8_0 output
-  head gives logits of max ~10 where the all-Q4_K model's reach ~110.
+  2^-7, mid-range of the byte; RMS 0.030); Q2_K and Q3_K (recipes of the
+  same names: every layer weight and the embedding in the format, the head
+  Q6_K, the JAX quantizer's rule for its uniform recipes) with every bit
+  of the block random but d and dmin, which are drawn as Q4_K's are,
+  uniform in [1e-5, 1.1e-4): Q2_K's 4-bit scales and mins over 0..15 and
+  its values over 0..3 (weights of mean 2.3e-4, RMS 9.6e-4), Q3_K's hmask
+  bits, 2-bit quarters and 12 bytes of packed 6-bit scales random, so its
+  scales span −32..31 and its values −4..3 (mean ~0, RMS 2.9e-3). Those
+  ranges were fixed before any check ran and not tuned since; they make
+  the low-bit weights 9-26x smaller than the Q4_K ones, which the
+  per-head q/k norms and the RMS norms absorb. The Q4_K weights in these
+  ranges have a common part (mean 0.017, 91 % positive), and so do the
+  Q2_K ones (their mins); the Q6_K, Q8_0, Q4_0, Q5_0 and Q3_K weights have
+  none (mean ~0), so a Q6_K or Q8_0 output head gives logits of max ~10
+  where the all-Q4_K model's reach ~110.
 - `synth_qwen3_dense_params`: the dense parameter dict of an F16 checkpoint
   as the port loads one (every weight bf16, drawn in F16 first), normal
   weights of RMS 0.025, unfused.
@@ -180,13 +192,33 @@ def mxfp4_blocks(nb: int, device, generator: torch.Generator) -> torch.Tensor:
                       _ints(0, 256, (nb, 16), device, generator)], dim=1)
 
 
+def q2k_blocks(nb: int, device, generator: torch.Generator) -> torch.Tensor:
+    """nb random Q2_K superblocks [nb, 84]: 16 scale bytes (a 4-bit scale
+    and a 4-bit min each) and 64 bytes of 2-bit values, all random, then d
+    and dmin uniform in [1e-5, 1.1e-4) as f16 (`q4k_blocks`'s draws)."""
+    return torch.cat([_ints(0, 256, (nb, 80), device, generator),
+                      _unif_f16_bytes(nb, 1e-5, 1.1e-4, device, generator),
+                      _unif_f16_bytes(nb, 1e-5, 1.1e-4, device, generator)], dim=1)
+
+
+def q3k_blocks(nb: int, device, generator: torch.Generator) -> torch.Tensor:
+    """nb random Q3_K superblocks [nb, 110]: hmask (32 bytes), the 2-bit
+    values (64) and the packed 6-bit scales (12), all random (scales
+    −32..31, values −4..3, every high bit a coin flip: a kernel that reads
+    hmask's sense backwards is off by 4·dl), then d uniform in [1e-5,
+    1.1e-4) as f16 (`q4k_blocks`'s draw)."""
+    return torch.cat([_ints(0, 256, (nb, 108), device, generator),
+                      _unif_f16_bytes(nb, 1e-5, 1.1e-4, device, generator)], dim=1)
+
+
 # format -> its random block maker, (nb, device, generator) -> uint8
 # [nb, type_size]
 BLOCKS = {GGMLType.Q4_K: q4k_blocks, GGMLType.Q5_K: q5k_blocks,
           GGMLType.Q6_K: q6k_blocks, GGMLType.Q8_0: q8_0_blocks,
           **{t: functools.partial(legacy_blocks, t) for t in LEGACY},
           GGMLType.IQ4_NL: iq4_nl_blocks, GGMLType.IQ4_XS: iq4_xs_blocks,
-          GGMLType.MXFP4: mxfp4_blocks}
+          GGMLType.MXFP4: mxfp4_blocks, GGMLType.Q2_K: q2k_blocks,
+          GGMLType.Q3_K: q3k_blocks}
 
 
 def synth_quant(t: GGMLType, n: int, k: int, device,
@@ -225,7 +257,7 @@ def use_more_bits(i_layer: int, n_layers: int) -> bool:
 RECIPES = {"Q4_K_M": GGMLType.Q4_K, "Q5_K_M": GGMLType.Q5_K,
            "Q8_0": GGMLType.Q8_0, "Q4_0": GGMLType.Q4_0, "Q5_0": GGMLType.Q5_0,
            "IQ4_NL": GGMLType.IQ4_NL, "IQ4_XS": GGMLType.IQ4_XS,
-           "MXFP4": GGMLType.MXFP4}
+           "MXFP4": GGMLType.MXFP4, "Q2_K": GGMLType.Q2_K, "Q3_K": GGMLType.Q3_K}
 # the importance-matrix layout's type for the first ffn_down layers
 _IMATRIX_DOWN = {GGMLType.Q4_0: GGMLType.Q4_1, GGMLType.Q5_0: GGMLType.Q5_1}
 
@@ -245,9 +277,12 @@ def pick_type(name: str, ftype: str, default: GGMLType, n_layers: int,
     first layers going wrong); the JAX package's quantizer has no such rule
     (an importance matrix there weights the rounding only).
 
-    The codebook recipes (IQ4_NL, IQ4_XS, MXFP4) follow the JAX quantizer:
-    every 2-D weight in the recipe's type, the token embedding too, the
-    head Q6_K (`quantize.py:46-60`; Qwen3's weights all have K % 256 == 0).
+    The codebook recipes (IQ4_NL, IQ4_XS, MXFP4) and the uniform low-bit
+    ones (Q2_K, Q3_K) follow the JAX quantizer: every 2-D weight in the
+    recipe's type, the token embedding too, the head Q6_K (`quantize.py:
+    46-60`; Qwen3's weights all have K % 256 == 0). llama.cpp's own Q2_K
+    and Q3_K_M mixes promote some tensors to Q3_K, Q4_K or Q5_K; such a
+    file is not in this repository, and this copy does not write one.
     llama.cpp's own IQ4_NL and IQ4_XS recipes promote some tensors (the
     head, attn_v, ffn_down on some layers), and its MXFP4 recipe,
     MXFP4_MOE, targets the expert tensors of a mixture-of-experts model;

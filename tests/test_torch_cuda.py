@@ -295,6 +295,93 @@ def test_cuda_codebook_gguf_goes_through_e_c_and_d(card, tmp_path, recipe):
                                  recipe: 56, "Q6_K": 1}
 
 
+LOWBIT_CASES = [(t, m, k) for t in ("Q2_K", "Q3_K")
+                for m, k in ((1, 4096), (3, 6144), (8, 2048), (9, 4096), (130, 1280))] + [
+    ("Q2_K", 1, 1280), ("Q3_K", 8, 1280)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt,m,k", LOWBIT_CASES,
+                         ids=[f"{t}-m{m}-k{k}" for t, m, k in LOWBIT_CASES])
+def test_cuda_lowbit_kernel_matches_plain(card, fmt, m, k):
+    """Kernel H's `q2k_gemv` and `q3k_gemv` (M <= 8, K % 2048) and kernel
+    D's Q2_K and Q3_K branches (M > 8, and K = 1280 at any M), through
+    `matmul`, against their plain versions on a ragged N (1000 rows), both
+    output dtypes, on testing_synth's blocks (every scale, min and high
+    bit random); one launch counted per call, under the kernel's name
+    (D's also under its format)."""
+    qtype = GGMLType[fmt]
+    gen = torch.Generator(device=card).manual_seed(m + k)
+    qt = synth_quant(qtype, 1000, k, card, gen)
+    x = torch.randn((m, k), device=card, generator=gen).to(torch.bfloat16)
+    kernel = dm.kernel_for(m, qt).__name__
+    assert kernel == (dm.LOWBIT_GEMV[qtype] if m <= 8 and k % 2048 == 0 else "qgemm")
+    plain = getattr(dm, kernel + "_plain")
+    for out_dtype in (torch.bfloat16, torch.float32):
+        dm.reset_launches()
+        got = dm.matmul(x, qt, out_dtype).float()
+        want = plain(x, qt, out_dtype).float()
+        torch.cuda.synchronize()
+        assert dm.launches == {**dict.fromkeys(dm.launches, 0), kernel: 1}
+        if kernel == "qgemm":
+            assert dm.qgemm_launches[fmt] == 1
+        assert torch.isfinite(got).all() and limit_ratio(got, want) <= 1.0
+
+
+SWITCHED_CASES = [(t, m) for t in ("Q4_0", "Q4_1", "Q5_0", "Q5_1") for m in (1, 8, 130)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt,m", SWITCHED_CASES,
+                         ids=[f"{t}-m{m}" for t, m in SWITCHED_CASES])
+def test_cuda_switched_legacy_goes_through_d(card, fmt, m):
+    """With the gp and sh routes off (OMNI_GP_DECODE=0, OMNI_SH_PREFILL=0)
+    a legacy weight goes through kernel D's branch of its format at every
+    M, against D's plain version (dequant_tile's bf16 weights), both output
+    dtypes; one launch of D counted per call."""
+    qtype = GGMLType[fmt]
+    gen = torch.Generator(device=card).manual_seed(m)
+    qt = synth_quant(qtype, 1000, 4096, card, gen)
+    x = torch.randn((m, 4096), device=card, generator=gen).to(torch.bfloat16)
+    saved = dm.GP_DECODE, dm.SH_PREFILL
+    dm.GP_DECODE = dm.SH_PREFILL = False
+    try:
+        for out_dtype in (torch.bfloat16, torch.float32):
+            dm.reset_launches()
+            got = dm.matmul(x, qt, out_dtype).float()
+            want = dm.qgemm_plain(x, qt, out_dtype).float()
+            torch.cuda.synchronize()
+            assert dm.launches == {**dict.fromkeys(dm.launches, 0), "qgemm": 1}
+            assert dm.qgemm_launches[fmt] == 1
+            assert torch.isfinite(got).all() and limit_ratio(got, want) <= 1.0
+    finally:
+        dm.GP_DECODE, dm.SH_PREFILL = saved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("recipe", ["Q2_K", "Q3_K"])
+def test_cuda_lowbit_gguf_goes_through_h_c_and_d(card, tmp_path, recipe):
+    """A small Q2_K (Q3_K) Qwen3 (8 layers, K multiples of 2048), written
+    and loaded as a GGUF, prefills and decodes on the card: the layer
+    weights through kernel H's entry and D's branch of the format, the Q6_K
+    head through C and D, finite logits."""
+    cfg = qwen3.Qwen3Config(**{**_SMALL, "n_layers": 8})
+    path = tmp_path / f"{recipe}.gguf"
+    write_qwen3_gguf(path, cfg, recipe, torch.Generator(device=card).manual_seed(0))
+    params = qwen3.load_params(GGUFReader(path), device=card)
+    ctx = Context(cfg, params, qwen3.forward, qwen3.embed, n_ctx=256,
+                  sampler=SamplerParams(greedy=True), device=card)
+    dm.reset_launches()
+    logits = ctx.prefill(list(range(20)))
+    assert torch.isfinite(logits).all()
+    logits, _ = ctx.decode(Batch(tokens=[int(torch.argmax(logits))]))
+    assert torch.isfinite(logits).all()
+    assert dm.launches == {**dict.fromkeys(dm.launches, 0), "qgemm": 57,
+                           "q6k_gemv": 1, dm.LOWBIT_GEMV[GGMLType[recipe]]: 56}
+    assert dm.qgemm_launches == {**dict.fromkeys(dm.qgemm_launches, 0),
+                                 recipe: 56, "Q6_K": 1}
+
+
 @pytest.mark.cuda
 def test_cuda_dense_dot_matches_the_widened_product(card):
     """The dense dot on the card (bf16 operands, f32 outputs, K split)

@@ -12,6 +12,7 @@ import jax
 from jax._src import compilation_cache
 from omni_tpu.cli import quantize as jax_quantize
 from omni_tpu.core import GGMLType, quants
+from omni_tpu.core.dtypes import type_traits
 from omni_tpu.core.gguf import GGUFReader as JaxReader
 from omni_tpu.core.gguf import GGUFWriter as JaxWriter
 from omni_tpu.kernels.qformats import load_quantized as jax_load_quantized
@@ -158,13 +159,16 @@ def test_load_quantized_widens_like_jax(qtype, shape, keep):
     np.testing.assert_array_equal(got.float().numpy(), want)
 
 
-@pytest.mark.parametrize("qtype", [GGMLType.Q3_K, GGMLType.Q2_K, GGMLType.TQ2_0],
+@pytest.mark.parametrize("qtype", [GGMLType.TQ1_0, GGMLType.IQ2_XXS, GGMLType.TQ2_0],
                          ids=lambda t: t.name)
 def test_load_quantized_refuses_unported_formats(qtype):
-    """The JAX package keeps Q2_K and Q3_K quantized and widens TQ2_0 at
-    load; the port has neither their kernels nor their dequantisers yet, so
-    it raises, naming the format, rather than widening them quietly."""
-    blocks = quants.quantize(np.zeros((2, 256), np.float32), qtype)
+    """The JAX package widens TQ1_0, TQ2_0 and IQ2_XXS to bf16 at load; the
+    port has no dequantiser for them yet, so it raises, naming the format,
+    rather than widening them quietly."""
+    if qtype == GGMLType.IQ2_XXS:  # omni_tpu has no IQ2_XXS encoder
+        blocks = np.zeros((2, type_traits(qtype).type_size), np.uint8)
+    else:
+        blocks = quants.quantize(np.zeros((2, 256), np.float32), qtype)
     with pytest.raises(NotImplementedError, match=qtype.name):
         load_quantized(blocks, qtype, (2, 256), device="cpu")
 

@@ -128,7 +128,7 @@ def test_kernel_build_runs_nvcc_per_source_in_parallel(tmp_path):
             want_dir = _build.build_dir()
     finally:
         _build.load.cache_clear()
-    assert len(started) == len(_build.SOURCES) == 6
+    assert len(started) == len(_build.SOURCES) == 7
     assert waited[0] == len(started)  # all started before the first wait
     for cmd in started:
         assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
@@ -136,12 +136,14 @@ def test_kernel_build_runs_nvcc_per_source_in_parallel(tmp_path):
     assert out_dirs == {want_dir} and want_dir.parent == tmp_path
     assert sorted(fns) == ["flash_decode_bf16", "flash_decode_i4", "flash_decode_i8",
                            "iq4_nl_gemv", "iq4_xs_gemv", "mxfp4_gemv",
+                           "q2k_gemv", "q3k_gemv",
                            "q4_0_gemm", "q4_0_gemv", "q4_1_gemm", "q4_1_gemv",
                            "q4k_gemm", "q4k_gemv", "q5_0_gemm", "q5_0_gemv",
                            "q5_1_gemm", "q5_1_gemv", "q5k_gemm", "q5k_gemv",
                            "q6k_gemv", "q8_0_gemv", "qgemm_iq4_nl", "qgemm_iq4_xs",
-                           "qgemm_mxfp4", "qgemm_q4k", "qgemm_q5k", "qgemm_q6k",
-                           "qgemm_q8_0"]
+                           "qgemm_mxfp4", "qgemm_q2k", "qgemm_q3k", "qgemm_q4_0",
+                           "qgemm_q4_1", "qgemm_q4k", "qgemm_q5_0", "qgemm_q5_1",
+                           "qgemm_q5k", "qgemm_q6k", "qgemm_q8_0"]
     for name, fn in fns.items():
         assert fn.argtypes[:7] == [ctypes.c_void_p] * 7
         if name.startswith("flash"):  # 8 pointers, int64 strides, f32 scale
@@ -152,7 +154,7 @@ def test_kernel_build_runs_nvcc_per_source_in_parallel(tmp_path):
             assert fn.argtypes[7:12] == [ctypes.c_void_p] + [ctypes.c_int] * 4
         assert fn.argtypes[-1] == ctypes.c_void_p and fn.restype == ctypes.c_int
     assert sorted(p.name for p in want_dir.iterdir()) == [
-        "flash_decode.so", "q4k_gemm.so", "q4k_gemv.so", "q6k_gemv.so",
+        "flash_decode.so", "lowbit_gemv.so", "q4k_gemm.so", "q4k_gemv.so", "q6k_gemv.so",
         "q8_0_gemv.so", "qgemm.so"]
 
 

@@ -7,6 +7,7 @@ On the CPU the port's kernel wrappers run their plain PyTorch versions;
 the CUDA kernels themselves are held against those on the card
 (tests/test_torch_cuda.py and chip_smoke.py)."""
 
+import dataclasses
 from unittest import mock
 
 import jax
@@ -118,7 +119,7 @@ def test_repack_is_the_transpose_of_jax_repack(qtype, n, k):
                                   quants.dequantize(blocks, qtype, (n, k)))
 
 
-@pytest.mark.parametrize("qtype", [GGMLType.Q2_K, GGMLType.Q3_K, GGMLType.F32],
+@pytest.mark.parametrize("qtype", [GGMLType.TQ1_0, GGMLType.TQ2_0, GGMLType.F32],
                          ids=lambda t: t.name)
 def test_unported_formats_raise_naming_them(qtype):
     blocks = np.zeros((1, 256), np.float32) if qtype == GGMLType.F32 else \
@@ -265,21 +266,33 @@ def test_cpu_dispatch_launches_no_kernel():
 @pytest.mark.parametrize("qtype", [GGMLType.Q3_K, GGMLType.Q2_K],
                          ids=lambda t: t.name)
 def test_cuda_path_raises_for_unported_formats(qtype):
-    """On the card a format without a ported kernel raises, naming the TPU
-    kernel still to port; it never falls back to the plain version."""
+    """On the card a Q2_K or Q3_K weight routes to its kernels (H at M = 1,
+    D at M = 16), never to a plain version; the other formats' wrappers
+    refuse it; and a weight of a format the port has no planes for (here
+    the same planes relabelled TQ1_0, which the JAX package widens at load)
+    raises NotImplementedError naming the one TPU kernel still to port,
+    qffn_pallas."""
     _, pqt, _ = _pair(1, qtype=qtype, k=2048)
-    x = torch.from_numpy(_x(0, 1, 2048))
-    with mock.patch.object(dm, "_on_cuda", return_value=True):
-        with pytest.raises(NotImplementedError, match="qmatmul_pallas"):
-            dm.matmul(x, pqt)
+    with mock.patch.object(dm, "_on_cuda", return_value=True), \
+            mock.patch.object(dm, "_launch",
+                              side_effect=lambda name, *a: name) as launch, \
+            mock.patch.object(dm, "q2k_gemv_plain") as gemv_plain, \
+            mock.patch.object(dm, "qgemm_plain") as gemm_plain:
+        assert dm.matmul(torch.from_numpy(_x(0, 1, 2048)), pqt) == dm.LOWBIT_GEMV[qtype]
+        assert dm.matmul(torch.from_numpy(_x(0, 16, 2048)), pqt) == "qgemm"
+        assert launch.call_count == 2
+        assert not gemv_plain.called and not gemm_plain.called
         for wrapper, m in ((dm.q4k_gemv, 1), (dm.q4k_gemm, 16)):
             with pytest.raises(ValueError, match="Q4_K"):
                 wrapper(torch.from_numpy(_x(0, m, 2048)).to(torch.bfloat16),
                         pqt)
-        for wrapper in (dm.q5k_gemv, dm.q6k_gemv, dm.qgemm, dm.q8_0_gemv):
+        for wrapper in (dm.q5k_gemv, dm.q6k_gemv, dm.q8_0_gemv):
             with pytest.raises(ValueError, match="Q5_K|Q6_K|Q8_0"):
                 wrapper(torch.from_numpy(_x(0, 1, 2048)).to(torch.bfloat16),
                         pqt)
+        unported = dataclasses.replace(pqt, ggml_type=GGMLType.TQ1_0)
+        with pytest.raises(NotImplementedError, match="TQ1_0.*qffn_pallas"):
+            dm.matmul(torch.from_numpy(_x(0, 1, 2048)), unported)
 
 
 def _routed(pqt, m):

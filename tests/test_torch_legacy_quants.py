@@ -321,22 +321,26 @@ def test_matmul_routes_legacy_formats_on_a_mocked_card(qtype):
 def test_legacy_wrappers_launch_or_raise(qtype):
     """Where the kernels cannot be built (no nvcc here) a legacy weight on
     the card path raises rather than running the plain version, and counts
-    no launch; the other formats' wrappers refuse it."""
+    no launch, through kernel A's and B's branches and through kernel D's
+    (which takes every legacy format since it was finished); the other
+    formats' wrappers refuse it."""
     _, pqt, _ = _pair(4, qtype, n=8, k=2048)
     dm.reset_launches()
     with mock.patch.object(dm, "_on_cuda", return_value=True), \
             mock.patch("omni_tpu_torch.kernels._build.load",
                        side_effect=RuntimeError("nvcc not found")), \
             mock.patch.object(dm, "q4k_gemv_plain") as gemv_plain, \
-            mock.patch.object(dm, "q4k_gemm_plain") as gemm_plain:
+            mock.patch.object(dm, "q4k_gemm_plain") as gemm_plain, \
+            mock.patch.object(dm, "qgemm_plain") as qgemm_plain:
         for m in (1, 16):
             with pytest.raises(RuntimeError, match="nvcc"):
                 dm.matmul(torch.from_numpy(_x(0, m, 2048)), pqt)
-        for wrapper in (dm.q4k_gemv, dm.q5k_gemv, dm.q6k_gemv, dm.q8_0_gemv,
-                        dm.qgemm):
+            with pytest.raises(RuntimeError, match="nvcc"):
+                dm.qgemm(torch.zeros((m, 2048), dtype=torch.bfloat16), pqt)
+        for wrapper in (dm.q4k_gemv, dm.q5k_gemv, dm.q6k_gemv, dm.q8_0_gemv):
             with pytest.raises(ValueError, match=qtype.name):
                 wrapper(torch.zeros((1, 2048), dtype=torch.bfloat16), pqt)
-    assert not gemv_plain.called and not gemm_plain.called
+    assert not gemv_plain.called and not gemm_plain.called and not qgemm_plain.called
     assert not any(dm.launches.values())
 
 
@@ -485,12 +489,16 @@ def test_jitted_turn_from_the_q4_0_file_departs_at_a_rounding_flip(legacy_files)
     there, lie within test_torch_model's JIT_LOGITS_ATOL (the noise of
     omni_tpu's jitted steps), and each picks its own turn's token on every
     row."""
+    assert_departs_at_a_rounding_flip(legacy_files["Q4_0"])
+
+
+def assert_departs_at_a_rounding_flip(path) -> None:
+    """The body of the test above, for the tiny file at `path`."""
     from omni_tpu.runtime import Batch as JaxBatch
     from omni_tpu_torch.omni.pipeline import SIMPLEX_ASSISTANT_PROMPT
     from omni_tpu_torch.runtime import Batch
     from test_torch_model import JIT_LOGITS_ATOL, _np
 
-    path = legacy_files["Q4_0"]
     jr, tr = JaxReader(path), GGUFReader(path)
     jparams, tparams = jq.load_params(jr), tq.load_params(tr, device="cpu")
 
