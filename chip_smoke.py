@@ -52,6 +52,16 @@ card from seed S, 0 by default), one model resident at a time, each through
 8. an F16 Qwen3-8B as `load_params` loads one (dense bf16 weights made on
    the card): every matmul a dense dot, no hand-written kernel; its decode
    step must allocate less than 100 MB above its starting allocation.
+Three models serve once more with the fused FFN switched on
+(`qwen3.FUSED_FFN`: the JAX package's OMNI_FUSED_FFN=1), every layer's
+gated FFN one launch of kernel I (`qffn`, `csrc/qffn.cu`): the all-Q4_K
+model of path 1 (Q4_K/Q4_K), and the Q4_0 (Q4_0/Q4_0, and Q4_0/Q4_1 on
+layers 0-3) and Q8_0 (Q8_0/Q8_0) models, fused in place (`fuse_layer`)
+after their unfused turns. Kernel I is held against its plain version and
+its law in f64 at the Qwen3-8B FFN shape for every same-format pair of the
+thirteen formats and the mixed pairs Q4_K/Q6_K, Q5_K/Q6_K, Q4_0/Q4_1 and
+Q5_0/Q5_1 (its h, for each gate/up format, through an identity down
+weight), a repeat launch bit-identical.
 For each path it checks the launches of every kernel per decode step and
 per 64-token ubatch, and that its logits agree with the plain path: within
 1e-3 of max|logit| on the all-Q4_K model; on the others, whose
@@ -147,6 +157,23 @@ ODD_K_CODEBOOK_SHAPE = (4096, 1056)
 LOWBIT_RECIPES = ("Q2_K", "Q3_K")
 LOWBIT_SHAPES = CODEBOOK_SHAPES
 LOWBIT_CALLS = CODEBOOK_CALLS
+# Qwen3-8B's fused gate/up (wqkv) shape on the Q8_0 and Q4_0 files served
+# fused: kernels E, A's and B's Q4_0 branches and D's Q8_0 branch
+WQKV_SHAPE = SHAPES["wqkv"]
+# kernel I's (gate/up, down) format pairs: every same-format pair and the
+# mixed pairs of the Q4_K_M, Q5_K_M and importance-matrix Q4_0 / Q5_0
+# recipes; at Qwen3-8B's FFN shape (K 4096, F 12288, N 4096)
+QFFN_PAIRS = ([(t, t) for t in ("Q4_K", "Q5_K", "Q6_K", "Q8_0", "Q4_0", "Q4_1",
+                                "Q5_0", "Q5_1", "IQ4_NL", "IQ4_XS", "MXFP4",
+                                "Q2_K", "Q3_K")]
+              + [("Q4_K", "Q6_K"), ("Q5_K", "Q6_K"), ("Q4_0", "Q4_1"), ("Q5_0", "Q5_1")])
+QFFN_MS = (1, 8, 64)
+# rows over which kernel I's flip share is read (M = 1, 8 and 64 in 512,
+# 64 and 8 launches: see check_qffn). Read over 64 rows, Q5_K/Q5_K at M = 8
+# gave 4.2x its plain version's share in a first full call (NVIDIA H100
+# 80GB HBM3, 700.00 W): a few large h decide the share of a row. The h
+# themselves are held too, through an identity down weight (out = h).
+QFFN_ROWS = 512
 GEMV_MS = (1, 2, 3, 8)
 GEMM_MS = (64, 256)
 QGEMM_MS = (1, 64, 256)
@@ -307,25 +334,37 @@ KERNELS = {
                      "replaces": "omni_tpu/kernels/flash_attention.py:141"},
     "flash_decode4": {"route": "cuda", "source": "omni_tpu_torch/csrc/flash_decode.cu",
                       "replaces": "omni_tpu/kernels/flash_attention.py:217"},
+    "qffn": {"route": "cuda", "source": "omni_tpu_torch/csrc/qffn.cu",
+             "replaces": "omni_tpu/kernels/fused_ffn.py:80"},
 }
 
 
 def launch_counts() -> dict:
-    """Every kernel wrapper's launch count, and kernel D's per format (as
-    "qgemm Q5_K" and so on)."""
+    """Every kernel wrapper's launch count, kernel D's per format (as
+    "qgemm Q5_K" and so on) and kernel I's per format pair met so far (as
+    "qffn Q4_0/Q4_1")."""
     from omni_tpu_torch.kernels import dequant_matmul as dm
     from omni_tpu_torch.kernels import flash_attention as fa
+    from omni_tpu_torch.kernels import fused_ffn as ff
 
     return {**dm.launches, **{f"qgemm {f}": n for f, n in dm.qgemm_launches.items()},
-            **fa.launches}
+            **fa.launches, **ff.launches,
+            **{f"qffn {p}": n for p, n in ff.qffn_launches.items()}}
+
+
+def nonzero(counts: dict) -> dict:
+    """The launch counts that are not 0 (kernel I's pairs appear as met)."""
+    return {k: v for k, v in counts.items() if v}
 
 
 def reset_launches() -> None:
     from omni_tpu_torch.kernels import dequant_matmul as dm
     from omni_tpu_torch.kernels import flash_attention as fa
+    from omni_tpu_torch.kernels import fused_ffn as ff
 
     dm.reset_launches()
     fa.reset_launches()
+    ff.reset_launches()
 
 
 def phase(name: str, t0: float, msg: str = "") -> None:
@@ -443,6 +482,20 @@ def law_f64(name: str, x, qt, out_dtype):
     f64 = torch.float64
     if name == "dense_matmul":
         return (x.to(qt.dtype).to(f64) @ qt.to(f64).T).to(out_dtype)
+    if name == "qffn":  # qt = (gate/up, down, act): bf16 x, weights and h kept
+        gu, down, act = qt
+        f = down.shape[1]
+        xd = x.to(torch.bfloat16).to(f64)
+        w = dequant(gu, torch.bfloat16).to(f64)
+        g, u = xd @ w[:f].T, xd @ w[f:].T
+        del w
+        if act == "silu":
+            a = g * torch.sigmoid(g)
+        else:
+            a = g * (0.5 * (1.0 + torch.tanh((2 / torch.pi) ** 0.5
+                                             * (g + 0.044715 * g * g * g))))
+        h = (a * u).to(torch.bfloat16).to(f64)
+        return (h @ dequant(down, torch.bfloat16).to(f64).T).to(out_dtype)
     xd = x.to(torch.bfloat16).to(f64)
     if name in dm.HALVES_GEMV.values():  # the group law; q·dl − ml is exact in f64
         dl, ml = (a.to(f64).repeat_interleave(32, 1) for a in q4k_group_scales(qt))
@@ -471,9 +524,13 @@ def law_f64(name: str, x, qt, out_dtype):
 
 
 def plain_law(name: str, x, w, out_dtype):
-    """Kernel `name`'s plain PyTorch version (`dense_matmul`'s too)."""
+    """Kernel `name`'s plain PyTorch version (`dense_matmul`'s too; for
+    "qffn", w is (gate/up, down, act))."""
     from omni_tpu_torch.kernels import dequant_matmul as dm
+    from omni_tpu_torch.kernels import fused_ffn as ff
 
+    if name == "qffn":
+        return ff.qffn_plain(x, *w, out_dtype)
     return getattr(dm, name + "_plain")(x, w, out_dtype)
 
 
@@ -481,7 +538,8 @@ def plain_law(name: str, x, w, out_dtype):
 def matmuls_by(qwen3_mod, dm, law, attn=None):
     """Run the forward with each kernel, and the dense dot, replaced by
     law(kernel name or "dense_matmul", x, w, out_dtype) under the same dispatch
-    (plain_law or law_f64), and a quantized pool's attention by
+    (plain_law or law_f64; the fused FFN, kernel I, by law("qffn", x,
+    (gate/up, down, act), out_dtype)), and a quantized pool's attention by
     attn(q, k, v, mask, k_scale, v_scale, scale) on the layer's raw planes
     (`flash_decode_plain` or `flash_law_f64`), for the logits references."""
     from omni_tpu_torch.kernels.qformats import QTensor
@@ -495,11 +553,18 @@ def matmuls_by(qwen3_mod, dm, law, attn=None):
         return law(dm.kernel_for(x.shape[0], w).__name__,
                    x.to(torch.bfloat16), w, out_dtype)
 
+    def ffn(x, gu, down, act="silu", out_dtype=None):
+        import torch
+
+        return law("qffn", x.to(torch.bfloat16), (gu, down, act),
+                   out_dtype or torch.bfloat16)
+
     def pool_attn(q, cache, layer, mask, scale=None, kv_limit=None):
         k, v, ks, vs = cache.layer_planes(layer, limit=kv_limit)
         return attn(q, k, v, mask, ks, vs, scale)
 
     with mock.patch.object(qwen3_mod, "matmul", mm), \
+            mock.patch.object(qwen3_mod, "qffn", ffn), \
             mock.patch.object(qwen3_mod, "pool_attention", pool_attn):
         yield
 
@@ -639,6 +704,123 @@ def check_kernel(name, kern, plain, w, shape_name, m, out_dtype, gen, max_err):
             f"above flip_limit {lim:.3g}")
 
 
+def check_qffn(gu, down, m, act, gen, max_err, rows=QFFN_ROWS) -> None:
+    """Kernel I against its plain version on random [m, K] x (bf16
+    outputs), both read against its law in f64 (the share of bf16 outputs
+    rounded otherwise, held to flip_limit); a second launch on the same
+    inputs must give the same bits (the partials are summed in a fixed
+    order). The shares are read over `rows` rows, in launches of m rows: an
+    h = bf16(act(g)·u) that rounds otherwise moves every output of its row,
+    by as much as that h is large, so a row's share turns on its largest h
+    that sit near a rounding boundary, for the plain version as for the
+    kernel. With `down` an identity (`identity_q8_0`) the outputs are h
+    itself."""
+    import torch
+
+    from omni_tpu_torch.kernels import fused_ffn as ff
+
+    pair = ff.pair_name(gu, down)
+    reps = max(1, rows // m)
+    xs = torch.randn((reps * m, gu.shape[1]), device=gu.q.device,
+                     generator=gen).to(torch.bfloat16)
+    got = torch.cat([ff.qffn(xs[i * m:(i + 1) * m], gu, down, act) for i in range(reps)])
+    again = ff.qffn(xs[:m], gu, down, act)
+    want = ff.qffn_plain(xs, gu, down, act)
+    exact = law_f64("qffn", xs, (gu, down, act), torch.bfloat16)
+    torch.cuda.synchronize()
+    same = torch.equal(got[:m], again)
+    got, want, exact = got.float(), want.float(), exact.float()
+    err = (got - want).abs().max().item()
+    worst = limit_ratio(got, want)
+    for key in ("qffn", f"qffn {pair}"):
+        max_err[key] = max(max_err.get(key, 0.0), err)
+    vs = [(a != exact).float().mean().item() for a in (got, want)]
+    lim = flip_limit(vs[1], got.numel())
+    ok = bool(torch.isfinite(got).all()) and worst <= 1.0 and vs[0] <= lim and same
+    print(f"  qffn {pair} {act} K={gu.shape[1]} F={down.shape[1]} N={down.shape[0]} "
+          f"M={m} x {reps}: max|d|={err:.3g} max|want|={want.abs().max().item():.3g}, "
+          f"worst |d|/limit {worst:.3g}; bf16 outputs rounded otherwise than the f64 "
+          f"law: kernel {vs[0]:.3g}, plain {vs[1]:.3g} (limit {lim:.3g}); repeat "
+          f"launch {'bit-identical' if same else 'DIFFERS'} {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise SystemExit(f"qffn {pair} at M={m} disagrees with its plain version, rounds "
+                         f"{vs[0]:.3g} of its bf16 outputs otherwise than the f64 law "
+                         f"(limit {lim:.3g}) or differs between launches")
+
+
+def identity_q8_0(n: int, device):
+    """An [n, n] Q8_0 identity (q = 1 on the diagonal, d = 1): kernel I
+    through it gives h itself, exactly (each output sums one term)."""
+    import torch
+
+    from omni_tpu_torch.core.dtypes import GGMLType
+    from omni_tpu_torch.kernels.qformats import QTensor
+
+    return QTensor(GGMLType.Q8_0, (n, n), q=torch.eye(n, dtype=torch.int8, device=device),
+                   sc=None, mn=None, d=torch.ones((n, n // 32), device=device), dm=None,
+                   qh=None)
+
+
+def time_qffn(weights, ms, gen, rows) -> None:
+    """Time kernel I per (gate/up, down) pair of `weights` at each M beside
+    its plain version, the library yardstick (torch.matmul on the weights
+    pre-dequantised to bf16, SiLU and the product between; the port never
+    calls it), the port's own unfused composition (`matmul` over the fused
+    gate/up weight, its bf16 SiLU product, `matmul` over down: A/B, E/D and
+    so on) and the bound of the format's bytes (and of the planes')."""
+    import torch
+    import torch.nn.functional as F
+
+    from omni_tpu_torch.core.dtypes import row_nbytes
+    from omni_tpu_torch.kernels import dequant_matmul as dm
+    from omni_tpu_torch.kernels import fused_ffn as ff
+    from omni_tpu_torch.kernels.qformats import dequant
+    from omni_tpu_torch.testing_synth import synth_quant
+
+    for pair, (gu, dn) in weights.items():
+        (two_f, k), (n, f) = gu.shape, dn.shape
+        dev = gu.q.device
+        fmt_bytes = two_f * row_nbytes(gu.ggml_type, k) + n * row_nbytes(dn.ggml_type, f)
+        planes = gu.nbytes + dn.nbytes
+        ws = [(gu, dn)] + [(synth_quant(gu.ggml_type, two_f, k, dev, gen),
+                            synth_quant(dn.ggml_type, n, f, dev, gen))
+                           for _ in range(min(7, L2_FLUSH_BYTES // planes))]
+        lib_w = (dequant(gu, torch.bfloat16), dequant(dn, torch.bfloat16))
+
+        def library(x):
+            g_u = torch.matmul(x, lib_w[0].T)
+            return torch.matmul(F.silu(g_u[:, :f]) * g_u[:, f:], lib_w[1].T)
+
+        def composition(x, w):
+            g_u = dm.matmul(x, w[0])
+            h = F.silu(g_u[:, :f].to(torch.float32)).to(torch.bfloat16) * g_u[:, f:]
+            return dm.matmul(h, w[1])
+
+        for m in ms:
+            x = torch.randn((m, k), device=dev, generator=gen).to(torch.bfloat16)
+            t_k = graph_ms(lambda i: ff.qffn(x, *ws[i % len(ws)]), 24)
+            t_p = cuda_ms(lambda: ff.qffn_plain(x, gu, dn), 3)
+            t_l = graph_ms(lambda i: library(x), 24)
+            t_c = graph_ms(lambda i: composition(x, ws[i % len(ws)]), 24)
+            ops = 2.0 * m * (two_f * k + f * n)
+            io = m * k * 2 + m * n * 2
+            t_bytes = (fmt_bytes + io) / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / BF16_TENSOR_OPS_PER_S * 1e3
+            b, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+            pb = max((planes + io) / HBM_BYTES_PER_S * 1e3, t_ops)
+            rows.append({"kernel": "qffn", "pair": pair, "m": m, "k": k, "f": f, "n": n,
+                         "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+                         "composition_ms": t_c, "bound_ms": b, "bound_by": by,
+                         "planes_bound_ms": pb})
+            print(f"  qffn {pair} K={k} F={f} N={n} M={m}: {t_k:.4f} ms, plain "
+                  f"{t_p:.4f}, torch.matmul(bf16) composition {t_l:.4f}, the port's "
+                  f"unfused composition {t_c:.4f}, bound {b:.4f} ({by}), {b / t_k:.1%} "
+                  f"of bound; the planes' bound {pb:.4f}, {pb / t_k:.1%}; x "
+                  f"{N_LAYERS} layers {t_k * N_LAYERS:.3f} ms", flush=True)
+        del ws, lib_w
+
+
 def serve_turn(label, cfg, params, dev, qwen3, want_step, want_ubatch, rng,
                kv_dtype="bf16"):
     """The main path: one served turn (session-init prefill of a 64-char
@@ -659,7 +841,8 @@ def serve_turn(label, cfg, params, dev, qwen3, want_step, want_ubatch, rng,
     def counted_forward(params, cfg, x, *a, **kw):
         before = launch_counts()
         out = qwen3.forward(params, cfg, x, *a, **kw)
-        calls.append((x.shape[0], {k: v - before[k] for k, v in launch_counts().items()}))
+        calls.append((x.shape[0], {k: v - before.get(k, 0)
+                                   for k, v in launch_counts().items()}))
         return out
 
     llm = Context(cfg, params, counted_forward, qwen3.embed, n_ctx=N_CTX,
@@ -732,13 +915,14 @@ def serve_turn(label, cfg, params, dev, qwen3, want_step, want_ubatch, rng,
           f"{len(steps)} single-token steps, launches per step "
           f"{steps[0] if steps else None}; {len(passed)} tokens, "
           f"{n_filtered} filtered, text {len(text)} chars", flush=True)
-    bad = [c for c in steps if c != want_step]
+    bad = [c for c in steps if nonzero(c) != nonzero(want_step)]
     if bad or len(steps) < N_DECODE - 1:
         raise SystemExit(f"decode steps: want {want_step} launches in each of "
                          f">= {N_DECODE - 1} steps, got {len(steps)} steps, "
                          f"{len(bad)} differing, e.g. {bad[:1]}")
-    if ubatch != want_ubatch:
-        raise SystemExit(f"64-token ubatch launches {ubatch} != {want_ubatch}")
+    if nonzero(ubatch) != nonzero(want_ubatch):
+        raise SystemExit(f"64-token ubatch launches {nonzero(ubatch)} != "
+                         f"{nonzero(want_ubatch)}")
     if (len(passed) < N_DECODE - 1 or len(text) != sum(passed)
             or n_filtered > MAX_FILTERED_SHARE * len(passed)):
         raise SystemExit(f"the turn emitted {len(text)} chars for {len(passed)} "
@@ -1183,7 +1367,39 @@ def main() -> int:
             check_kernel("dense_matmul", dm.dense_matmul, dm.dense_matmul_plain, w,
                          nm, m, torch.float32 if nm == "output" else torch.bfloat16,
                          gen, max_err)
+    # the fused wqkv (N = 6144) of the Q8_0 and Q4_0 files served fused:
+    # kernel E and D's Q8_0 branch, kernel A's and B's Q4_0 branches
+    for fmt, cases in ((GGMLType.Q8_0, (("q8_0_gemv", GEMV_MS), ("qgemm", QGEMM_MS))),
+                       (GGMLType.Q4_0, (("q4_0_gemv", GEMV_MS), ("q4_0_gemm", GEMM_MS)))):
+        qt = synth_quant(fmt, *WQKV_SHAPE, dev, gen)
+        for name, ms in cases:
+            for m in ms:
+                check_kernel(name, getattr(dm, name), getattr(dm, name + "_plain"), qt,
+                             "wqkv", m, torch.bfloat16, gen, max_err)
+        del qt
     phase("kernels-vs-plain", t0, json.dumps(max_err))
+
+    # ---- kernel I (the fused FFN) at Qwen3-8B's FFN shape, every pair -------
+    t0 = time.perf_counter()
+    d_ff, d_model = SHAPES["down"][1], SHAPES["down"][0]
+    qffn_rows = []
+    eye = identity_q8_0(d_ff, dev)  # h itself, for every gate/up format
+    for t_gu, t_dn in QFFN_PAIRS:
+        gu = synth_quant(GGMLType[t_gu], 2 * d_ff, d_model, dev, gen)
+        dn = synth_quant(GGMLType[t_dn], d_model, d_ff, dev, gen)
+        if t_gu == t_dn:
+            check_qffn(gu, eye, N_PREFILL, "silu", gen, max_err, rows=N_PREFILL)
+        for m in QFFN_MS:
+            check_qffn(gu, dn, m, "silu", gen, max_err)
+        if (t_gu, t_dn) in (("Q4_K", "Q6_K"), ("Q8_0", "Q8_0")):
+            check_qffn(gu, dn, 8, "gelu_tanh", gen, max_err)
+        # per decode token (M = 1) and per 64-token ubatch
+        time_qffn({f"{t_gu}/{t_dn}": (gu, dn)}, (1, N_PREFILL), gen, qffn_rows)
+        del gu, dn
+    del eye
+    torch.cuda.empty_cache()
+    phase("qffn-vs-plain", t0, json.dumps({k: v for k, v in max_err.items()
+                                          if k.startswith("qffn")}))
     t0 = time.perf_counter()
     for bits in (16, 8, 4):
         for t in FLASH_TS:
@@ -1206,8 +1422,42 @@ def main() -> int:
         launches_by_path[path] = launches
         paths[path] = {**stats, "teacher_forced": tf}
         torch.cuda.empty_cache()
-        phase(label, t_start, json.dumps({"launches": launches, **stats,
+        phase(label, t_start, json.dumps({"launches": nonzero(launches), **stats,
                                           "teacher_forced": tf}))
+
+    def fused_ffn_turn(path, label, params, want_step, want_ubatch, against, n_prompts):
+        """The model served once more with the fused FFN switched on
+        (qwen3.FUSED_FFN, the JAX package's OMNI_FUSED_FFN=1): every layer's
+        gated FFN one launch of kernel I."""
+        t0 = time.perf_counter()
+        saved = qwen3.FUSED_FFN
+        qwen3.FUSED_FFN = True
+        try:
+            rng = torch.Generator().manual_seed(0)
+            launches, stats = serve_turn(f"{label}, fused FFN", cfg, params, dev, qwen3,
+                                         want_step, want_ubatch, rng)
+            prompts = [torch.randint(0, 1000, (N_PREFILL,), generator=rng).numpy()
+                       for _ in range(n_prompts)]
+            tf = teacher_forced(cfg, params, dev, dm, qwen3, prompts, against)
+        finally:
+            qwen3.FUSED_FFN = saved
+        finish(path, f"served-turn-{path.replace('_', '-')}", launches, stats, tf, t0)
+
+    def fuse_in_place(params):
+        """`fuse_layer` on each layer of loaded (unfused) params in turn, so
+        that each layer's unfused weights are freed as it is fused."""
+        t0 = time.perf_counter()
+        layers = params["layers"]
+        for i in range(len(layers)):
+            layers[i] = qwen3.fuse_layer(layers[i])
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        phase("fuse", t0, f"{len(layers)} layers, "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+
+    def ffn_launches(pairs: dict) -> dict:
+        """Kernel I's launches of one step or ubatch: `pairs` per pair."""
+        return {"qffn": sum(pairs.values()), **{f"qffn {p}": n for p, n in pairs.items()}}
 
     # ---- path 1: all-Q4_K Qwen3-8B, fused (kernels A and B) ----------------
     t0 = time.perf_counter()
@@ -1227,8 +1477,14 @@ def main() -> int:
     tf = teacher_forced(cfg, params, dev, dm, qwen3,
                         [torch.randint(0, 1000, (N_PREFILL,), generator=rng).numpy()],
                         "plain")
-    del params
     finish("all_q4k_fused", "served-turn", launches, stats, tf, t0)
+    # the same model with the fused FFN: A and B take wqkv, wo and the head
+    per_step = 2 * cfg.n_layers + 1
+    ffn = ffn_launches({"Q4_K/Q4_K": cfg.n_layers})
+    fused_ffn_turn("all_q4k_fused_ffn", "all-Q4_K fused", params,
+                   {**zero, "q4k_gemv": per_step, **ffn},
+                   {**zero, "q4k_gemm": per_step, **ffn}, "plain", 1)
+    del params
 
     # ---- path 2: Q4_K_M Qwen3-8B from a GGUF file (kernels A, B, C, D) -----
     t0 = time.perf_counter()
@@ -1339,6 +1595,21 @@ def main() -> int:
                 dm.GP_DECODE, dm.SH_PREFILL = saved
             finish(f"{recipe.lower()}_imatrix_gguf_switched",
                    f"served-turn-{recipe.lower()}-switched", launches, stats, tf, t0)
+            # the same model fused (wqkv, gate+up) with the fused FFN: A's
+            # and B's Q4_0 branches take wqkv and wo, C and D the head,
+            # kernel I every FFN (Q4_0/Q4_1 where ffn_down is Q4_1)
+            del qts
+            fuse_in_place(params)
+            ffn = ffn_launches({f"{recipe}/{recipe}": cfg.n_layers - N_LEGACY_MIN,
+                                f"{recipe}/{with_min}": N_LEGACY_MIN})
+            fused_ffn_turn(f"{recipe.lower()}_imatrix_gguf_fused_ffn",
+                           f"{recipe} (importance-matrix layout)", params,
+                           {**zero, dm.HALVES_GEMV[fmt]: 2 * cfg.n_layers,
+                            "q6k_gemv": 1, **ffn},
+                           {**zero, dm.HALVES_GEMM[fmt]: 2 * cfg.n_layers, "qgemm": 1,
+                            "qgemm Q6_K": 1, **ffn}, "f64", args.prompts)
+            del params
+            continue
         del params, qts
 
     # ---- path 5: Q8_0 Qwen3-8B from a GGUF file (kernels E and D) ----------
@@ -1363,8 +1634,18 @@ def main() -> int:
                                   "qgemm Q8_0": N_UNFUSED}, rng)
     tf = teacher_forced(cfg, params, dev, dm, qwen3, tf_prompts(rng, "f64_near_tie"),
                         "f64_near_tie")
-    del params, qts
+    del qts
     finish("q8_0_gguf", "served-turn-q8_0", launches, {**stats, **io}, tf, t0)
+    # the same model fused with the fused FFN: E and D take wqkv, wo and the
+    # Q8_0 head, kernel I every FFN
+    fuse_in_place(params)
+    per_step = 2 * cfg.n_layers + 1
+    ffn = ffn_launches({"Q8_0/Q8_0": cfg.n_layers})
+    fused_ffn_turn("q8_0_gguf_fused_ffn", "Q8_0", params,
+                   {**zero, "q8_0_gemv": per_step, **ffn},
+                   {**zero, "qgemm": per_step, "qgemm Q8_0": per_step, **ffn},
+                   "f64_near_tie", args.near_tie_prompts)
+    del params
 
     # ---- path 6: IQ4_NL, IQ4_XS and MXFP4 Qwen3-8B from GGUF files (kernel
     # E's codebook entries, D's codebook branches, C, D) ---------------------
@@ -1449,7 +1730,8 @@ def main() -> int:
     finish("f16_dense", "served-turn-f16", launches,
            {**stats, "decode_step_alloc_mb": step_alloc / 1e6,
             "dense_weight_gb": dense_gb}, tf, t0)
-    launches = {k: sum(lp[k] for lp in launches_by_path.values()) for k in zero}
+    launches = {k: sum(lp.get(k, 0) for lp in launches_by_path.values())
+                for k in set(zero).union(*launches_by_path.values())}
     if min(launches[k] for k in KERNELS) <= 0:
         raise SystemExit(f"a kernel was never launched on the main paths: {launches}")
 
@@ -1635,6 +1917,32 @@ def main() -> int:
                              "per_ubatch": flash("bf16", N_PREFILL, N_CTX),
                              "per_call": [r for r in rows if r.get("cells") == "bf16"]}
         entries.append(entry)
+    # kernel I per decode token and per 64-token ubatch: the 36 calls of a
+    # Qwen3-8B step at M = 1 or M = 64, for every pair; the headline is the
+    # all-Q4_K model's Q4_K/Q4_K
+    def qffn_sum(pair, m):
+        r = next(r for r in qffn_rows if r["pair"] == pair and r["m"] == m)
+        return {**{key: r[key] * N_LAYERS for key in (
+            "ms", "plain_ms", "library_ms", "composition_ms", "bound_ms",
+            "planes_bound_ms")}, "bound_by": r["bound_by"]}
+
+    qffn_work = (f"{N_LAYERS} calls per decode token (M=1; per_ubatch: M={N_PREFILL}) "
+                 f"of Qwen3-8B's FFN: gate/up {2 * d_ff}x{d_model}, down {d_model}x{d_ff}; "
+                 "library: torch.matmul on weights pre-dequantised to bf16; composition: "
+                 "the port's unfused matmul, SiLU, matmul")
+    main_pair = "Q4_K/Q4_K"
+    entries.append({
+        "name": "qffn", **KERNELS["qffn"], "launches": launches["qffn"],
+        "launches_by_path": {p: lp.get("qffn", 0) for p, lp in launches_by_path.items()},
+        "launches_by_pair": {k[5:]: v for k, v in launches.items()
+                             if k.startswith("qffn ") and v},
+        "max_abs_err": max_err["qffn"], **qffn_sum(main_pair, 1),
+        "per_ubatch": qffn_sum(main_pair, N_PREFILL), "pair": main_pair,
+        "work": qffn_work,
+        "pairs": {f"{g}/{d}": {"per_token": qffn_sum(f"{g}/{d}", 1),
+                               "per_ubatch": qffn_sum(f"{g}/{d}", N_PREFILL),
+                               "max_abs_err": max_err[f"qffn {g}/{d}"]}
+                  for g, d in QFFN_PAIRS}})
     dense = {f"per_{unit}": {**summed("dense_matmul", "dense", m, UNFUSED_CALLS),
                              "work": f"M={m}: the F16 path's 253 dense dots"}
              for unit, m in (("token", 1), ("ubatch", N_PREFILL))}

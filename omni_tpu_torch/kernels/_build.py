@@ -33,6 +33,9 @@ MATMUL_ARGS = [_P] * 8 + [_I] * 4 + [_P]
 # rows_per_warp, per_split, nsplit, stream)
 FLASH_ARGS = ([_P] * 8 + [_I] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_float]
               + [_I] * 3 + [_P])
+# the fused-FFN entry point: (x, the gate, up and down planes, six each,
+# part, out, m, k, f, n, gate/up type, down type, act, out_f32, stream)
+QFFN_ARGS = [_P] * 21 + [_I] * 8 + [_P]
 # each source, its C entry points (one per kernel, format or cell type) and
 # their argument types; every entry returns cudaError_t as int
 SOURCES = {
@@ -51,7 +54,8 @@ SOURCES = {
          "qgemm_iq4_xs", "qgemm_mxfp4", "qgemm_q2k", "qgemm_q3k", "qgemm_q4_0",
          "qgemm_q4_1", "qgemm_q5_0", "qgemm_q5_1"), MATMUL_ARGS),
     "flash_decode.cu": dict.fromkeys(
-        ("flash_decode_bf16", "flash_decode_i8", "flash_decode_i4"), FLASH_ARGS)}
+        ("flash_decode_bf16", "flash_decode_i8", "flash_decode_i4"), FLASH_ARGS),
+    "qffn.cu": {"qffn": QFFN_ARGS}}
 
 
 def nvcc() -> str:

@@ -514,8 +514,6 @@ def matmul(x: torch.Tensor, w, out_dtype=torch.bfloat16) -> torch.Tensor:
                 f"no CUDA kernel for {GGMLType(w.ggml_type).name} at M = "
                 f"{x.shape[0]}, K = {w.shape[1]}: the port's matmul kernels "
                 "take the thirteen formats the JAX package keeps quantized "
-                f"({', '.join(t.name for t in QUANTIZED)}) on every route; "
-                "the one TPU kernel still to port is qffn_pallas "
-                "(omni_tpu/kernels/fused_ffn.py:80)")
+                f"({', '.join(t.name for t in QUANTIZED)}) on every route")
         return kernel(x.to(torch.bfloat16).contiguous(), w, out_dtype)
     return dense_matmul(x, w, out_dtype)

@@ -11,6 +11,7 @@ from a GGUF file.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any
 
 import torch
@@ -18,10 +19,18 @@ import torch.nn.functional as F
 
 from ..kernels.attention import mixed_attention, pool_attention
 from ..kernels.dequant_matmul import matmul
+from ..kernels.fused_ffn import qffn
 from ..kernels.norms import rms_norm
 from ..kernels.qformats import QTensor, concat_qtensors, load_quantized
 from ..kernels.rope import apply_rope
 from ..runtime.kv_cache import KVCache, primary_seq_bit, seq_bits_of
+
+# The JAX package's fused-FFN switch (omni_tpu/models/qwen3.py:1264-1283),
+# read once at import as dequant_matmul reads its switches: OMNI_FUSED_FFN=1
+# sends each layer's gated FFN through kernel I (`qffn`) where the fused
+# gate/up weight and the down weight are both quantized and the hidden state
+# lies on the card (the JAX package's accelerator backend). Off by default.
+FUSED_FFN = os.environ.get("OMNI_FUSED_FFN", "0") == "1"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,8 +189,17 @@ def _qkv(lp: dict, cfg: Qwen3Config, hn: torch.Tensor):
             v.reshape(t, cfg.n_kv_heads, cfg.head_dim))
 
 
+def _on_cuda(x: torch.Tensor) -> bool:
+    return x.is_cuda
+
+
 def _ffn(lp: dict, cfg: Qwen3Config, hn: torch.Tensor) -> torch.Tensor:
     if "w_gateup" in lp:
+        if (FUSED_FFN and isinstance(lp["w_gateup"], QTensor)
+                and isinstance(lp["w_down"], QTensor) and _on_cuda(hn)):
+            # the whole gated FFN in one kernel (qffn_pallas's law: g and u
+            # in f32, h rounded once), as the JAX package's accelerator route
+            return qffn(hn, lp["w_gateup"], lp["w_down"], act="silu")
         gu = matmul(hn, lp["w_gateup"])
         gate, up = gu[:, :cfg.d_ff], gu[:, cfg.d_ff:]
     else:

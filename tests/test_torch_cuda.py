@@ -13,6 +13,8 @@ from chip_smoke import (FLASH_FLOOR, FLASH_RTOL, flash_inputs, flash_law_f64,
                         flip_limit, limit_ratio)
 from omni_tpu_torch.kernels import dequant_matmul as dm
 from omni_tpu_torch.kernels import flash_attention as fa
+from omni_tpu_torch.kernels import fused_ffn as ff
+from omni_tpu_torch.kernels import qformats
 from omni_tpu_torch.models import qwen3
 from omni_tpu_torch.runtime import Batch, Context, SamplerParams
 from omni_tpu_torch.core.dtypes import GGMLType
@@ -470,3 +472,107 @@ def test_cuda_quantized_kv_forward_goes_through_flash(card, kv_dtype, flash):
     assert torch.isfinite(got).all()
     # the same matmul kernels on both sides: only p's bf16 roundings differ
     assert (got - want).abs().max() <= LOGITS_REL_TOL * want.abs().max()
+
+
+# kernel I: every same-format pair and the four mixed pairs of the served
+# files, at a K of whole 256-superblocks (1024) or, where both formats take
+# whole 32-blocks, a ragged K step and N tile (1056); F = 768 (three chunks),
+# and F = 800 (a ragged last chunk) for Q8_0/Q8_0
+_Q = [t.name for t in qformats.QUANTIZED]
+QFFN_PAIRS = [(t, t) for t in _Q] + [("Q4_K", "Q6_K"), ("Q5_K", "Q6_K"),
+                                     ("Q4_0", "Q4_1"), ("Q5_0", "Q5_1")]
+QFFN_CASES = [(g, d, m) for g, d in QFFN_PAIRS for m in (1, 8, 64, 37)]
+
+
+def _ffn_weights(card, gen, t_gu, t_dn, k, f):
+    return (synth_quant(GGMLType[t_gu], 2 * f, k, card, gen),
+            synth_quant(GGMLType[t_dn], k, f, card, gen))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t_gu,t_dn,m", QFFN_CASES,
+                         ids=[f"{g}-{d}-m{m}" for g, d, m in QFFN_CASES])
+def test_cuda_qffn_matches_plain(card, t_gu, t_dn, m):
+    """Kernel I against its plain law, both output dtypes and both
+    activations; a repeat launch on the same inputs is bit-identical (the
+    partials are summed in a fixed order); each call counts one launch,
+    under its format pair."""
+    int8 = all(t in ("Q8_0", "IQ4_NL", "MXFP4") for t in (t_gu, t_dn))
+    k = 1056 if int8 else 1024
+    gen = torch.Generator(device=card).manual_seed(m)
+    gu, dn = _ffn_weights(card, gen, t_gu, t_dn, k, 768)
+    x = torch.randn((m, k), device=card, generator=gen).to(torch.bfloat16)
+    ff.reset_launches()
+    for act, out_dtype in (("silu", torch.bfloat16), ("gelu_tanh", torch.float32)):
+        got = ff.qffn(x, gu, dn, act, out_dtype)
+        again = ff.qffn(x, gu, dn, act, out_dtype)
+        want = ff.qffn_plain(x, gu, dn, act, out_dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        assert torch.isfinite(got).all() and limit_ratio(got.float(), want.float()) <= 1.0
+    assert ff.launches == {"qffn": 4} and ff.qffn_launches == {f"{t_gu}/{t_dn}": 4}
+
+
+@pytest.mark.cuda
+def test_cuda_qffn_ragged_chunk(card):
+    """F = 800 (Q8_0/Q8_0): the last of four chunks holds 32 columns, the
+    rest of its gate/up rows and down columns staged as zeros."""
+    gen = torch.Generator(device=card).manual_seed(3)
+    gu, dn = _ffn_weights(card, gen, "Q8_0", "Q8_0", 1056, 800)
+    for m in (1, 64):
+        x = torch.randn((m, 1056), device=card, generator=gen).to(torch.bfloat16)
+        got = ff.qffn(x, gu, dn, out_dtype=torch.float32)
+        want = ff.qffn_plain(x, gu, dn, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all() and limit_ratio(got, want) <= 1.0
+
+
+@pytest.mark.cuda
+def test_cuda_qffn_build_failure_raises(card):
+    """A CUDA `qffn` whose kernel does not build raises; it never runs the
+    plain version."""
+    from unittest import mock
+
+    from omni_tpu_torch.kernels import _build
+
+    gen = torch.Generator(device=card).manual_seed(0)
+    gu, dn = _ffn_weights(card, gen, "Q4_K", "Q6_K", 1024, 256)
+    with mock.patch.object(_build, "load", side_effect=RuntimeError("nvcc failed")), \
+            mock.patch.object(ff, "qffn_plain") as plain:
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            ff.qffn(torch.zeros((1, 1024), device=card), gu, dn)
+    assert not plain.called
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused_ffn", [False, True], ids=["switch-off", "switch-on"])
+def test_cuda_fused_ffn_switch_routes_the_ffn(card, fused_ffn):
+    """A small fused Q4_K Qwen3 on the card: with `qwen3.FUSED_FFN` (the
+    JAX package's OMNI_FUSED_FFN=1) every layer's FFN is one launch of
+    kernel I and only wqkv, wo and the head go through A or B; with it off
+    the launches are those of the unfused composition, none of kernel I.
+    The logits are finite, and the same kernel I workspace serves every
+    decode step."""
+    from unittest import mock
+
+    cfg = qwen3.Qwen3Config(**_SMALL)
+    params = synth_qwen3_params(cfg, card, torch.Generator(device=card).manual_seed(0))
+    with mock.patch.object(qwen3, "FUSED_FFN", fused_ffn):
+        ctx = Context(cfg, params, qwen3.forward, qwen3.embed, n_ctx=256,
+                      sampler=SamplerParams(greedy=True), device=card)
+        dm.reset_launches()
+        ff.reset_launches()
+        logits = ctx.prefill(list(range(20)))  # one ubatch of 32 rows
+        assert torch.isfinite(logits).all()
+        n_ws = len(ff._workspace)
+        for _ in range(3):
+            logits, _ = ctx.decode(Batch(tokens=[int(torch.argmax(logits))]))
+            logits = logits[0]
+            assert torch.isfinite(logits).all()
+    per = (2 if fused_ffn else 4) * cfg.n_layers + 1
+    assert dm.launches == {**dict.fromkeys(dm.launches, 0),
+                           "q4k_gemm": per, "q4k_gemv": 3 * per}
+    n_ffn = 4 * cfg.n_layers if fused_ffn else 0
+    assert ff.launches == {"qffn": n_ffn}
+    assert ff.qffn_launches == ({"Q4_K/Q4_K": n_ffn} if fused_ffn else {})
+    assert len(ff._workspace) <= n_ws + 1  # the decode rows' one workspace

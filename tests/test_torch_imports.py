@@ -37,6 +37,7 @@ names = [m.name for m in pkgutil.walk_packages(omni_tpu_torch.__path__,
                                                "omni_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+assert "omni_tpu_torch.kernels.fused_ffn" in names  # kernel I's wrapper
 import chip_smoke
 assert not any(k == "jax" or k.startswith(("jax.", "omni_tpu."))
                for k, v in sys.modules.items() if v is not None)
@@ -128,7 +129,7 @@ def test_kernel_build_runs_nvcc_per_source_in_parallel(tmp_path):
             want_dir = _build.build_dir()
     finally:
         _build.load.cache_clear()
-    assert len(started) == len(_build.SOURCES) == 7
+    assert len(started) == len(_build.SOURCES) == 8
     assert waited[0] == len(started)  # all started before the first wait
     for cmd in started:
         assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
@@ -140,7 +141,7 @@ def test_kernel_build_runs_nvcc_per_source_in_parallel(tmp_path):
                            "q4_0_gemm", "q4_0_gemv", "q4_1_gemm", "q4_1_gemv",
                            "q4k_gemm", "q4k_gemv", "q5_0_gemm", "q5_0_gemv",
                            "q5_1_gemm", "q5_1_gemv", "q5k_gemm", "q5k_gemv",
-                           "q6k_gemv", "q8_0_gemv", "qgemm_iq4_nl", "qgemm_iq4_xs",
+                           "q6k_gemv", "q8_0_gemv", "qffn", "qgemm_iq4_nl", "qgemm_iq4_xs",
                            "qgemm_mxfp4", "qgemm_q2k", "qgemm_q3k", "qgemm_q4_0",
                            "qgemm_q4_1", "qgemm_q4k", "qgemm_q5_0", "qgemm_q5_1",
                            "qgemm_q5k", "qgemm_q6k", "qgemm_q8_0"]
@@ -149,13 +150,16 @@ def test_kernel_build_runs_nvcc_per_source_in_parallel(tmp_path):
         if name.startswith("flash"):  # 8 pointers, int64 strides, f32 scale
             assert fn.argtypes == _build.FLASH_ARGS and len(fn.argtypes) == 20
             assert fn.argtypes[13:16] == [ctypes.c_longlong] * 2 + [ctypes.c_float]
+        elif name == "qffn":  # x, 3 x six planes, part, out, 8 ints
+            assert fn.argtypes == _build.QFFN_ARGS and len(fn.argtypes) == 30
+            assert fn.argtypes[21:29] == [ctypes.c_int] * 8
         else:  # x, six planes (q, sc, mn, d, dm, qh), out, m, n, k, out_f32
             assert fn.argtypes == _build.MATMUL_ARGS and len(fn.argtypes) == 13
             assert fn.argtypes[7:12] == [ctypes.c_void_p] + [ctypes.c_int] * 4
         assert fn.argtypes[-1] == ctypes.c_void_p and fn.restype == ctypes.c_int
     assert sorted(p.name for p in want_dir.iterdir()) == [
         "flash_decode.so", "lowbit_gemv.so", "q4k_gemm.so", "q4k_gemv.so", "q6k_gemv.so",
-        "q8_0_gemv.so", "qgemm.so"]
+        "q8_0_gemv.so", "qffn.so", "qgemm.so"]
 
 
 def test_build_dir_hashes_the_shared_headers(tmp_path):

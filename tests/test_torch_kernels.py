@@ -270,8 +270,8 @@ def test_cuda_path_raises_for_unported_formats(qtype):
     D at M = 16), never to a plain version; the other formats' wrappers
     refuse it; and a weight of a format the port has no planes for (here
     the same planes relabelled TQ1_0, which the JAX package widens at load)
-    raises NotImplementedError naming the one TPU kernel still to port,
-    qffn_pallas."""
+    raises NotImplementedError naming the format and the thirteen formats
+    the port's kernels take, and no TPU kernel as unported."""
     _, pqt, _ = _pair(1, qtype=qtype, k=2048)
     with mock.patch.object(dm, "_on_cuda", return_value=True), \
             mock.patch.object(dm, "_launch",
@@ -291,8 +291,9 @@ def test_cuda_path_raises_for_unported_formats(qtype):
                 wrapper(torch.from_numpy(_x(0, 1, 2048)).to(torch.bfloat16),
                         pqt)
         unported = dataclasses.replace(pqt, ggml_type=GGMLType.TQ1_0)
-        with pytest.raises(NotImplementedError, match="TQ1_0.*qffn_pallas"):
+        with pytest.raises(NotImplementedError, match="TQ1_0.*thirteen formats") as e:
             dm.matmul(torch.from_numpy(_x(0, 1, 2048)), unported)
+        assert "qffn_pallas" not in str(e.value)
 
 
 def _routed(pqt, m):
