@@ -8,7 +8,11 @@ against its plain PyTorch version at every Qwen3-8B shape of the served
 paths, and reads both against the kernel's law evaluated in f64: a kernel
 fails where it disagrees with its plain version, or where it rounds
 clearly more bf16 outputs otherwise than the f64 law than its plain
-version does (`flip_limit`). It holds the dense dot of a bf16 weight
+version does (`flip_limit`). Kernels B and D (one mainloop,
+`csrc/qmma.cuh`) are held so at their own split plan and, every entry of
+both, with the split count forced to 1 and 4 at wk and down, where a
+repeat launch must give the same bits; their timing lines print each
+call's split count and work units. It holds the dense dot of a bf16 weight
 (cuBLAS, K split into chunks) against the widened-f32 product the same
 way, and the flash-decode kernels (bf16, int8 and int4 KV cells) against
 their plain versions and the attention law in f64. Then it drives these
@@ -181,6 +185,11 @@ QGEMM_MS = (1, 64, 256)
 # ubatch (SH_PREFILL off)
 LEGACY_QGEMM_MS = (1, 8, 64)
 L2_FLUSH_BYTES = 100 * 2**20
+# kernels B and D at forced split counts (dequant_matmul.gemm_splits is
+# patched): one split stores straight from the registers, more go through
+# the f32 partials and the ordered reduction; at Qwen3-8B's wk and down
+GEMM_FORCED_SPLITS = (1, 4)
+GEMM_SPLIT_SHAPES = ("wk", "down")
 # kernel vs plain: both run the same law with f32 sums in another order,
 # so a bf16 output may round one way or the other: 2 bf16 ulps of |want|
 # (2 x 2**-7 relative at worst), plus a floor of 1e-3 x max|want| for the
@@ -1137,6 +1146,7 @@ def time_kernels(name, kern, plain, weights, ms, gen, synth, rows) -> None:
     import torch
 
     from omni_tpu_torch.core.dtypes import row_nbytes
+    from omni_tpu_torch.kernels import dequant_matmul as dm
     from omni_tpu_torch.kernels.qformats import QTensor, dequant
 
     for nm, w in weights.items():
@@ -1158,15 +1168,69 @@ def time_kernels(name, kern, plain, weights, ms, gen, synth, rows) -> None:
             t_l = graph_ms(lambda i: torch.matmul(x, w_bf16[i % len(ws)].T), 24)
             b, by = bound_ms(m, n, k, fmt_bytes, out_dtype)
             pb, _ = bound_ms(m, n, k, w.nbytes, out_dtype)
-            rows.append({"kernel": name, "fmt": fmt, "shape": nm,
-                         "n": n, "k": k, "m": m,
-                         "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
-                         "bound_ms": b, "bound_by": by, "planes_bound_ms": pb})
+            row = {"kernel": name, "fmt": fmt, "shape": nm,
+                   "n": n, "k": k, "m": m,
+                   "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+                   "bound_ms": b, "bound_by": by, "planes_bound_ms": pb}
+            plan = ""
+            if name == "qgemm" or name in dm.HALVES_GEMM.values():
+                row.update(gemm_plan(m, n, k, w.ggml_type))
+                plan = (f"; {row['splits']} splits, {row['units']} work units on "
+                        f"{row['blocks']} blocks")
+            rows.append(row)
             print(f"  {name} {fmt} {nm} {n}x{k} M={m}: {t_k:.4f} ms, plain "
                   f"{t_p:.4f}, torch.matmul(bf16) {t_l:.4f}, bound {b:.4f} "
                   f"({by}), {b / t_k:.1%} of bound; the planes' bound "
-                  f"{pb:.4f}, {pb / t_k:.1%}", flush=True)
+                  f"{pb:.4f}, {pb / t_k:.1%}{plan}", flush=True)
         del ws, w_bf16
+
+
+def gemm_plan(m: int, n: int, k: int, qtype) -> dict:
+    """Kernel B's or D's split plan for an [m, k] x [n, k] call: the split
+    count (dequant_matmul.gemm_splits), the work units (64 x 64 tiles x
+    splits) and the blocks of its persistent grid (one per SM at most)."""
+    import torch
+
+    from omni_tpu_torch.kernels import dequant_matmul as dm
+
+    splits = dm.gemm_splits(m, n, k, qtype)
+    units = dm.gemm_units(m, n) * splits
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {"splits": splits, "units": units, "blocks": min(units, sms)}
+
+
+def check_gemm_splits(dev, gen, max_err) -> None:
+    """Kernel B's six entries and kernel D's thirteen against their plain
+    versions (check_kernel: the agreement limit and the flip share under
+    flip_limit) at GEMM_SPLIT_SHAPES, M = 64, with the split count forced
+    to each of GEMM_FORCED_SPLITS; at each, a repeat launch on the same
+    inputs must give the same bits (the partials are summed in a fixed
+    order, with no atomics)."""
+    import torch
+
+    from omni_tpu_torch.core.dtypes import GGMLType
+    from omni_tpu_torch.kernels import dequant_matmul as dm
+    from omni_tpu_torch.testing_synth import synth_quant
+
+    cases = ([(dm.HALVES_GEMM[t], t) for t in dm.HALVES_GEMM]
+             + [("qgemm", t) for t in dm._QGEMM_ENTRY])
+    for name, fmt in cases:
+        kern, plain = getattr(dm, name), getattr(dm, name + "_plain")
+        for nm in GEMM_SPLIT_SHAPES:
+            n, k = UNFUSED_SHAPES[nm]
+            qt = synth_quant(GGMLType(fmt), n, k, dev, gen)
+            x = torch.randn((N_PREFILL, k), device=dev, generator=gen).to(torch.bfloat16)
+            for forced in GEMM_FORCED_SPLITS:
+                with mock.patch.object(dm, "gemm_splits", return_value=forced):
+                    print(f"  forced to {forced} splits:", end="", flush=True)
+                    check_kernel(name, kern, plain, qt, nm, N_PREFILL, torch.bfloat16,
+                                 gen, max_err)
+                    first, again = kern(x, qt), kern(x, qt)
+                torch.cuda.synchronize()
+                if not torch.equal(first.view(torch.int16), again.view(torch.int16)):
+                    raise SystemExit(f"{name} {fmt.name} at {nm} with {forced} splits: a "
+                                     "repeat launch gave other bits")
+            del qt
 
 
 def time_flash(rows, dev, gen) -> None:
@@ -1378,6 +1442,14 @@ def main() -> int:
                              "wqkv", m, torch.bfloat16, gen, max_err)
         del qt
     phase("kernels-vs-plain", t0, json.dumps(max_err))
+
+    # ---- kernels B and D at forced split counts, repeat launches ----------
+    t0 = time.perf_counter()
+    check_gemm_splits(dev, gen, max_err)
+    torch.cuda.empty_cache()
+    phase("gemm-splits", t0, f"{len(dm.HALVES_GEMM) + len(dm.qgemm_launches)} entries x "
+          f"{GEMM_SPLIT_SHAPES} x splits {GEMM_FORCED_SPLITS}: each against its plain "
+          "version, a repeat launch bit-identical")
 
     # ---- kernel I (the fused FFN) at Qwen3-8B's FFN shape, every pair -------
     t0 = time.perf_counter()

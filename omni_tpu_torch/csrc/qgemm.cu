@@ -53,178 +53,75 @@
 //
 // Bound on the H100: at prefill M (64..512) the bf16 tensor-core work per
 // weight byte nears the card's ~295 operations per byte; at M = 1 it is
-// bytes. This first version is simple and right rather than fast:
-// - a 2-D grid of 64 x 64 output tiles, 4 warps, each a 32 x 32 sub-tile of
-//   2 x 2 WMMA m16n16k16 bf16 products with f32 accumulators;
-// - per K step of 256 elements (one superblock; for Q8_0, IQ4_NL and MXFP4,
-//   eight 32-blocks, the last step ragged where K % 256 != 0, its missing
-//   chunks staged as zeros in x and w; for the legacy formats eight
-//   32-blocks of the halves plane), the x tile [64, 256] (cp.async)
-//   and the weight tile [64, 256], dequantised on the way in by the
-//   format's own device function, are staged in shared memory; every
-//   global load of the step is issued before any is used;
-// - each superblock's products are summed by the tensor cores in fresh
-//   accumulators and added to the running f32 sums with IEEE adds, so the
-//   long-K sums round as an f32 sum does;
-// - ragged M and N edges are masked; 64-bit offsets throughout (the head's
-//   Q6_K plane is 621.6 MB).
-// 66 KB of dynamic shared memory, above the 48 KB default, so the launcher
-// raises the limit with cudaFuncSetAttribute. Each kind of plane has one
-// staging device function (halves, quarters, int8 values, Q6_K's values).
+// bytes. The kernel runs on the pipelined mainloop that it shares with
+// kernel B (qmma.cuh: split K over a persistent grid, two producer warp
+// groups staging a three-slot ring, one consumer warp group on ldmatrix +
+// mma.sync, f32 partials summed in split order). D's own part is the
+// staging: per K step of 256 elements (one superblock; for Q8_0, IQ4_NL
+// and MXFP4, eight 32-blocks, the last step ragged where K % 256 != 0, its
+// missing chunks staged as zeros in x and w; for the legacy formats eight
+// 32-blocks of the halves plane) a producer group dequantises the weight
+// tile [64, 256] by the format's own device function in qstage.cuh (one
+// per kind of plane: halves, quarters, int8 values, Q6_K's values), which
+// kernel I shares unchanged.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-#include "qstage.cuh"
+#include "qmma.cuh"
 
 namespace {
 
-using namespace nvcuda;
 using namespace qstage;
 
-constexpr int BM = 64;
-constexpr int LDC = BN + 4;  // f32 row pitch of the epilogue tile
-constexpr int kPairs = BM * BN / kThreads;
-constexpr int kXLoads = BM * (BK / 8) / kThreads;  // x chunks per thread
-constexpr size_t kTileBytes = (size_t)BM * LD * sizeof(__nv_bfloat16);
-constexpr size_t kSmem = 2 * kTileBytes;
-static_assert((size_t)BM * LDC * sizeof(float) <= kTileBytes, "epilogue tile");
-
+// the producer groups' staging of format QT for the mainloop
 template <int QT>
-__global__ void __launch_bounds__(kThreads)
-qgemm_kernel(const __nv_bfloat16* __restrict__ x, Planes p, void* __restrict__ out,
-             int M, int N, int K, int out_f32) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* xs_t = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* ws_t = reinterpret_cast<__nv_bfloat16*>(smem + kTileBytes);
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int n_steps = (K + BK - 1) / BK;  // whole superblocks but for int8_plane
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int s = 0; s < n_steps; ++s) {
-    // x tile (BM rows x 32 chunks of 8 bf16), rows past M and chunks past K
-    // zero-filled
-#pragma unroll
-    for (int i = 0; i < kXLoads; ++i) {
-      const int idx = tid + kThreads * i;
-      const int r = idx >> 5, c = idx & 31;
-      const bool live = m0 + r < M && s * BK + c * 8 < K;
-      const __nv_bfloat16* src = x + (live ? (size_t)(m0 + r) * K + (size_t)s * BK + c * 8 : 0);
-      cp_async16(xs_t + r * LD + c * 8, src, live);
-    }
-    cp_async_commit();
+struct FormatStage {
+  Planes p;
+  int N, K;
+  __device__ __forceinline__ void operator()(__nv_bfloat16* ws_t, float*, int n0, int s,
+                                             int tid) const {
     stage_w<QT>(p, ws_t, n0, N, K, s, tid);
-    cp_async_wait_all();
-    __syncthreads();
-    // this superblock's products in fresh accumulators, then added to the
-    // running sums with IEEE f32 adds: the tensor cores' own accumulation
-    // is not rounded to nearest, and chained over all of K (48 steps at
-    // K = 12288) it flipped 25x more bf16 outputs than an f32 sum does
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> part[2][2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::fill_fragment(part[i][j], 0.f);
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], xs_t + (wm + 16 * i) * LD + kk, LD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], ws_t + (wn + 16 * j) * LD + kk, LD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(part[i][j], a[i], b[j], part[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int t = 0; t < part[i][j].num_elements; ++t) acc[i][j].x[t] += part[i][j].x[t];
-    __syncthreads();
   }
-
-  // epilogue: accumulators -> shared f32 tile -> masked global store
-  float* ctile = reinterpret_cast<float*>(smem);
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(ctile + (wm + 16 * i) * LDC + wn + 16 * j, acc[i][j], LDC,
-                              wmma::mem_row_major);
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < kPairs; ++i) {
-    const int pi = tid + kThreads * i;
-    const int r = pi / BN, c = pi % BN;
-    const int gm = m0 + r, gn = n0 + c;
-    if (gm < M && gn < N) {
-      const float v = ctile[r * LDC + c];
-      const size_t o = (size_t)gm * N + gn;
-      if (out_f32)
-        static_cast<float*>(out)[o] = v;
-      else
-        static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16(v);
-    }
-  }
-}
+};
 
 template <int QT>
-int launch(const void* x, Planes p, void* out, int m, int n, int k, int out_f32,
-           void* stream) {
+int launch(const void* x, Planes p, void* out, void* ws, int m, int n, int k, int splits,
+           int out_f32, void* stream) {
   constexpr int granule = int8_plane(QT) ? 32 : 256;  // K multiple of the planes
   const bool needs_qh = QT == kQ5K || QT == kQ5_0 || QT == kQ5_1 || QT == kQ3K;
   const bool needs_sc = QT == kIQ4XS || QT == kQ2K || QT == kQ3K;
   const bool needs_min = QT == kQ2K || QT == kQ4_1 || QT == kQ5_1;  // dm (and Q2_K's mn)
-  if (m < 1 || n < 1 || k < granule || k % granule != 0 || (m + BM - 1) / BM > 65535 ||
-      (needs_qh && p.qh == nullptr) || (needs_sc && p.sc == nullptr) ||
-      (needs_min && p.dm == nullptr) || (QT == kQ2K && p.mn == nullptr))
+  if (m < 1 || n < 1 || k < granule || k % granule != 0 ||
+      (m + qmma::BM - 1) / qmma::BM > 65535 || (needs_qh && p.qh == nullptr) ||
+      (needs_sc && p.sc == nullptr) || (needs_min && p.dm == nullptr) ||
+      (QT == kQ2K && p.mn == nullptr))
     return (int)cudaErrorInvalidValue;
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        qgemm_kernel<QT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM), block(kThreads);
-  qgemm_kernel<QT><<<grid, block, kSmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), p, out, m, n, k, out_f32);
-  return (int)cudaGetLastError();
+  return qmma::launch<false>(static_cast<const __nv_bfloat16*>(x), out,
+                             static_cast<float*>(ws), m, n, k, splits, out_f32,
+                             FormatStage<QT>{p, n, k}, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
 
-// One entry point per format, each with the signature of the other kernels;
-// the planes a format lacks are unused (Q4_K: qh; Q6_K: mn, dm, qh; Q8_0,
+// One entry point per format, each with the signature of kernel B's; the
+// planes a format lacks are unused (Q4_K: qh; Q6_K: mn, dm, qh; Q8_0,
 // IQ4_NL, MXFP4: all but q and d; IQ4_XS: mn, dm, qh; Q2_K: qh; Q3_K: mn,
 // dm; the legacy formats: sc, mn, and dm for Q4_0/Q5_0, qh for Q4_0/Q4_1).
-// Each returns the first CUDA error of the attribute call or the launch
-// (0 = launched).
-#define QGEMM_ENTRY(NAME, QT)                                                      \
-  extern "C" int NAME(const void* x, const void* q, const void* sc, const void* mn, \
-                      const void* d, const void* dm, const void* qh, void* out,     \
-                      int m, int n, int k, int out_f32, void* stream) {            \
-    const Planes p{q, static_cast<const int8_t*>(sc), static_cast<const int8_t*>(mn), \
-                   static_cast<const float*>(d), static_cast<const float*>(dm),    \
-                   static_cast<const uint8_t*>(qh)};                                \
-    return launch<QT>(x, p, out, m, n, k, out_f32, stream);                        \
+// ws: the split partials, qmma::workspace_floats(false, m, n, k, splits)
+// f32, null for one split; splits in 1..ceil(k/256)
+// (dequant_matmul.gemm_splits). Each returns the first CUDA error of the
+// attribute call or the launches (0 = launched).
+#define QGEMM_ENTRY(NAME, QT)                                                        \
+  extern "C" int NAME(const void* x, const void* q, const void* sc, const void* mn,   \
+                      const void* d, const void* dm, const void* qh, void* out,       \
+                      void* ws, int m, int n, int k, int splits, int out_f32,          \
+                      void* stream) {                                                  \
+    const Planes p{q, static_cast<const int8_t*>(sc), static_cast<const int8_t*>(mn),  \
+                   static_cast<const float*>(d), static_cast<const float*>(dm),       \
+                   static_cast<const uint8_t*>(qh)};                                   \
+    return launch<QT>(x, p, out, ws, m, n, k, splits, out_f32, stream);               \
   }
 
 QGEMM_ENTRY(qgemm_q4k, kQ4K)

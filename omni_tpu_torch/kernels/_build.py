@@ -28,6 +28,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # a matmul entry point: (x, q, sc, mn, d, dm, qh, out, m, n, k, out_f32,
 # stream); the planes a format lacks go as null pointers
 MATMUL_ARGS = [_P] * 8 + [_I] * 4 + [_P]
+# a prefill GEMM entry point, kernel B's and D's (the mainloop of
+# csrc/qmma.cuh): (x, q, sc, mn, d, dm, qh, out, workspace, m, n, k, splits,
+# out_f32, stream)
+GEMM_ARGS = [_P] * 9 + [_I] * 5 + [_P]
 # a flash-decode entry point: (q, k, v, mask, k_scale, v_scale, out,
 # workspace, t, hkv, g, s, d, head_stride, scale_stride, scale,
 # rows_per_warp, per_split, nsplit, stream)
@@ -44,7 +48,7 @@ SOURCES = {
          "q5_1_gemv"), MATMUL_ARGS),
     "q4k_gemm.cu": dict.fromkeys(
         ("q4k_gemm", "q5k_gemm", "q4_0_gemm", "q4_1_gemm", "q5_0_gemm",
-         "q5_1_gemm"), MATMUL_ARGS),
+         "q5_1_gemm"), GEMM_ARGS),
     "q6k_gemv.cu": {"q6k_gemv": MATMUL_ARGS},
     "q8_0_gemv.cu": dict.fromkeys(
         ("q8_0_gemv", "iq4_nl_gemv", "mxfp4_gemv", "iq4_xs_gemv"), MATMUL_ARGS),
@@ -52,7 +56,7 @@ SOURCES = {
     "qgemm.cu": dict.fromkeys(
         ("qgemm_q4k", "qgemm_q5k", "qgemm_q6k", "qgemm_q8_0", "qgemm_iq4_nl",
          "qgemm_iq4_xs", "qgemm_mxfp4", "qgemm_q2k", "qgemm_q3k", "qgemm_q4_0",
-         "qgemm_q4_1", "qgemm_q5_0", "qgemm_q5_1"), MATMUL_ARGS),
+         "qgemm_q4_1", "qgemm_q5_0", "qgemm_q5_1"), GEMM_ARGS),
     "flash_decode.cu": dict.fromkeys(
         ("flash_decode_bf16", "flash_decode_i8", "flash_decode_i4"), FLASH_ARGS),
     "qffn.cu": {"qffn": QFFN_ARGS}}

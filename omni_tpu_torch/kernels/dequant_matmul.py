@@ -31,6 +31,12 @@ under the same three switches, read once at import (`GP_DECODE`,
   with K % 2048 != 0, at any M. A legacy weight reaches D only with a
   switch off: its planes need K % 256 == 0, the load policy widens any
   other to bf16, and every such weight is gp- or sh-supported.
+Kernels B and D run one pipelined mainloop (csrc/qmma.cuh). Where an
+[M, N] output has too few 64 x 64 tiles to fill the card, the wrapper
+splits K across blocks (`gemm_splits`) and hands the kernel an f32
+workspace for the partials (`gemm_workspace_bytes`), made per call; the
+kernel sums them in split order, so the result is the same bit for bit
+from run to run.
 Every format the JAX package keeps quantized has a kernel on every route;
 a QTensor of another format raises NotImplementedError on the card. Each
 kernel has a plain PyTorch version of the same law beside it: the wrapper
@@ -56,7 +62,7 @@ from ..core.dtypes import GGMLType
 from .qformats import (CODEBOOK, LEGACY, LOWBIT, PLANES, QUANTIZED, QTensor,
                        check_qtensor, dequant, int8_group_scales,
                        kquant_values, lowbit_group_scales, lowbit_values,
-                       q4k_group_scales, q6k_group_scales)
+                       q4k_group_scales, q6k_group_scales, tile_granule)
 
 # The JAX dispatcher's switches (omni_tpu/kernels/dequant_matmul.py:25-32),
 # read once at import with its defaults: OMNI_GP_DECODE=0 sends decode to
@@ -103,6 +109,52 @@ assert set(_QGEMM_ENTRY) == set(QUANTIZED)
 # kernel D's launches per format (their sum is launches["qgemm"])
 qgemm_launches = {t.name: 0 for t in _QGEMM_ENTRY}
 
+# the prefill GEMMs' work units (csrc/qmma.cuh): 64 x 64 output tiles, K in
+# steps of 256 elements, walked by a persistent grid of one block per SM on
+# the H100's 132 SMs; a split keeps at least GEMM_MIN_STEPS steps
+GEMM_TILE, GEMM_STEP, GEMM_SMS, GEMM_MIN_STEPS = 64, 256, 132, 2
+# kernel B's formats with a side term (the residual ml − t·dl is not
+# identically zero: for Q4_0 and Q5_0 t is 8 and 16 exactly)
+SIDE_TERM = (GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q4_1, GGMLType.Q5_1)
+
+
+def gemm_units(m: int, n: int) -> int:
+    """Kernel B's or D's work units per split of an [m, k] x [n, k] call."""
+    return -(-n // GEMM_TILE) * -(-m // GEMM_TILE)
+
+
+def gemm_splits(m: int, n: int, k: int, qtype: GGMLType) -> int:
+    """How many ranges of K steps kernel B or D splits an [m, k] x [n, k]
+    product into: of the powers of two that leave every split
+    GEMM_MIN_STEPS steps (or 1), the one whose busiest SM is done first,
+    counting ceil(steps / splits) steps and one more for its epilogue per
+    unit it walks, and the smallest of those (each split more writes and
+    sums another [m, n] of f32 partials). `qtype`'s K granule must divide
+    k; every format steps through K 256 elements at a time (the int8-plane
+    formats' last step may be ragged)."""
+    if k % tile_granule(qtype):
+        raise ValueError(f"K={k} is not a multiple of {GGMLType(qtype).name}'s "
+                         f"granule {tile_granule(qtype)}")
+    units, steps = gemm_units(m, n), -(-k // GEMM_STEP)
+
+    def busiest(splits: int) -> int:
+        return -(-units * splits // GEMM_SMS) * (-(-steps // splits) + 1)
+
+    best = 1
+    splits = 2
+    while splits * GEMM_MIN_STEPS <= steps:
+        if busiest(splits) < busiest(best):
+            best = splits
+        splits *= 2
+    return best
+
+
+def gemm_workspace_bytes(m: int, n: int, k: int, splits: int, side: bool) -> int:
+    """The f32 workspace kernel B or D takes (qmma.cuh workspace_floats):
+    kernel B's x group sums [m, k/32] where it has a side term, then the
+    split partials [splits, m, n] where splits > 1."""
+    return 4 * ((m * (k // 32) if side else 0) + (splits * m * n if splits > 1 else 0))
+
 
 def reset_launches() -> None:
     for counts in (launches, qgemm_launches):
@@ -143,8 +195,21 @@ def _launch(name: str, entry: str, x: torch.Tensor, qt: QTensor,
     m, k = x.shape
     n = qt.shape[0]
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    rc = fn(x.data_ptr(), *(0 if p is None else p.data_ptr() for p in planes),
-            out.data_ptr(), m, n, k, int(out_dtype == torch.float32),
+    args = [x.data_ptr(), *(0 if p is None else p.data_ptr() for p in planes),
+            out.data_ptr()]
+    if name == "qgemm" or name in HALVES_GEMM.values():
+        # the prefill GEMMs: the split count and a workspace of this call's
+        # own (no cached buffer, which graph capture or a second stream
+        # would share)
+        splits = gemm_splits(m, n, k, qt.ggml_type)
+        side = name != "qgemm" and qt.ggml_type in SIDE_TERM
+        nbytes = gemm_workspace_bytes(m, n, k, splits, side)
+        ws = (torch.empty(nbytes // 4, dtype=torch.float32, device=x.device)
+              if nbytes else None)
+        args += [0 if ws is None else ws.data_ptr(), m, n, k, splits]
+    else:
+        args += [m, n, k]
+    rc = fn(*args, int(out_dtype == torch.float32),
             torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")

@@ -6,6 +6,8 @@ is no CUDA device; run them on the card with
 
 This file imports no JAX (the card's machine has none)."""
 
+from unittest import mock
+
 import pytest
 import torch
 
@@ -576,3 +578,70 @@ def test_cuda_fused_ffn_switch_routes_the_ffn(card, fused_ffn):
     assert ff.launches == {"qffn": n_ffn}
     assert ff.qffn_launches == ({"Q4_K/Q4_K": n_ffn} if fused_ffn else {})
     assert len(ff._workspace) <= n_ws + 1  # the decode rows' one workspace
+
+
+# kernel B's six entries and kernel D's thirteen (the mainloop of
+# csrc/qmma.cuh), each at a K of whole blocks but no multiple of 2048:
+# 1280 (five steps), 1248 for the int8-plane formats (a ragged fifth step)
+GEMM_ENTRIES = ([(dm.HALVES_GEMM[t], t) for t in dm.HALVES_GEMM]
+                + [("qgemm", t) for t in dm._QGEMM_ENTRY])
+
+
+def _gemm_k(fmt):
+    return 1248 if qformats.tile_granule(fmt) == 32 else 1280
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 3], ids=lambda s: f"splits{s}")
+@pytest.mark.parametrize("name,fmt", GEMM_ENTRIES,
+                         ids=[f"{nm}-{t.name}" for nm, t in GEMM_ENTRIES])
+def test_cuda_gemm_matches_plain_at_forced_splits(card, name, fmt, splits):
+    """Kernels B and D with the split count forced to 1 (stored from the
+    registers) and to 3 (uneven step ranges, partials summed in order), at
+    ragged M = 9, 65 and 200 on a ragged N (1000 rows), both output dtypes,
+    against their plain versions within chip_smoke.py's limit; a repeat
+    launch gives the same bits."""
+    k = _gemm_k(fmt)
+    gen = torch.Generator(device=card).manual_seed(k + splits)
+    qt = synth_quant(fmt, 1000, k, card, gen)
+    wrapper, plain = getattr(dm, name), getattr(dm, name + "_plain")
+    with mock.patch.object(dm, "gemm_splits", return_value=splits):
+        for m in (9, 65, 200):
+            x = torch.randn((m, k), device=card, generator=gen).to(torch.bfloat16)
+            for out_dtype in (torch.bfloat16, torch.float32):
+                got = wrapper(x, qt, out_dtype)
+                again = wrapper(x, qt, out_dtype)
+                want = plain(x, qt, out_dtype).float()
+                torch.cuda.synchronize()
+                assert torch.equal(got, again)
+                got = got.float()
+                assert torch.isfinite(got).all() and limit_ratio(got, want) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,fmt,k", [("q4k_gemm", GGMLType.Q4_K, 4096),
+                                        ("q5k_gemm", GGMLType.Q5_K, 1280),
+                                        ("qgemm", GGMLType.Q8_0, 4096),
+                                        ("qgemm", GGMLType.Q6_K, 4096)])
+def test_cuda_gemm_in_a_cuda_graph(card, name, fmt, k):
+    """One launch of kernel B or D captured in a CUDA graph (split K: the
+    workspace is made inside the capture) and replayed on new x gives the
+    bits of an eager launch on that x."""
+    gen = torch.Generator(device=card).manual_seed(k)
+    qt = synth_quant(fmt, 1024, k, card, gen)
+    wrapper = getattr(dm, name)
+    assert dm.gemm_splits(64, 1024, k, fmt) > 1
+    x = torch.randn((64, k), device=card, generator=gen).to(torch.bfloat16)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up (build, attributes) off the capture
+        wrapper(x, qt)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = wrapper(x, qt)
+    x.copy_(torch.randn((64, k), device=card, generator=gen))
+    graph.replay()
+    want = wrapper(x, qt)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)

@@ -153,6 +153,11 @@ def test_kernel_build_runs_nvcc_per_source_in_parallel(tmp_path):
         elif name == "qffn":  # x, 3 x six planes, part, out, 8 ints
             assert fn.argtypes == _build.QFFN_ARGS and len(fn.argtypes) == 30
             assert fn.argtypes[21:29] == [ctypes.c_int] * 8
+        elif name.endswith("_gemm") or name.startswith("qgemm"):
+            # kernels B and D: x, six planes, out, workspace, m, n, k,
+            # splits, out_f32
+            assert fn.argtypes == _build.GEMM_ARGS and len(fn.argtypes) == 15
+            assert fn.argtypes[7:14] == [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
         else:  # x, six planes (q, sc, mn, d, dm, qh), out, m, n, k, out_f32
             assert fn.argtypes == _build.MATMUL_ARGS and len(fn.argtypes) == 13
             assert fn.argtypes[7:12] == [ctypes.c_void_p] + [ctypes.c_int] * 4
