@@ -65,7 +65,8 @@ after their unfused turns. Kernel I is held against its plain version and
 its law in f64 at the Qwen3-8B FFN shape for every same-format pair of the
 thirteen formats and the mixed pairs Q4_K/Q6_K, Q5_K/Q6_K, Q4_0/Q4_1 and
 Q5_0/Q5_1 (its h, for each gate/up format, through an identity down
-weight), a repeat launch bit-identical.
+weight), at M = 1 and 8 (its register path) and 9 and 64 (the mainloop), a
+repeat launch bit-identical; its two passes are timed apart.
 For each path it checks the launches of every kernel per decode step and
 per 64-token ubatch, and that its logits agree with the plain path: within
 1e-3 of max|logit| on the all-Q4_K model; on the others, whose
@@ -171,9 +172,11 @@ QFFN_PAIRS = ([(t, t) for t in ("Q4_K", "Q5_K", "Q6_K", "Q8_0", "Q4_0", "Q4_1",
                                 "Q5_0", "Q5_1", "IQ4_NL", "IQ4_XS", "MXFP4",
                                 "Q2_K", "Q3_K")]
               + [("Q4_K", "Q6_K"), ("Q5_K", "Q6_K"), ("Q4_0", "Q4_1"), ("Q5_0", "Q5_1")])
-QFFN_MS = (1, 8, 64)
-# rows over which kernel I's flip share is read (M = 1, 8 and 64 in 512,
-# 64 and 8 launches: see check_qffn). Read over 64 rows, Q5_K/Q5_K at M = 8
+# kernel I's M: its register path at 1 and 8, the mainloop from 9 (the
+# first prefill M) and at a 64-token ubatch
+QFFN_MS = (1, 8, 9, 64)
+# rows over which kernel I's flip share is read (M = 1, 8, 9 and 64 in 512,
+# 64, 56 and 8 launches: see check_qffn). Read over 64 rows, Q5_K/Q5_K at M = 8
 # gave 4.2x its plain version's share in a first full call (NVIDIA H100
 # 80GB HBM3, 700.00 W): a few large h decide the share of a row. The h
 # themselves are held too, through an identity down weight (out = h).
@@ -717,8 +720,7 @@ def check_qffn(gu, down, m, act, gen, max_err, rows=QFFN_ROWS) -> None:
     """Kernel I against its plain version on random [m, K] x (bf16
     outputs), both read against its law in f64 (the share of bf16 outputs
     rounded otherwise, held to flip_limit); a second launch on the same
-    inputs must give the same bits (the partials are summed in a fixed
-    order). The shares are read over `rows` rows, in launches of m rows: an
+    inputs must give the same bits (every sum is taken in a fixed order). The shares are read over `rows` rows, in launches of m rows: an
     h = bf16(act(g)·u) that rounds otherwise moves every output of its row,
     by as much as that h is large, so a row's share turns on its largest h
     that sit near a rounding boundary, for the plain version as for the
@@ -777,7 +779,9 @@ def time_qffn(weights, ms, gen, rows) -> None:
     pre-dequantised to bf16, SiLU and the product between; the port never
     calls it), the port's own unfused composition (`matmul` over the fused
     gate/up weight, its bf16 SiLU product, `matmul` over down: A/B, E/D and
-    so on) and the bound of the format's bytes (and of the planes')."""
+    so on) and the bound of the format's bytes (and of the planes'); and
+    each of its two passes alone (`fused_ffn.passes`: the gated pass, then
+    the down pass on the h it left), with its share of the call."""
     import torch
     import torch.nn.functional as F
 
@@ -809,6 +813,11 @@ def time_qffn(weights, ms, gen, rows) -> None:
         for m in ms:
             x = torch.randn((m, k), device=dev, generator=gen).to(torch.bfloat16)
             t_k = graph_ms(lambda i: ff.qffn(x, *ws[i % len(ws)]), 24)
+            runs = [ff.passes(x, *w) for w in ws]
+            plan = runs[0][0]
+            t_gated = graph_ms(lambda i: runs[i % len(runs)][1](), 24)
+            t_down = graph_ms(lambda i: runs[i % len(runs)][2](), 24)
+            del runs
             t_p = cuda_ms(lambda: ff.qffn_plain(x, gu, dn), 3)
             t_l = graph_ms(lambda i: library(x), 24)
             t_c = graph_ms(lambda i: composition(x, ws[i % len(ws)]), 24)
@@ -821,12 +830,17 @@ def time_qffn(weights, ms, gen, rows) -> None:
             rows.append({"kernel": "qffn", "pair": pair, "m": m, "k": k, "f": f, "n": n,
                          "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
                          "composition_ms": t_c, "bound_ms": b, "bound_by": by,
-                         "planes_bound_ms": pb})
+                         "planes_bound_ms": pb, "regime": plan.regime,
+                         "splits": [plan.splits_gu, plan.splits_dn],
+                         "gated_ms": t_gated, "down_ms": t_down})
             print(f"  qffn {pair} K={k} F={f} N={n} M={m}: {t_k:.4f} ms, plain "
                   f"{t_p:.4f}, torch.matmul(bf16) composition {t_l:.4f}, the port's "
                   f"unfused composition {t_c:.4f}, bound {b:.4f} ({by}), {b / t_k:.1%} "
                   f"of bound; the planes' bound {pb:.4f}, {pb / t_k:.1%}; x "
-                  f"{N_LAYERS} layers {t_k * N_LAYERS:.3f} ms", flush=True)
+                  f"{N_LAYERS} layers {t_k * N_LAYERS:.3f} ms; {plan.regime} passes: gated "
+                  f"{t_gated:.4f} ms ({t_gated / t_k:.1%}), down {t_down:.4f} ms "
+                  f"({t_down / t_k:.1%}), splits {plan.splits_gu}/{plan.splits_dn}",
+                  flush=True)
         del ws, lib_w
 
 
@@ -1996,7 +2010,8 @@ def main() -> int:
         r = next(r for r in qffn_rows if r["pair"] == pair and r["m"] == m)
         return {**{key: r[key] * N_LAYERS for key in (
             "ms", "plain_ms", "library_ms", "composition_ms", "bound_ms",
-            "planes_bound_ms")}, "bound_by": r["bound_by"]}
+            "planes_bound_ms", "gated_ms", "down_ms")}, "bound_by": r["bound_by"],
+                "regime": r["regime"], "splits": r["splits"]}
 
     qffn_work = (f"{N_LAYERS} calls per decode token (M=1; per_ubatch: M={N_PREFILL}) "
                  f"of Qwen3-8B's FFN: gate/up {2 * d_ff}x{d_model}, down {d_model}x{d_ff}; "

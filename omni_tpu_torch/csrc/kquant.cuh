@@ -73,4 +73,17 @@ __device__ __forceinline__ uint4 values(uint32_t q0, uint32_t q1, uint2 hb, int 
   return v;
 }
 
+// The same bits for four bytes at once: bit 4 of byte b of the result is
+// the high bit of byte 4i + b of the chunk's half h (0 low, 1 high), to OR
+// into four nibbles held one to a byte. (Bit b of the 4-bit field, times
+// 2^4 + 2^11 + 2^18 + 2^25, lands at bit 8b + 4; the other products fall
+// outside the mask, and none carries.)
+template <bool kFive>
+__device__ __forceinline__ uint32_t high_bytes(uint2 hb, int h, int i) {
+  if constexpr (!kFive)
+    return 0u;
+  else
+    return ((((h ? hb.y : hb.x) >> (4 * i)) & 0xFu) * 0x02040810u) & 0x10101010u;
+}
+
 }  // namespace kquant

@@ -61,9 +61,9 @@
 // and MXFP4, eight 32-blocks, the last step ragged where K % 256 != 0, its
 // missing chunks staged as zeros in x and w; for the legacy formats eight
 // 32-blocks of the halves plane) a producer group dequantises the weight
-// tile [64, 256] by the format's own device function in qstage.cuh (one
-// per kind of plane: halves, quarters, int8 values, Q6_K's values), which
-// kernel I shares unchanged.
+// tile [64, 256] by its format's chunk type in qstage.cuh (one per kind
+// of plane: halves, quarters, int8 values and Q6_K's), whose weight
+// formula kernel I shares, staged on prefill and in registers at decode.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -74,17 +74,6 @@
 namespace {
 
 using namespace qstage;
-
-// the producer groups' staging of format QT for the mainloop
-template <int QT>
-struct FormatStage {
-  Planes p;
-  int N, K;
-  __device__ __forceinline__ void operator()(__nv_bfloat16* ws_t, float*, int n0, int s,
-                                             int tid) const {
-    stage_w<QT>(p, ws_t, n0, N, K, s, tid);
-  }
-};
 
 template <int QT>
 int launch(const void* x, Planes p, void* out, void* ws, int m, int n, int k, int splits,
@@ -100,7 +89,7 @@ int launch(const void* x, Planes p, void* out, void* ws, int m, int n, int k, in
     return (int)cudaErrorInvalidValue;
   return qmma::launch<false>(static_cast<const __nv_bfloat16*>(x), out,
                              static_cast<float*>(ws), m, n, k, splits, out_f32,
-                             FormatStage<QT>{p, n, k}, static_cast<cudaStream_t>(stream));
+                             qmma::FormatStage<QT>{p, n, k}, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace

@@ -1,4 +1,5 @@
-// The pipelined mainloop of kernels B (q4k_gemm.cu) and D (qgemm.cu):
+// The pipelined mainloop of kernels B (q4k_gemm.cu), D (qgemm.cu) and I's
+// prefill passes (qffn.cu):
 //   out[m, n] = sum_k bf16(x)[m, k] * w[n, k]  (- side[m, n] for B),
 // w a bf16 weight tile that the kernel's own staging function dequantises
 // into shared memory, one 256-element K step (BK) at a time.
@@ -308,6 +309,25 @@ __global__ void __launch_bounds__(kBlock, 1) qmma_kernel(Problem pr, Stager stag
         }
   }
 }
+
+// The producer groups' staging of format QT (a GGML type id) for the
+// mainloop: kernel D's law (qstage.cuh), used by kernels D and I. It lives
+// in an unnamed namespace so that each library that includes this header
+// instantiates the mainloop and `launch` for its own type: a static local
+// of a template instantiated alike in two libraries is one GNU-unique
+// symbol across the process, so the second library's `attr_set` would read
+// true and its kernel would launch without its shared-memory attribute.
+namespace {
+template <int QT>
+struct FormatStage {
+  qstage::Planes p;
+  int N, K;
+  __device__ __forceinline__ void operator()(__nv_bfloat16* ws_t, float*, int n0, int s,
+                                             int tid) const {
+    qstage::stage_w<QT>(p, ws_t, n0, N, K, s, tid);
+  }
+};
+}  // namespace
 
 // out[i] = cast(part[0][i] + part[1][i] + ... + part[splits-1][i]), in order
 __global__ void qmma_reduce(const float* __restrict__ part, void* __restrict__ out, int splits,

@@ -1,19 +1,26 @@
-// Kernel D's weight staging, shared by kernel D (qgemm.cu) and kernel I
-// (qffn.cu): for each of the thirteen formats the JAX package keeps
-// quantized, the device function that dequantises one weight tile of BN
-// rows x BK elements of K (one 256-element superblock; for Q8_0, IQ4_NL and
-// MXFP4 eight 32-blocks, ragged where K % 256 != 0) into shared memory as
-// bf16, with `dequant_tile`'s law: each element formed in f32 and rounded
-// once to bf16, the products, sums and differences one at a time (no fused
-// multiply-add; the law per format is set out at the top of qgemm.cu).
-// Each staging function is called by kThreads threads (tid 0..kThreads-1)
-// and issues every global load of the tile before it uses any. Rows past N
-// (and, on the int8 planes, chunks past K) are staged as zeros.
+// The weight formula of each of the thirteen formats the JAX package keeps
+// quantized (Q4_K, Q5_K, Q6_K, Q8_0, Q2_K, Q3_K, Q4_0, Q4_1, Q5_0, Q5_1,
+// IQ4_NL, IQ4_XS, MXFP4), in one place: `dequant_tile`'s law, each element
+// formed in f32 and rounded once to bf16, the products, sums and
+// differences one at a time (no fused multiply-add; the law per format is
+// set out at the top of qgemm.cu). A format's chunk type (below) loads 16
+// bytes of a weight row and forms their weights; two users share it:
+// - kernel D's staging (stage_w, used by kernels D and I through
+//   qmma.cuh's mainloop): one weight tile of BN rows x BK elements of K
+//   (one 256-element superblock; for Q8_0, IQ4_NL and MXFP4 eight
+//   32-blocks, ragged where K % 256 != 0) dequantised into shared memory.
+//   It is called by kThreads threads (tid 0..kThreads-1) and issues every
+//   global load of the tile before it uses any. Rows past N (and, on the
+//   int8 planes, chunks past K) are staged as zeros;
+// - kernel I's register path at decode M (qffn.cu), which hands the
+//   weights to the tensor cores straight from registers.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "kquant.cuh"
 
@@ -70,286 +77,255 @@ struct Planes {
   const uint8_t* qh;
 };
 
-// A halves-packed weight element from its value q and its group's (a, b):
-// the K-quants' bf16(q * dl - ml) with (a, b) = (dl, ml); Q4_1 and Q5_1's
-// q * d + m with (a, b) = (d, m); Q4_0 and Q5_0's (q - 8) * d and
-// (q - 16) * d with a = d (dequant_tile's order in each).
+// The exact f32 of byte b of v, less `off`: the byte put under the
+// exponent of 2^23 by one byte permute (the bits of 2^23 + byte), then
+// 2^23 + off taken off, exactly (both are integers below 2^24). The same
+// value as (float)byte - off, with no conversion instruction and the offset
+// for free.
+__device__ __forceinline__ float byte_float(uint32_t v, int b, float off = 0.f) {
+  return __fsub_rn(__uint_as_float(__byte_perm(v, 0x4B000000u, 0x7650u | b)),
+                   8388608.f + off);
+}
+
+// A halves-packed weight element from its value q (less the legacy
+// offset, exact) and its group's (a, b): the K-quants' bf16(q * dl - ml)
+// with (a, b) = (dl, ml); Q4_1 and Q5_1's q * d + m with (a, b) = (d, m);
+// Q4_0 and Q5_0's (q - 8) * d and (q - 16) * d with a = d (dequant_tile's
+// order in each).
 template <Fmt F>
-__device__ __forceinline__ float halves_weight(uint32_t q, float a, float b) {
+constexpr float halves_offset = kquant::legacy(F) && !kquant::added_min(F)
+                                    ? (F == Fmt::kQ5_0 ? 16.f : 8.f)
+                                    : 0.f;
+template <Fmt F>
+__device__ __forceinline__ float halves_weight(float q, float a, float b) {
   if constexpr (!kquant::legacy(F))
-    return __fsub_rn(__fmul_rn((float)q, a), b);
+    return __fsub_rn(__fmul_rn(q, a), b);
   else if constexpr (kquant::added_min(F))
-    return __fadd_rn(__fmul_rn((float)q, a), b);
+    return __fadd_rn(__fmul_rn(q, a), b);
   else
-    return __fmul_rn(__fsub_rn((float)q, F == Fmt::kQ5_0 ? 16.f : 8.f), a);
+    return __fmul_rn(q, a);
 }
 
-// Halves-packed weight tile of superblock s (Q4_K, Q5_K and the legacy
-// formats): BN rows x 8 chunks of 16 packed bytes; chunk c holds the low
-// nibbles of elements 16c.. (group c/2) and the high nibbles of elements
-// 128+16c.. (group 4+c/2), with the high bits of both for the five-bit
-// formats. A K-quant's group scale is d * sc and min dm * mn, d and dm per
-// superblock; a legacy format's d (and Q4_1/Q5_1's m) come per 32-group.
+// ---- chunks: each format's weight formula, in one place --------------------
+// A chunk is 16 bytes of a weight row's value plane and the scales they
+// need. Each format's chunk type has
+//   kPerStep      chunks per 256-element K step (BK) of a row;
+//   kRuns         runs of 16 consecutive elements in a chunk;
+//   offset(c, j)  the first element of run j of chunk c in its K step;
+//   count(K)      the chunks of a row (K steps x kPerStep, or K / 16 for
+//                 the int8 planes, whose last step may be ragged);
+//   load(p, row, K, s, c, live)  every global load of chunk c of K step s
+//                 of `row` (zeros where !live: zero weights);
+//   run(j, w)     the bf16 weights of run j with dequant_tile's law, two to
+//                 a word (elements 2e and 2e + 1 in w[e]).
+// Kernel D's staging (stage_w below) writes the runs to shared memory;
+// kernel I's register path (qffn.cu) hands them to the tensor cores from
+// registers. The weights are formed by the same code in both, so the same
+// bits.
+
+// Halves-packed chunk (Q4_K, Q5_K and the legacy formats): chunk c of
+// superblock s, bytes [16c, 16c + 16), holds the low nibbles of elements
+// 16c.. (group c/2: run 0) and the high nibbles of elements 128+16c..
+// (group 4+c/2: run 1), with the high bits of both for the five-bit formats
+// (kquant.cuh). A K-quant's group scale is d * sc and min dm * mn, d and dm
+// per superblock; a legacy format's d (and Q4_1/Q5_1's m) come per 32-group.
 template <Fmt F>
-__device__ __forceinline__ void stage_w_halves(const Planes& p, __nv_bfloat16* ws_t,
-                                               int n0, int N, int K, int s, int tid) {
-  constexpr int kLoads = BN * 8 / kThreads;
-  const size_t half = (size_t)(K >> 1);
-  const int n_groups = K >> 5, n_sb = K >> 8;
-  uint4 qv[kLoads];
-  float s0[kLoads][2], s1[kLoads][2];  // K-quants: d, dm; legacy: d, m per half
-  int scv[kLoads][2], mnv[kLoads][2];
-  uint2 hbv[kLoads];
-#pragma unroll
-  for (int i = 0; i < kLoads; ++i) {
-    const int idx = tid + kThreads * i;
-    const int r = idx >> 3, c = idx & 7;
-    const int gn = n0 + r;
-    qv[i] = make_uint4(0, 0, 0, 0);
-    s0[i][0] = s0[i][1] = s1[i][0] = s1[i][1] = 0.f;
-    scv[i][0] = scv[i][1] = mnv[i][0] = mnv[i][1] = 0;
-    hbv[i] = make_uint2(0u, 0u);
-    if (gn < N) {
-      hbv[i] = kquant::high_words<kquant::five_bit(F)>(p.qh, (size_t)gn * (K >> 3), s, c);
-      const uint8_t* qrow = static_cast<const uint8_t*>(p.q) + (size_t)gn * half;
-      qv[i] = __ldg(reinterpret_cast<const uint4*>(qrow + (size_t)s * 128) + c);
-      const size_t g = (size_t)gn * n_groups + s * 8 + (c >> 1);
-      if constexpr (kquant::legacy(F)) {
-        s0[i][0] = __ldg(p.d + g);
-        s0[i][1] = __ldg(p.d + g + 4);
-        if constexpr (kquant::added_min(F)) {
-          s1[i][0] = __ldg(p.dm + g);
-          s1[i][1] = __ldg(p.dm + g + 4);
-        }
-      } else {
-        s0[i][0] = s0[i][1] = __ldg(p.d + (size_t)gn * n_sb + s);
-        s1[i][0] = s1[i][1] = __ldg(p.dm + (size_t)gn * n_sb + s);
-        scv[i][0] = __ldg(p.sc + g);
-        scv[i][1] = __ldg(p.sc + g + 4);
-        mnv[i][0] = __ldg(p.mn + g);
-        mnv[i][1] = __ldg(p.mn + g + 4);
+struct HalvesChunk {
+  static constexpr int kPerStep = 8, kRuns = 2;
+  uint4 q;
+  float s0[2], s1[2];  // K-quants: d, dm; legacy: d, m per half
+  int sc[2], mn[2];
+  uint2 hb;
+  __device__ static int offset(int c, int j) { return j * 128 + c * 16; }
+  __device__ static int count(int K) { return (K >> 8) * kPerStep; }
+  __device__ __forceinline__ void load(const Planes& p, int row, int K, int s, int c, bool live) {
+    q = make_uint4(0, 0, 0, 0);
+    s0[0] = s0[1] = s1[0] = s1[1] = 0.f;
+    sc[0] = sc[1] = mn[0] = mn[1] = 0;
+    hb = make_uint2(0u, 0u);
+    if (!live) return;
+    const int n_groups = K >> 5, n_sb = K >> 8;
+    hb = kquant::high_words<kquant::five_bit(F)>(p.qh, (size_t)row * (K >> 3), s, c);
+    const uint8_t* qrow = static_cast<const uint8_t*>(p.q) + (size_t)row * (size_t)(K >> 1);
+    q = __ldg(reinterpret_cast<const uint4*>(qrow + (size_t)s * 128) + c);
+    const size_t g = (size_t)row * n_groups + s * 8 + (c >> 1);
+    if constexpr (kquant::legacy(F)) {
+      s0[0] = __ldg(p.d + g);
+      s0[1] = __ldg(p.d + g + 4);
+      if constexpr (kquant::added_min(F)) {
+        s1[0] = __ldg(p.dm + g);
+        s1[1] = __ldg(p.dm + g + 4);
       }
+    } else {
+      s0[0] = s0[1] = __ldg(p.d + (size_t)row * n_sb + s);
+      s1[0] = s1[1] = __ldg(p.dm + (size_t)row * n_sb + s);
+      sc[0] = __ldg(p.sc + g);
+      sc[1] = __ldg(p.sc + g + 4);
+      mn[0] = __ldg(p.mn + g);
+      mn[1] = __ldg(p.mn + g + 4);
     }
   }
-#pragma unroll
-  for (int i = 0; i < kLoads; ++i) {
-    const int idx = tid + kThreads * i;
-    const int r = idx >> 3, c = idx & 7;
-    // rows past N have zero scales: zero weights
-    float a_lo = s0[i][0], b_lo = s1[i][0], a_hi = s0[i][1], b_hi = s1[i][1];
+  __device__ __forceinline__ void run(int j, uint32_t (&w)[8]) const {
+    float a = s0[j], b = s1[j];
     if constexpr (!kquant::legacy(F)) {
-      a_lo = __fmul_rn(s0[i][0], (float)scv[i][0]);
-      b_lo = __fmul_rn(s1[i][0], (float)mnv[i][0]);
-      a_hi = __fmul_rn(s0[i][1], (float)scv[i][1]);
-      b_hi = __fmul_rn(s1[i][1], (float)mnv[i][1]);
+      a = __fmul_rn(s0[j], (float)sc[j]);
+      b = __fmul_rn(s1[j], (float)mn[j]);
     }
-    const uint32_t w32[4] = {qv[i].x, qv[i].y, qv[i].z, qv[i].w};
-    __nv_bfloat16* wrow = ws_t + r * LD;
+    const uint32_t w32[4] = {q.x, q.y, q.z, q.w};
 #pragma unroll
-    for (int v = 0; v < 2; ++v) {
-      uint32_t lo[4], hi[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const uint32_t word = w32[v * 2 + (e >> 1)];
-        const int sh = (e & 1) * 16;  // bytes 2e, 2e+1 of this 8-byte run
-        const uint32_t q0 = (word >> sh) & 0xFFu, q1 = (word >> (sh + 8)) & 0xFFu;
-        const uint4 w = kquant::values<kquant::five_bit(F)>(q0, q1, hbv[i], v * 8 + 2 * e);
-        lo[e] = pack_bf16(halves_weight<F>(w.x, a_lo, b_lo), halves_weight<F>(w.y, a_lo, b_lo));
-        hi[e] = pack_bf16(halves_weight<F>(w.z, a_hi, b_hi), halves_weight<F>(w.w, a_hi, b_hi));
-      }
-      *reinterpret_cast<uint4*>(wrow + c * 16 + v * 8) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
-      *reinterpret_cast<uint4*>(wrow + 128 + c * 16 + v * 8) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    for (int i = 0; i < 4; ++i) {  // bytes 4i..4i+3 of the chunk: the run's nibbles, one a byte
+      const uint32_t v = ((j == 0 ? w32[i] : w32[i] >> 4) & 0x0F0F0F0Fu) |
+                         kquant::high_bytes<kquant::five_bit(F)>(hb, j, i);
+      constexpr float off = halves_offset<F>;
+      w[2 * i] = pack_bf16(halves_weight<F>(byte_float(v, 0, off), a, b),
+                           halves_weight<F>(byte_float(v, 1, off), a, b));
+      w[2 * i + 1] = pack_bf16(halves_weight<F>(byte_float(v, 2, off), a, b),
+                               halves_weight<F>(byte_float(v, 3, off), a, b));
     }
   }
-}
+};
 
-// Q2_K (Q3_K where kQ3) weight tile of superblock s: BN rows x 4 chunks of
-// 16 quarter bytes; byte i of chunk c holds, at shift 2j, element
-// 64j + 16c + i of the superblock (group 4j + c), with Q3_K's high bit in
-// bit i of the 16-bit word s*16 + 4j + c of the row's qh (element order).
+// Q2_K (Q3_K where kQ3) chunk c of superblock s: 16 quarter bytes; byte i
+// holds, at shift 2j, element 64j + 16c + i of the superblock (group 4j + c:
+// run j), with Q3_K's high bit in bit i of the 16-bit word s*16 + 4j + c of
+// the row's qh (element order). Q2_K: bf16(q * dl - ml), q in 0..3; Q3_K:
+// bf16(q * dl), q = quarter + 4 * hbit - 4; dl = d * sc, ml = dm * mn.
 template <bool kQ3>
-__device__ __forceinline__ void stage_w_lowbit(const Planes& p, __nv_bfloat16* ws_t,
-                                               int n0, int N, int K, int s, int tid) {
-  constexpr int kLoads = BN * 4 / kThreads;
-  const int n_groups = K >> 4, n_sb = K >> 8;
-  uint4 qv[kLoads];
-  float dsv[kLoads], dmsv[kLoads];
-  int scv[kLoads][4], mnv[kLoads][4];
-  uint32_t hbv[kLoads][4];
+struct LowbitChunk {
+  static constexpr int kPerStep = 4, kRuns = 4;
+  uint4 q;
+  float d, dm;
+  int sc[4], mn[4];
+  uint32_t hb[4];
+  __device__ static int offset(int c, int j) { return 64 * j + 16 * c; }
+  __device__ static int count(int K) { return (K >> 8) * kPerStep; }
+  __device__ __forceinline__ void load(const Planes& p, int row, int K, int s, int c, bool live) {
+    q = make_uint4(0, 0, 0, 0);
+    d = dm = 0.f;
 #pragma unroll
-  for (int i = 0; i < kLoads; ++i) {
-    const int idx = tid + kThreads * i;
-    const int r = idx >> 2, c = idx & 3;
-    const int gn = n0 + r;
-    qv[i] = make_uint4(0, 0, 0, 0);
-    dsv[i] = dmsv[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) scv[i][j] = mnv[i][j] = 0, hbv[i][j] = 0u;
-    if (gn < N) {
-      const uint8_t* qrow = static_cast<const uint8_t*>(p.q) + (size_t)gn * (K >> 2);
-      qv[i] = __ldg(reinterpret_cast<const uint4*>(qrow + (size_t)s * 64) + c);
-      dsv[i] = __ldg(p.d + (size_t)gn * n_sb + s);
-      if constexpr (!kQ3) dmsv[i] = __ldg(p.dm + (size_t)gn * n_sb + s);
-      const size_t g = (size_t)gn * n_groups + s * 16 + c;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        scv[i][j] = __ldg(p.sc + g + 4 * j);
-        if constexpr (kQ3)
-          hbv[i][j] = __ldg(reinterpret_cast<const uint16_t*>(p.qh + (size_t)gn * (K >> 3)) +
-                            s * 16 + 4 * j + c);
-        else
-          mnv[i][j] = __ldg(p.mn + g + 4 * j);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kLoads; ++i) {
-    const int idx = tid + kThreads * i;
-    const int r = idx >> 2, c = idx & 3;
-    const uint32_t w32[4] = {qv[i].x, qv[i].y, qv[i].z, qv[i].w};
+    for (int j = 0; j < 4; ++j) sc[j] = mn[j] = 0, hb[j] = 0u;
+    if (!live) return;
+    const int n_groups = K >> 4, n_sb = K >> 8;
+    const uint8_t* qrow = static_cast<const uint8_t*>(p.q) + (size_t)row * (K >> 2);
+    q = __ldg(reinterpret_cast<const uint4*>(qrow + (size_t)s * 64) + c);
+    d = __ldg(p.d + (size_t)row * n_sb + s);
+    if constexpr (!kQ3) dm = __ldg(p.dm + (size_t)row * n_sb + s);
+    const size_t g = (size_t)row * n_groups + s * 16 + c;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      // rows past N have d = dm = 0: zero weights
-      const float dl = __fmul_rn(dsv[i], (float)scv[i][j]);
-      const float ml = __fmul_rn(dmsv[i], (float)mnv[i][j]);
-      uint32_t wv[8];
+      sc[j] = __ldg(p.sc + g + 4 * j);
+      if constexpr (kQ3)
+        hb[j] = __ldg(reinterpret_cast<const uint16_t*>(p.qh + (size_t)row * (K >> 3)) +
+                      s * 16 + 4 * j + c);
+      else
+        mn[j] = __ldg(p.mn + g + 4 * j);
+    }
+  }
+  __device__ __forceinline__ void run(int j, uint32_t (&w)[8]) const {
+    const float dl = __fmul_rn(d, (float)sc[j]);
+    const float ml = __fmul_rn(dm, (float)mn[j]);
+    const uint32_t w32[4] = {q.x, q.y, q.z, q.w};
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {  // bytes 2e, 2e+1 of the chunk
-        const uint32_t word = w32[e >> 1];
-        const int sh = (e & 1) * 16;
-        int v0 = (int)((word >> (sh + 2 * j)) & 3u);
-        int v1 = (int)((word >> (sh + 8 + 2 * j)) & 3u);
+    for (int i = 0; i < 4; ++i) {  // bytes 4i..4i+3: the run's quarters, one a byte
+      uint32_t v = (w32[i] >> (2 * j)) & 0x03030303u;
+      if constexpr (kQ3)  // + 4 x the high bit (bit i of the field at bit 8i + 2), then - 4
+        v |= (((hb[j] >> (4 * i)) & 0xFu) * 0x00810204u) & 0x04040404u;
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
         float w0, w1;
         if constexpr (kQ3) {
-          v0 += 4 * (int)((hbv[i][j] >> (2 * e)) & 1u) - 4;
-          v1 += 4 * (int)((hbv[i][j] >> (2 * e + 1)) & 1u) - 4;
-          w0 = __fmul_rn((float)v0, dl);
-          w1 = __fmul_rn((float)v1, dl);
+          w0 = __fmul_rn(byte_float(v, 2 * p, 4.f), dl);
+          w1 = __fmul_rn(byte_float(v, 2 * p + 1, 4.f), dl);
         } else {
-          w0 = __fsub_rn(__fmul_rn((float)v0, dl), ml);
-          w1 = __fsub_rn(__fmul_rn((float)v1, dl), ml);
+          w0 = __fsub_rn(__fmul_rn(byte_float(v, 2 * p), dl), ml);
+          w1 = __fsub_rn(__fmul_rn(byte_float(v, 2 * p + 1), dl), ml);
         }
-        wv[e] = pack_bf16(w0, w1);
+        w[2 * i + p] = pack_bf16(w0, w1);
       }
-      __nv_bfloat16* dst = ws_t + r * LD + 64 * j + 16 * c;
-      *reinterpret_cast<uint4*>(dst) = make_uint4(wv[0], wv[1], wv[2], wv[3]);
-      *reinterpret_cast<uint4*>(dst + 8) = make_uint4(wv[4], wv[5], wv[6], wv[7]);
     }
   }
-}
+};
 
-// Q6_K weight tile of superblock s: BN rows x 16 chunks of 16 int8 values;
-// chunk c is group s*16 + c, elements 16c.. of the superblock.
-__device__ __forceinline__ void stage_w_q6k(const Planes& p, __nv_bfloat16* ws_t,
-                                            int n0, int N, int K, int s, int tid) {
-  constexpr int kLoads = BN * 16 / kThreads;
-  const int n_groups = K >> 4, n_sb = K >> 8;
-  uint4 qv[kLoads];
-  float dsv[kLoads];
-  int scv[kLoads];
-#pragma unroll
-  for (int i = 0; i < kLoads; ++i) {
-    const int idx = tid + kThreads * i;
-    const int r = idx >> 4, c = idx & 15;
-    const int gn = n0 + r;
-    qv[i] = make_uint4(0, 0, 0, 0);
-    dsv[i] = 0.f;
-    scv[i] = 0;
-    if (gn < N) {
-      const int8_t* qrow = static_cast<const int8_t*>(p.q) + (size_t)gn * K;
-      qv[i] = __ldg(reinterpret_cast<const uint4*>(qrow + (size_t)s * BK) + c);
-      dsv[i] = __ldg(p.d + (size_t)gn * n_sb + s);
-      scv[i] = __ldg(p.sc + (size_t)gn * n_groups + s * 16 + c);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kLoads; ++i) {
-    const int idx = tid + kThreads * i;
-    const int r = idx >> 4, c = idx & 15;
-    const float dl = __fmul_rn(dsv[i], (float)scv[i]);  // 0 past N
-    const uint32_t w32[4] = {qv[i].x, qv[i].y, qv[i].z, qv[i].w};
-    uint32_t wv[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const uint32_t word = w32[e >> 1];
-      const int sh = (e & 1) * 16;
-      const float v0 = (float)(int8_t)((word >> sh) & 0xFFu);
-      const float v1 = (float)(int8_t)((word >> (sh + 8)) & 0xFFu);
-      wv[e] = pack_bf16(__fmul_rn(v0, dl), __fmul_rn(v1, dl));
-    }
-    __nv_bfloat16* dst = ws_t + r * LD + c * 16;
-    *reinterpret_cast<uint4*>(dst) = make_uint4(wv[0], wv[1], wv[2], wv[3]);
-    *reinterpret_cast<uint4*>(dst + 8) = make_uint4(wv[4], wv[5], wv[6], wv[7]);
-  }
-}
-
-// Int8-plane weight tile of K step s: BN rows x 16 chunks of 16 int8
-// values; chunk c is half of 32-group s*8 + c/2, elements s*256 + 16c...
-// Chunks past K (K % 32 == 0, so a chunk is wholly in or out) and rows past
-// N are zero. The group scale is d (Q8_0, IQ4_NL, MXFP4) or, kSub (IQ4_XS,
-// K % 256 == 0), dl = d[superblock s] * sc[group], rounded once.
-template <bool kSub>
-__device__ __forceinline__ void stage_w_int8(const Planes& p, __nv_bfloat16* ws_t,
-                                             int n0, int N, int K, int s, int tid) {
-  constexpr int kLoads = BN * 16 / kThreads;
-  const int n_groups = K >> 5;
-  uint4 qv[kLoads];
-  float dv[kLoads];
-  int scv[kLoads];
-#pragma unroll
-  for (int i = 0; i < kLoads; ++i) {
-    const int idx = tid + kThreads * i;
-    const int r = idx >> 4, c = idx & 15;
-    const int gn = n0 + r;
+// 16 int8 values, elements 16c.. of K step s, times one f32 scale dl:
+// bf16(q * dl). Q6_K (kQ6): dl = d[superblock] * sc[16-group]. The int8
+// planes: dl = d[32-group] (Q8_0, IQ4_NL, MXFP4) or, kSub (IQ4_XS, K % 256
+// == 0), d[superblock] * sc[32-group], rounded once; chunks past K (K % 32
+// == 0, so a chunk is wholly in or out) are zero.
+template <bool kQ6, bool kSub>
+struct Int8Chunk {
+  static constexpr int kPerStep = 16, kRuns = 1;
+  uint4 q;
+  float d;
+  int sc;
+  __device__ static int offset(int c, int) { return c * 16; }
+  __device__ static int count(int K) { return K >> 4; }
+  __device__ __forceinline__ void load(const Planes& p, int row, int K, int s, int c, bool live) {
     const int k0 = s * BK + c * 16;
-    qv[i] = make_uint4(0, 0, 0, 0);
-    dv[i] = 0.f;
-    scv[i] = 0;
-    if (gn < N && k0 < K) {
-      const int8_t* qrow = static_cast<const int8_t*>(p.q) + (size_t)gn * K;
-      qv[i] = __ldg(reinterpret_cast<const uint4*>(qrow + k0));
-      if constexpr (kSub) {
-        dv[i] = __ldg(p.d + (size_t)gn * (K >> 8) + s);
-        scv[i] = __ldg(p.sc + (size_t)gn * n_groups + (k0 >> 5));
-      } else {
-        dv[i] = __ldg(p.d + (size_t)gn * n_groups + (k0 >> 5));
-      }
+    q = make_uint4(0, 0, 0, 0);
+    d = 0.f;
+    sc = 0;
+    if (!live || k0 >= K) return;
+    const int8_t* qrow = static_cast<const int8_t*>(p.q) + (size_t)row * K;
+    q = __ldg(reinterpret_cast<const uint4*>(qrow + k0));
+    if constexpr (kQ6) {
+      d = __ldg(p.d + (size_t)row * (K >> 8) + s);
+      sc = __ldg(p.sc + (size_t)row * (K >> 4) + s * 16 + c);
+    } else if constexpr (kSub) {
+      d = __ldg(p.d + (size_t)row * (K >> 8) + s);
+      sc = __ldg(p.sc + (size_t)row * (K >> 5) + (k0 >> 5));
+    } else {
+      d = __ldg(p.d + (size_t)row * (K >> 5) + (k0 >> 5));
     }
   }
+  __device__ __forceinline__ void run(int, uint32_t (&w)[8]) const {
+    const float dl = kQ6 || kSub ? __fmul_rn(d, (float)sc) : d;
+    const uint32_t w32[4] = {q.x, q.y, q.z, q.w};
 #pragma unroll
-  for (int i = 0; i < kLoads; ++i) {
-    const int idx = tid + kThreads * i;
-    const int r = idx >> 4, c = idx & 15;
-    if constexpr (kSub) dv[i] = __fmul_rn(dv[i], (float)scv[i]);  // 0 past N
-    const uint32_t w32[4] = {qv[i].x, qv[i].y, qv[i].z, qv[i].w};
-    uint32_t wv[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const uint32_t word = w32[e >> 1];
-      const int sh = (e & 1) * 16;
-      const float v0 = (float)(int8_t)((word >> sh) & 0xFFu);
-      const float v1 = (float)(int8_t)((word >> (sh + 8)) & 0xFFu);
-      wv[e] = pack_bf16(__fmul_rn(v0, dv[i]), __fmul_rn(v1, dv[i]));
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t v = w32[i] ^ 0x80808080u;  // each int8 plus 128, one a byte
+      w[2 * i] = pack_bf16(__fmul_rn(byte_float(v, 0, 128.f), dl),
+                           __fmul_rn(byte_float(v, 1, 128.f), dl));
+      w[2 * i + 1] = pack_bf16(__fmul_rn(byte_float(v, 2, 128.f), dl),
+                               __fmul_rn(byte_float(v, 3, 128.f), dl));
     }
-    __nv_bfloat16* dst = ws_t + r * LD + c * 16;
-    *reinterpret_cast<uint4*>(dst) = make_uint4(wv[0], wv[1], wv[2], wv[3]);
-    *reinterpret_cast<uint4*>(dst + 8) = make_uint4(wv[4], wv[5], wv[6], wv[7]);
   }
-}
+};
 
-// The weight tile of K step s of format QT (a GGML type id), staged by the
-// format's own device function.
+// The chunk type of format QT (a GGML type id)
+template <int QT>
+using Chunk = std::conditional_t<
+    halves(QT), HalvesChunk<fmt_of(QT)>,
+    std::conditional_t<QT == kQ2K || QT == kQ3K, LowbitChunk<QT == kQ3K>,
+                       Int8Chunk<QT == kQ6K, QT == kIQ4XS>>>;
+
+// The weight tile of K step s of format QT: BN rows of C::kPerStep chunks,
+// rows past N zero. Every global load of the tile is issued before any is
+// used.
 template <int QT>
 __device__ __forceinline__ void stage_w(const Planes& p, __nv_bfloat16* ws_t, int n0, int N,
                                         int K, int s, int tid) {
-  if constexpr (halves(QT))
-    stage_w_halves<fmt_of(QT)>(p, ws_t, n0, N, K, s, tid);
-  else if constexpr (QT == kQ2K || QT == kQ3K)
-    stage_w_lowbit<QT == kQ3K>(p, ws_t, n0, N, K, s, tid);
-  else if constexpr (QT == kQ6K)
-    stage_w_q6k(p, ws_t, n0, N, K, s, tid);
-  else
-    stage_w_int8<QT == kIQ4XS>(p, ws_t, n0, N, K, s, tid);
+  using C = Chunk<QT>;
+  constexpr int kLoads = BN * C::kPerStep / kThreads;
+  C ch[kLoads];
+#pragma unroll
+  for (int i = 0; i < kLoads; ++i) {
+    const int idx = tid + kThreads * i;
+    const int r = idx / C::kPerStep;
+    ch[i].load(p, n0 + r, K, s, idx % C::kPerStep, n0 + r < N);
+  }
+#pragma unroll
+  for (int i = 0; i < kLoads; ++i) {
+    const int idx = tid + kThreads * i;
+    const int r = idx / C::kPerStep, c = idx % C::kPerStep;
+#pragma unroll
+    for (int j = 0; j < C::kRuns; ++j) {
+      uint32_t w[8];
+      ch[i].run(j, w);
+      __nv_bfloat16* dst = ws_t + r * LD + C::offset(c, j);
+      *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+      *reinterpret_cast<uint4*>(dst + 8) = make_uint4(w[4], w[5], w[6], w[7]);
+    }
+  }
 }
 
 }  // namespace qstage

@@ -37,9 +37,11 @@ GEMM_ARGS = [_P] * 9 + [_I] * 5 + [_P]
 # rows_per_warp, per_split, nsplit, stream)
 FLASH_ARGS = ([_P] * 8 + [_I] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_float]
               + [_I] * 3 + [_P])
-# the fused-FFN entry point: (x, the gate, up and down planes, six each,
-# part, out, m, k, f, n, gate/up type, down type, act, out_f32, stream)
-QFFN_ARGS = [_P] * 21 + [_I] * 8 + [_P]
+# kernel I's two passes (csrc/qffn.cu): qffn_gated (x, the fused gate/up
+# weight's six planes, workspace, m, k, f, type, act, splits, stream) and
+# qffn_down (workspace, the down weight's six planes, out, m, f, n, type,
+# out_f32, splits, stream)
+QFFN_ARGS = [_P] * 8 + [_I] * 6 + [_P]
 # each source, its C entry points (one per kernel, format or cell type) and
 # their argument types; every entry returns cudaError_t as int
 SOURCES = {
@@ -59,7 +61,7 @@ SOURCES = {
          "qgemm_q4_1", "qgemm_q5_0", "qgemm_q5_1"), GEMM_ARGS),
     "flash_decode.cu": dict.fromkeys(
         ("flash_decode_bf16", "flash_decode_i8", "flash_decode_i4"), FLASH_ARGS),
-    "qffn.cu": {"qffn": QFFN_ARGS}}
+    "qffn.cu": dict.fromkeys(("qffn_gated", "qffn_down"), QFFN_ARGS)}
 
 
 def nvcc() -> str:

@@ -14,31 +14,76 @@ law is the TPU kernel's:
 It is not the law of the unfused composition, which rounds g and u, then
 act(g), to bf16 before the product.
 
-On a CUDA tensor `qffn` launches kernel I (`csrc/qffn.cu`: one launch over
-chunks of F that writes an f32 partial per chunk, a second that sums them
-in chunk order) or raises; on a CPU tensor it runs `qffn_plain`.
+h lives in device memory as bf16 between two passes, which rounds it
+exactly as the law does.
+
+On a CUDA tensor `qffn` launches kernel I (`csrc/qffn.cu`) or raises; on a
+CPU tensor it runs `qffn_plain`. Kernel I is two passes, a gated pass that
+writes h = bf16(act(g)·u) to a workspace and a down pass, in one of two
+regimes, a plain branch on M (`qffn_plan`):
+- M <= GP_MAX_M (8), decode: register-dequant GEMVs. Each block forms the
+  bf16 weights of 16 rows in registers (qstage.cuh's weight formula) and
+  feeds them to the tensor cores with x; the gated pass takes the gate and
+  up rows of eight h columns, the down pass 16 output rows, summing over
+  all of F in f32.
+- M > 8, prefill: `csrc/qmma.cuh`'s pipelined mainloop, shared with
+  kernels B and D: over the fused [2F, K] weight into f32 g|u, a small
+  pass to h, then over h against the down weight; each with its split
+  count from `dequant_matmul.gemm_splits`.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
 from ..core.dtypes import GGMLType
+from . import dequant_matmul as dm
 from .qformats import PLANES, QUANTIZED, QTensor, check_qtensor, dequant, tile_granule
 
 ACTS = {"silu": 0, "gelu_tanh": 1}
-CHUNK = 256  # columns of F per block of kernel I (one K step of the down weight)
 
-# kernel I's launches (both of its launches count as one), and per
+# kernel I's launches (both of its passes count as one), and per
 # (gate/up, down) format pair, e.g. "Q4_0/Q4_1"; a run resets and reads them
 launches = {"qffn": 0}
 qffn_launches: dict[str, int] = {}
 
-# kernel I's f32 partials [chunks, M, N] per (device, M, N, chunks), kept so
-# that a decode step allocates nothing new
+# kernel I's workspaces per (device, bytes), kept so that a decode step
+# allocates nothing new and a call can be captured in a CUDA graph
 _workspace: dict[tuple, torch.Tensor] = {}
+
+
+class QffnPlan(NamedTuple):
+    """How kernel I runs one call: its regime ("gemv": the register-dequant
+    passes at M <= GP_MAX_M; "gemm": qmma.cuh's mainloop), the mainloop's
+    split counts of the gate/up and down passes (1 in the gemv regime) and
+    the workspace bytes (csrc/qffn.cu: h bf16 [M, F]; for "gemm" then g|u
+    f32 [M, 2F] and the larger pass's split partials)."""
+    regime: str
+    splits_gu: int
+    splits_dn: int
+    workspace_bytes: int
+
+
+def qffn_plan(m: int, n: int, k: int, f: int, t_gu: GGMLType,
+              t_dn: GGMLType) -> QffnPlan:
+    """Kernel I's plan for x [m, k], the fused gate/up weight [2f, k] of
+    format `t_gu` and the down weight [n, f] of format `t_dn`. The regime
+    is a plain branch on m, the same as csrc/qffn.cu's (kGemvMaxM)."""
+    for dim, qt in ((k, t_gu), (f, t_gu), (f, t_dn)):
+        if dim % tile_granule(qt):
+            raise ValueError(f"qffn: {dim} is not a multiple of "
+                             f"{GGMLType(qt).name}'s granule {tile_granule(qt)}")
+    h_bytes = 2 * m * f
+    if m <= dm.GP_MAX_M:
+        return QffnPlan("gemv", 1, 1, h_bytes)
+    s_gu = dm.gemm_splits(m, 2 * f, k, t_gu)
+    s_dn = dm.gemm_splits(m, n, f, t_dn)
+    part = max(dm.gemm_workspace_bytes(m, 2 * f, k, s_gu, False),
+               dm.gemm_workspace_bytes(m, n, f, s_dn, False))
+    return QffnPlan("gemm", s_gu, s_dn, h_bytes + 4 * 2 * m * f + part)
 
 
 def reset_launches() -> None:
@@ -98,46 +143,76 @@ def qffn_plain(x: torch.Tensor, gu: QTensor, down: QTensor, act: str = "silu",
     return (h @ dequant(down, torch.bfloat16).to(torch.float32).T).to(out_dtype)
 
 
-def workspace(device, m: int, n: int, chunks: int) -> torch.Tensor:
-    """Kernel I's f32 partials [chunks, m, n] on `device`, made once per
-    shape."""
-    key = (str(device), m, n, chunks)
+def workspace(device, nbytes: int) -> torch.Tensor:
+    """A kernel I workspace of `nbytes` on `device`, made once per size (the
+    two passes of a call run in order on one stream, and so do calls)."""
+    key = (str(device), nbytes)
     ws = _workspace.get(key)
     if ws is None:
-        ws = _workspace[key] = torch.empty((chunks, m, n), dtype=torch.float32,
-                                           device=device)
+        ws = _workspace[key] = torch.empty(nbytes, dtype=torch.uint8, device=device)
     return ws
+
+
+def _planes(name: str, x: torch.Tensor, qt: QTensor) -> list:
+    """The data pointers of qt's six planes (0 where the format has none),
+    after checking that each lies on x's device, contiguous and aligned as
+    kernel I reads it: q in 16-byte loads, qh in 16-bit words."""
+    planes = [getattr(qt, nm) for nm in PLANES]
+    for nm, p in zip(PLANES, planes):
+        if p is None:
+            continue
+        if p.device != x.device:
+            raise ValueError(f"qffn: x and {name}'s planes on different devices")
+        if not p.is_contiguous():
+            raise ValueError(f"qffn: {name}'s {nm} plane is not contiguous")
+        if p.data_ptr() % {"q": 16, "qh": 2}.get(nm, 1):
+            raise ValueError(f"qffn: {name}'s {nm} plane is misaligned")
+    return [0 if p is None else p.data_ptr() for p in planes]
+
+
+def passes(x: torch.Tensor, gu: QTensor, down: QTensor, act: str = "silu",
+           out_dtype=torch.bfloat16):
+    """Kernel I's two passes for one call on CUDA tensors, each a callable
+    of no arguments that launches it on the current stream and raises on a
+    failed launch: (plan, gated pass, down pass, out). The gated pass writes
+    h to the workspace, the down pass reads it and writes `out`. `qffn` runs
+    both in turn; they are apart so that each can be timed."""
+    x = x.to(torch.bfloat16).contiguous()
+    if x.data_ptr() % 16:
+        raise ValueError("qffn: x must be 16-byte aligned")
+    n_out, f = down.shape
+    m, k = x.shape
+    gate, dn = _planes("gate/up", x, gu), _planes("down", x, down)
+    from . import _build
+
+    fns = _build.load()
+    plan = qffn_plan(m, n_out, k, f, gu.ggml_type, down.ggml_type)
+    ws = workspace(x.device, plan.workspace_bytes)
+    out = torch.empty((m, n_out), dtype=out_dtype, device=x.device)
+
+    def run(entry: str, *args) -> None:
+        rc = fns[entry](*args, torch.cuda.current_stream(x.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
+
+    def gated_pass() -> None:
+        run("qffn_gated", x.data_ptr(), *gate, ws.data_ptr(), m, k, f,
+            int(gu.ggml_type), ACTS[act], plan.splits_gu)
+
+    def down_pass() -> None:
+        run("qffn_down", ws.data_ptr(), *dn, out.data_ptr(), m, f, n_out,
+            int(down.ggml_type), int(out_dtype == torch.float32), plan.splits_dn)
+
+    return plan, gated_pass, down_pass, out
 
 
 def _launch(x: torch.Tensor, gu: QTensor, down: QTensor, act: str,
             out_dtype) -> torch.Tensor:
-    """Launch kernel I on the current stream (CUDA tensors only). The entry
-    takes the gate, up and down planes (q, sc, mn, d, dm, qh each, null
-    where the format has none); up is rows [F, 2F) of the fused weight."""
-    x = x.to(torch.bfloat16).contiguous()
-    n_out, f = down.shape
-    gate = [getattr(gu, nm) for nm in PLANES]
-    up = [None if p is None else p[f:] for p in gate]
-    dn = [getattr(down, nm) for nm in PLANES]
-    if any(p is not None and p.device != x.device for p in gate + dn):
-        raise ValueError("qffn: x and weight planes on different devices")
-    if x.data_ptr() % 16 or any(p.data_ptr() % 16 for p in (gu.q, up[0], down.q)):
-        raise ValueError("qffn: x and q planes must be 16-byte aligned")
-    if any(p is not None and p.data_ptr() % 2 for p in (gu.qh, up[5], down.qh)):
-        raise ValueError("qffn: qh planes must be 2-byte aligned")  # read in 16-bit words
-    from . import _build
-
-    fn = _build.load()["qffn"]
-    m, k = x.shape
-    chunks = -(-f // CHUNK)
-    part = workspace(x.device, m, n_out, chunks)
-    out = torch.empty((m, n_out), dtype=out_dtype, device=x.device)
-    rc = fn(x.data_ptr(), *(0 if p is None else p.data_ptr() for p in gate + up + dn),
-            part.data_ptr(), out.data_ptr(), m, k, f, n_out, int(gu.ggml_type),
-            int(down.ggml_type), ACTS[act], int(out_dtype == torch.float32),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"qffn launch failed: CUDA error {rc}")
+    """Launch kernel I's two passes on the current stream (CUDA tensors
+    only); one launch in the counts."""
+    _, gated_pass, down_pass, out = passes(x, gu, down, act, out_dtype)
+    gated_pass()
+    down_pass()
     launches["qffn"] += 1
     key = pair_name(gu, down)
     qffn_launches[key] = qffn_launches.get(key, 0) + 1

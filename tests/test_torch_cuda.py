@@ -483,7 +483,7 @@ def test_cuda_quantized_kv_forward_goes_through_flash(card, kv_dtype, flash):
 _Q = [t.name for t in qformats.QUANTIZED]
 QFFN_PAIRS = [(t, t) for t in _Q] + [("Q4_K", "Q6_K"), ("Q5_K", "Q6_K"),
                                      ("Q4_0", "Q4_1"), ("Q5_0", "Q5_1")]
-QFFN_CASES = [(g, d, m) for g, d in QFFN_PAIRS for m in (1, 8, 64, 37)]
+QFFN_CASES = [(g, d, m) for g, d in QFFN_PAIRS for m in (1, 8, 9, 64, 37)]
 
 
 def _ffn_weights(card, gen, t_gu, t_dn, k, f):
@@ -496,8 +496,9 @@ def _ffn_weights(card, gen, t_gu, t_dn, k, f):
                          ids=[f"{g}-{d}-m{m}" for g, d, m in QFFN_CASES])
 def test_cuda_qffn_matches_plain(card, t_gu, t_dn, m):
     """Kernel I against its plain law, both output dtypes and both
-    activations; a repeat launch on the same inputs is bit-identical (the
-    partials are summed in a fixed order); each call counts one launch,
+    activations, in both regimes (M <= 8 the register path, M = 9 the
+    first mainloop M); a repeat launch on the same inputs is bit-identical
+    (every sum is taken in a fixed order); each call counts one launch,
     under its format pair."""
     int8 = all(t in ("Q8_0", "IQ4_NL", "MXFP4") for t in (t_gu, t_dn))
     k = 1056 if int8 else 1024
@@ -517,16 +518,40 @@ def test_cuda_qffn_matches_plain(card, t_gu, t_dn, m):
 
 @pytest.mark.cuda
 def test_cuda_qffn_ragged_chunk(card):
-    """F = 800 (Q8_0/Q8_0): the last of four chunks holds 32 columns, the
-    rest of its gate/up rows and down columns staged as zeros."""
+    """F = 800 (Q8_0/Q8_0): the down weight's K steps are ragged (the last
+    holds 32 columns, the rest staged as zeros on the mainloop, past the
+    row's chunks on the register path)."""
     gen = torch.Generator(device=card).manual_seed(3)
     gu, dn = _ffn_weights(card, gen, "Q8_0", "Q8_0", 1056, 800)
-    for m in (1, 64):
+    for m in (1, 9, 64):
         x = torch.randn((m, 1056), device=card, generator=gen).to(torch.bfloat16)
         got = ff.qffn(x, gu, dn, out_dtype=torch.float32)
         want = ff.qffn_plain(x, gu, dn, out_dtype=torch.float32)
         torch.cuda.synchronize()
         assert torch.isfinite(got).all() and limit_ratio(got, want) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 64])
+def test_cuda_qffn_in_a_cuda_graph(card, m):
+    """One `qffn` call captured in a CUDA graph (after a warm call that
+    makes its workspace) replays to the eager call's bits, in both
+    regimes; the capture allocates no new workspace."""
+    gen = torch.Generator(device=card).manual_seed(m)
+    gu, dn = _ffn_weights(card, gen, "Q4_K", "Q6_K", 1024, 768)
+    x = torch.randn((m, 1024), device=card, generator=gen).to(torch.bfloat16)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        want = ff.qffn(x, gu, dn)
+    torch.cuda.current_stream().wait_stream(side)
+    n_ws = len(ff._workspace)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = ff.qffn(x, gu, dn)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert len(ff._workspace) == n_ws and torch.equal(got, want)
 
 
 @pytest.mark.cuda

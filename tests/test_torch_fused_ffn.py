@@ -118,10 +118,11 @@ def test_qffn_refuses_what_qffn_pallas_refuses():
 
 # --------------------------------------------------- the wrapper on the card
 
-def _mocked_card(entry):
-    """ff.qffn's card path with `entry` as the built kernel I."""
+def _mocked_card(entries):
+    """ff.qffn's card path with `entries` (entry point name: function) as
+    the built kernel I."""
     return (mock.patch.object(ff, "_on_cuda", return_value=True),
-            mock.patch.object(_build, "load", return_value={"qffn": entry}),
+            mock.patch.object(_build, "load", return_value=entries),
             mock.patch.object(torch.cuda, "current_stream",
                               return_value=SimpleNamespace(cuda_stream=0)))
 
@@ -129,42 +130,51 @@ def _mocked_card(entry):
 @pytest.mark.parametrize("pair", [(Q4_K, Q6_K), (Q5_0, Q5_1), (GGMLType.Q3_K, GGMLType.IQ4_XS)],
                          ids=pair_id)
 def test_qffn_marshals_the_planes_on_a_mocked_card(pair):
-    """On the card `qffn` passes kernel I the gate planes, the up planes
-    (the same planes F rows on) and the down planes, a null pointer exactly
-    where a format has no plane; the shapes, both format ids, the
-    activation and the output type; and the same f32 workspace on every
-    call of a shape. Each call counts one launch, under its format pair."""
+    """On the card `qffn` launches kernel I's two passes in turn: the gated
+    pass gets x, the fused gate/up weight's planes and the workspace, the
+    down pass the workspace, the down weight's planes and the output, each
+    with a null pointer exactly where a format has no plane; the shapes,
+    the format ids, the activation, the output type and the plan's split
+    counts; and the same workspace on every call of a shape. Each call
+    counts one launch, under its format pair."""
     t_gu, t_dn = pair
     _, gu = _qt(1, t_gu, 2 * F, K)
     _, dn = _qt(2, t_dn, K, F)
     calls = []
 
-    def entry(*a):
-        calls.append(a)
-        return 0
+    def entry(name):
+        def fn(*a):
+            calls.append((name, a))
+            return 0
+        return fn
 
     ff.reset_launches()
-    card, build, stream = _mocked_card(entry)
+    card, build, stream = _mocked_card({nm: entry(nm) for nm in ("qffn_gated", "qffn_down")})
     with card, build, stream:
-        x = torch.zeros((3, K), dtype=torch.bfloat16)
-        ff.qffn(x, gu, dn)
-        ff.qffn(x, gu, dn, "gelu_tanh", torch.float32)
-    assert ff.launches == {"qffn": 2}
-    assert ff.qffn_launches == {f"{t_gu.name}/{t_dn.name}": 2}
-    for a in calls:
-        assert len(a) == len(_build.QFFN_ARGS) == 30
-        gate, up, down = a[1:7], a[7:13], a[13:19]
-        for i, nm in enumerate(qformats.PLANES):
-            g, d = getattr(gu, nm), getattr(dn, nm)
-            assert (gate[i] == 0) == (g is None) and (down[i] == 0) == (d is None)
-            if g is not None:
-                assert gate[i] == g.data_ptr()
-                assert up[i] == g.data_ptr() + F * g.stride(0) * g.element_size()
-            if d is not None:
-                assert down[i] == d.data_ptr()
-        assert a[21:27] == (3, K, F, K, int(t_gu), int(t_dn))
-    assert calls[0][19] == calls[1][19]  # one workspace [3 chunks, 3, K]
-    assert (calls[0][27:29], calls[1][27:29]) == ((0, 0), (1, 1))
+        for m in (3, 12):
+            x = torch.zeros((m, K), dtype=torch.bfloat16)
+            ff.qffn(x, gu, dn)
+            ff.qffn(x, gu, dn, "gelu_tanh", torch.float32)
+    assert ff.launches == {"qffn": 4}
+    assert ff.qffn_launches == {f"{t_gu.name}/{t_dn.name}": 4}
+    assert [nm for nm, _ in calls] == ["qffn_gated", "qffn_down"] * 4
+    for i, (nm, a) in enumerate(calls):
+        assert len(a) == len(_build.QFFN_ARGS) == 15
+        m = 3 if i < 4 else 12
+        plan = ff.qffn_plan(m, K, K, F, t_gu, t_dn)
+        qt, planes = (gu, a[1:7]) if nm == "qffn_gated" else (dn, a[1:7])
+        for j, pn in enumerate(qformats.PLANES):
+            p = getattr(qt, pn)
+            assert planes[j] == (0 if p is None else p.data_ptr())
+        act, f32 = (0, 0) if i % 4 < 2 else (1, 1)
+        if nm == "qffn_gated":
+            assert a[8:] == (m, K, F, int(t_gu), act, plan.splits_gu, 0)
+            ws = a[7]
+        else:
+            assert a[0] == ws  # h, written by the gated pass
+            assert a[8:] == (m, F, K, int(t_dn), f32, plan.splits_dn, 0)
+    # one workspace per size: the M = 3 calls share one, the M = 12 calls another
+    assert calls[0][1][7] == calls[2][1][7] != calls[4][1][7] == calls[6][1][7]
 
 
 def test_qffn_on_the_card_launches_or_raises():

@@ -141,18 +141,19 @@ def test_kernel_build_runs_nvcc_per_source_in_parallel(tmp_path):
                            "q4_0_gemm", "q4_0_gemv", "q4_1_gemm", "q4_1_gemv",
                            "q4k_gemm", "q4k_gemv", "q5_0_gemm", "q5_0_gemv",
                            "q5_1_gemm", "q5_1_gemv", "q5k_gemm", "q5k_gemv",
-                           "q6k_gemv", "q8_0_gemv", "qffn", "qgemm_iq4_nl", "qgemm_iq4_xs",
-                           "qgemm_mxfp4", "qgemm_q2k", "qgemm_q3k", "qgemm_q4_0",
-                           "qgemm_q4_1", "qgemm_q4k", "qgemm_q5_0", "qgemm_q5_1",
-                           "qgemm_q5k", "qgemm_q6k", "qgemm_q8_0"]
+                           "q6k_gemv", "q8_0_gemv", "qffn_down", "qffn_gated",
+                           "qgemm_iq4_nl", "qgemm_iq4_xs", "qgemm_mxfp4", "qgemm_q2k",
+                           "qgemm_q3k", "qgemm_q4_0", "qgemm_q4_1", "qgemm_q4k",
+                           "qgemm_q5_0", "qgemm_q5_1", "qgemm_q5k", "qgemm_q6k",
+                           "qgemm_q8_0"]
     for name, fn in fns.items():
         assert fn.argtypes[:7] == [ctypes.c_void_p] * 7
         if name.startswith("flash"):  # 8 pointers, int64 strides, f32 scale
             assert fn.argtypes == _build.FLASH_ARGS and len(fn.argtypes) == 20
             assert fn.argtypes[13:16] == [ctypes.c_longlong] * 2 + [ctypes.c_float]
-        elif name == "qffn":  # x, 3 x six planes, part, out, 8 ints
-            assert fn.argtypes == _build.QFFN_ARGS and len(fn.argtypes) == 30
-            assert fn.argtypes[21:29] == [ctypes.c_int] * 8
+        elif name.startswith("qffn"):  # input, six planes, out or workspace, 6 ints
+            assert fn.argtypes == _build.QFFN_ARGS and len(fn.argtypes) == 15
+            assert fn.argtypes[7:14] == [ctypes.c_void_p] + [ctypes.c_int] * 6
         elif name.endswith("_gemm") or name.startswith("qgemm"):
             # kernels B and D: x, six planes, out, workspace, m, n, k,
             # splits, out_f32
