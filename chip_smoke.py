@@ -15,7 +15,9 @@ repeat launch must give the same bits; their timing lines print each
 call's split count and work units. It holds the dense dot of a bf16 weight
 (cuBLAS, K split into chunks) against the widened-f32 product the same
 way, and the flash-decode kernels (bf16, int8 and int4 KV cells) against
-their plain versions and the attention law in f64. Then it drives these
+their plain versions and the attention law in f64, in both of kernel F's
+regimes (T = 1 and 2 decode, 3, 8 and 64 prefill at G = 4), a repeat
+launch bit-identical. Then it drives these
 paths at full width and depth (all 36 layers, random weights made on the
 card from seed S, 0 by default), one model resident at a time, each through
 `OmniPipeline.stream_prefill` / `stream_decode`:
@@ -272,8 +274,10 @@ N_CTX, N_PREFILL, N_DECODE, N_TEACHER = 2048, 64, 128, 8
 # the flash kernels at Qwen3-8B's attention shapes (32 query heads over 8 KV
 # heads of 128): T query tokens over S cells. S = 1000 is no multiple of 512
 # (the Pallas tile halves to 8 cells; the kernel's last split is ragged).
+# T = 1 and 2 (4 and 8 rows per KV head) take kernel F's decode regime, T =
+# 3, 8 and 64 (12, 32, 256 rows) its prefill regime.
 FLASH_HEADS = (32, 8, 128)
-FLASH_TS, FLASH_SS = (1, 8, 64), (512, 1000, 2048, 8192)
+FLASH_TS, FLASH_SS = (1, 2, 3, 8, 64), (512, 1000, 2048, 8192)
 # the kv-read bucket the served turns decode over (Context.kv_buckets)
 KV_BUCKET = 512
 # times: decode (T = 1) from that bucket up to a 32,768-cell pool, and a
@@ -307,8 +311,9 @@ Q8_0_FILE_BYTES = 8.8e9
 MAX_FILTERED_SHARE = 0.05
 
 # kernel vs plain: both round each p·vs to bf16 (relative error <= 2**-8),
-# but against other running maxima (32-cell tiles in the kernel, the Pallas
-# 512-cell tiles in the plain version), so one term may differ by 2 x 2**-8
+# but against other running maxima (a warp's 64-cell tiles, or its 16 cells
+# of each, in the kernel, the Pallas 512-cell tiles in the plain version; the
+# bound holds for any tiling), so one term may differ by 2 x 2**-8
 # of p|v|: per output, 2**-7 x Σ p|v| / l (from the f64 law), plus a floor
 # of 1e-6 of its largest value for the f32 sums taken in another order.
 # Measured: 0.15 of the limit at most.
@@ -639,8 +644,9 @@ def flash_inputs(bits: int, t: int, s: int, dev, gen, heads=FLASH_HEADS):
 def check_flash(bits: int, t: int, s: int, dev, gen, max_err) -> None:
     """Kernel F (`flash_decode`, or `flash_decode4` for int4 cells) against
     its plain version within FLASH_RTOL x Σ p|v| (+ FLASH_FLOOR), finite,
-    and its RMS distance from the f64 law within F64_FACTOR of the plain
-    version's."""
+    its RMS distance from the f64 law within F64_FACTOR of the plain
+    version's, and a repeat launch bit-identical (the splits are merged in
+    split order whichever arrives last)."""
     import torch
 
     from omni_tpu_torch.kernels import flash_attention as fa
@@ -648,25 +654,29 @@ def check_flash(bits: int, t: int, s: int, dev, gen, max_err) -> None:
     args = flash_inputs(bits, t, s, dev, gen)
     name = "flash_decode4" if bits == 4 else "flash_decode"
     got = fa.flash_decode(*args)
+    again = fa.flash_decode(*args)
     want = fa.flash_decode_plain(*args)
     exact, exact_abs = flash_law_f64(*args, with_abs=True)
     torch.cuda.synchronize()
+    same = torch.equal(got, again)
     err = (got - want).abs().max().item()
     limit = FLASH_RTOL * exact_abs + FLASH_FLOOR * exact_abs.max()
     worst = ((got - want).abs() / limit).max().item()
     rms = [(a.double() - exact).pow(2).mean().sqrt().item() for a in (got, want)]
     ratio = rms[0] / max(rms[1], 1e-30)
     max_err[name] = max(max_err.get(name, 0.0), err)
-    ok = bool(torch.isfinite(got).all()) and worst <= 1.0 and ratio <= F64_FACTOR
+    ok = bool(torch.isfinite(got).all()) and worst <= 1.0 and ratio <= F64_FACTOR and same
+    plan = fa.split_plan(t * FLASH_HEADS[0] // FLASH_HEADS[1], FLASH_HEADS[1], s)
     print(f"  {name} {({16: 'bf16', 8: 'int8', 4: 'int4'})[bits]} T={t} S={s} "
-          f"split {fa.split_plan(t * FLASH_HEADS[0] // FLASH_HEADS[1], FLASH_HEADS[1], s)}: "
+          f"{plan.regime}, {plan.nsplit} splits of {plan.per_split}: "
           f"max|d|={err:.3g}, worst |d|/limit {worst:.3g} (limit {FLASH_RTOL:g} "
           f"sum p|v| + {FLASH_FLOOR:g} max); rms vs the f64 law kernel {rms[0]:.3g}, "
-          f"plain {rms[1]:.3g}, ratio {ratio:.3g} (limit {F64_FACTOR}) "
-          f"{'ok' if ok else 'FAIL'}", flush=True)
+          f"plain {rms[1]:.3g}, ratio {ratio:.3g} (limit {F64_FACTOR}), repeat "
+          f"{'bit-identical' if same else 'DIFFERS'} {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise SystemExit(f"{name} at T={t} S={s} ({bits}-bit cells) disagrees with "
-                         f"its plain version or the f64 law")
+                         f"its plain version or the f64 law, or a repeat launch "
+                         f"gave other bits")
 
 
 def check_kernel(name, kern, plain, w, shape_name, m, out_dtype, gen, max_err):
@@ -1247,6 +1257,27 @@ def check_gemm_splits(dev, gen, max_err) -> None:
             del qt
 
 
+def kernels_per_call(fn, names: tuple[str, ...]):
+    """How many kernels whose name holds one of `names` the card ran for one
+    call of fn(), from torch.profiler's CUDA activity; None where the
+    profiler saw no device activity at all."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        seen = [e.name for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+    except Exception as exc:  # the profiler is a reading aid, not a check
+        print(f"  kernels_per_call: profiler failed ({exc})", flush=True)
+        return None
+    return sum(any(k in n for k in names) for n in seen) if seen else None
+
+
 def time_flash(rows, dev, gen) -> None:
     """Time kernel F for each cell type at each FLASH_TIMES shape, in a CUDA
     graph over copies of the planes that stream more than twice the L2 per
@@ -1255,7 +1286,8 @@ def time_flash(rows, dev, gen) -> None:
     bf16 with the same boolean mask; the port never calls it) and its bound:
     the bytes of cells, scales, q (bf16), out (f32) and mask, each once,
     over HBM bandwidth vs 4·T·Hq·S·D operations over the bf16 tensor-core
-    peak."""
+    peak. Each row also carries the regime and split of the call and the
+    kernel F launches the card ran for one call (torch.profiler)."""
     import torch
     import torch.nn.functional as F
 
@@ -1289,14 +1321,23 @@ def time_flash(rows, dev, gen) -> None:
             t_p = cuda_ms(lambda: fa.flash_decode_plain(q, k, v, mask, ks, vs), 3)
             t_l = graph_ms(lambda i: F.scaled_dot_product_attention(
                 q4, *lib[i % len(lib)], attn_mask=m4, enable_gqa=True), iters)
+            # kernel F's own launches (csrc/flash_decode.cu: flash_kernel,
+            # and merge_kernel at prefill with splits)
+            per_call = kernels_per_call(lambda: fa.flash_decode(q, k, v, mask, ks, vs),
+                                        ("flash_kernel", "merge_kernel"))
             io = nbytes + t * hq * d * (2 + 4) + t * s
             t_bytes = io / HBM_BYTES_PER_S * 1e3
             t_ops = 4.0 * t * hq * s * d / BF16_TENSOR_OPS_PER_S * 1e3
             b, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+            plan = fa.split_plan(t * hq // hkv, hkv, s)
             rows.append({"kernel": name, "cells": cells, "t": t, "s": s, "ms": t_k,
                          "plain_ms": t_p, "library_ms": t_l, "bound_ms": b,
-                         "bound_by": by, "split": fa.split_plan(t * hq // hkv, hkv, s)})
-            print(f"  {name} {cells} T={t} S={s}: {t_k:.4f} ms, plain {t_p:.4f}, "
+                         "bound_by": by, "regime": plan.regime,
+                         "split": [plan.per_split, plan.nsplit],
+                         "launches_per_call": per_call})
+            print(f"  {name} {cells} T={t} S={s} ({plan.regime}, {plan.nsplit} splits, "
+                  f"{'not measured' if per_call is None else per_call} launches a call): "
+                  f"{t_k:.4f} ms, plain {t_p:.4f}, "
                   f"SDPA(bf16) {t_l:.4f}, bound {b:.4f} ({by}), {b / t_k:.1%} of "
                   f"bound; x {N_LAYERS} layers {t_k * N_LAYERS:.3f} ms", flush=True)
             del pool, lib

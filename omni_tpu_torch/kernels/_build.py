@@ -33,9 +33,9 @@ MATMUL_ARGS = [_P] * 8 + [_I] * 4 + [_P]
 # out_f32, stream)
 GEMM_ARGS = [_P] * 9 + [_I] * 5 + [_P]
 # a flash-decode entry point: (q, k, v, mask, k_scale, v_scale, out,
-# workspace, t, hkv, g, s, d, head_stride, scale_stride, scale,
-# rows_per_warp, per_split, nsplit, stream)
-FLASH_ARGS = ([_P] * 8 + [_I] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_float]
+# workspace, counters, t, hkv, g, s, d, head_stride, scale_stride, scale,
+# regime, per_split, nsplit, stream)
+FLASH_ARGS = ([_P] * 9 + [_I] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_float]
               + [_I] * 3 + [_P])
 # kernel I's two passes (csrc/qffn.cu): qffn_gated (x, the fused gate/up
 # weight's six planes, workspace, m, k, f, type, act, splits, stream) and

@@ -17,13 +17,17 @@ Pallas kernels `flash_decode` (bf16 and int8 cells) and `_flash_decode4`
 - out = acc / max(l, 1e-30), f32 [T, Hq, D].
 
 On a CUDA tensor the wrapper launches the hand-written kernel
-(`csrc/flash_decode.cu`, split-S flash-decoding) or raises; on a CPU tensor
-it runs `flash_decode_plain`, the same law over the Pallas kernel's tiles
+(`csrc/flash_decode.cu`: tensor-core tiles, a decode and a prefill regime,
+split-S with the splits merged by the last one to finish at decode and by
+a second launch at prefill) or raises; on a CPU tensor it runs
+`flash_decode_plain`, the same law over the Pallas kernel's tiles
 (512 cells, halved until they divide S). Both round p against their own
 running maximum, so they differ by those bf16 roundings.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -34,18 +38,30 @@ BLOCK_S = 512  # the Pallas kernel's tile of cells (`block_s`)
 HEAD_DIMS = (64, 128)  # the head widths the kernel is built for
 
 # the CUDA kernel's work split (csrc/flash_decode.cu): a block of WARPS
-# warps takes 1 or 4 query rows per warp over one split of the cells, TILE
-# cells at a time
-WARPS, TILE = 4, 32
-MIN_SPLIT = 2 * TILE  # fewest cells a split streams
-# blocks to aim for: 132 SMs, five blocks (at most 42 KB of shared memory
-# each) resident on each
-TARGET_BLOCKS = 132 * 5
+# warps streams one split of a head's cells, TILE cells at a time through
+# STAGES ring slots. Up to DECODE_ROWS rows per head (T = 1 or 2 at G = 4)
+# take the decode regime: one 16-row fragment whose first rows are real,
+# the warps sharing out each tile's cells, the splits merged by the last to
+# arrive (one launch); more rows take the prefill regime: each warp 16
+# rows, a block BLOCK_ROWS rows, every warp over every cell, the splits
+# merged by a second launch.
+WARPS, TILE, STAGES = 4, 64, 3
+DECODE_ROWS = 8
+BLOCK_ROWS = 16 * WARPS
+# blocks to aim for when splitting the cells, in both regimes: 132 SMs
+# times the two blocks an SM holds at once (208-219 registers a thread at
+# prefill, 124-182 at decode; 60-104 KB of shared memory), so that every
+# split runs in the first wave (flash_plan_probe: 1-4 a SM)
+TARGET_BLOCKS = 132 * 2
+MAX_SPLITS = 64  # the kernel's most splits (the merge's weights fit in shared memory)
 
 # kernel launches, one count per wrapper; a run resets and reads them
 launches = {"flash_decode": 0, "flash_decode4": 0}
 
 _ENTRY = {16: "flash_decode_bf16", 8: "flash_decode_i8", 4: "flash_decode_i4"}
+REGIMES = ("decode", "prefill")  # the C entries' regime argument, 0 and 1
+# the arrival counters per device (`counters`)
+_counters: dict[str, torch.Tensor] = {}
 
 
 def reset_launches() -> None:
@@ -170,17 +186,61 @@ def _check(q, k, v, mask, k_scale, v_scale) -> int:
     return bits
 
 
-def split_plan(rows: int, hkv: int, s: int) -> tuple[int, int, int]:
+class FlashPlan(NamedTuple):
+    """How kernel F runs one call: its regime ("decode": rows per head <=
+    DECODE_ROWS, one row block; "prefill": row blocks of BLOCK_ROWS), the
+    cells of each split (a whole number of tiles, the last split ragged)
+    and the splits."""
+    regime: str
+    per_split: int
+    nsplit: int
+
+    def row_blocks(self, rows: int) -> int:
+        return 1 if self.regime == "decode" else -(-rows // BLOCK_ROWS)
+
+    def workspace_floats(self, rows: int, hkv: int, d: int) -> int:
+        """The splits' partials (acc [D], m, l per head, split and row) the
+        kernel writes; none with one split."""
+        return hkv * self.nsplit * rows * (d + 2) if self.nsplit > 1 else 0
+
+    def counters(self, rows: int, hkv: int) -> int:
+        """The arrival counters of the decode regime's merge, one per head;
+        none with one split or at prefill (a second launch merges there)."""
+        return hkv if self.nsplit > 1 and self.regime == "decode" else 0
+
+
+def split_plan(rows: int, hkv: int, s: int) -> FlashPlan:
     """The kernel's work split for T·G = `rows` query rows per head over S
-    cells: (rows per warp, cells per split, splits). Enough splits that
-    Hkv × row tiles × splits reaches TARGET_BLOCKS, none under MIN_SPLIT
-    cells; a split is a whole number of tiles, the last one ragged."""
-    rw = 1 if rows <= 2 * WARPS else 4
-    row_tiles = -(-rows // (WARPS * rw))
-    want = max(1, -(-TARGET_BLOCKS // (hkv * row_tiles)))
-    per = max(MIN_SPLIT, -(-s // want))
-    per = -(-per // TILE) * TILE
-    return rw, per, -(-s // per)
+    cells: the regime, then enough splits that Hkv × row blocks × splits
+    reaches TARGET_BLOCKS, each at least one tile, at most MAX_SPLITS."""
+    regime = "decode" if rows <= DECODE_ROWS else "prefill"
+    units = hkv * (1 if regime == "decode" else -(-rows // BLOCK_ROWS))
+    want = min(MAX_SPLITS, max(1, -(-TARGET_BLOCKS // units)))
+    per = -(-max(TILE, -(-s // want)) // TILE) * TILE
+    return FlashPlan(regime, per, -(-s // per))
+
+
+def shared_bytes(bits: int, d: int) -> int:
+    """Shared memory of one block (csrc/flash_decode.cu, `Layout`): STAGES
+    ring slots (bf16 K and V tiles of TILE padded rows; or raw rows and
+    their f32 scales), then for quantized cells the widened bf16 tiles."""
+    tile = TILE * (2 * d + 16)
+    if bits == 16:
+        return STAGES * 2 * tile
+    row = d if bits == 8 else d // 2
+    return STAGES * (2 * TILE * row + 2 * TILE * 4) + 2 * tile
+
+
+def counters(device, n: int) -> torch.Tensor:
+    """The kernel's arrival counters on `device`, at least n, made zeroed
+    once per device (grown when a call needs more) and left zeroed by every
+    launch; calls run in order on one stream."""
+    key = str(device)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _counters[key] = torch.zeros(max(n, 4096), dtype=torch.int32,
+                                           device=device)
+    return buf
 
 
 def _launch(bits: int, q, k, v, mask, k_scale, v_scale, scale: float):
@@ -188,14 +248,17 @@ def _launch(bits: int, q, k, v, mask, k_scale, v_scale, scale: float):
     hkv, s = k.shape[:2]
     g = hq // hkv
     qb = q.to(torch.bfloat16).contiguous()
+    if qb.data_ptr() % 4:  # the kernel reads q two columns at a time
+        qb = qb.clone()
     itemsize = k.element_size()
     if any(x.data_ptr() % 16 for x in (k, v)) or (k.stride(0) * itemsize) % 16:
         raise ValueError("cells must start 16-byte aligned in every head")
-    rw, per, nsplit = split_plan(t * g, hkv, s)
+    plan = split_plan(t * g, hkv, s)
     out = torch.empty((t, hq, d), dtype=torch.float32, device=q.device)
-    # the splits' partial (acc [D], m, l) per row; unused with one split
-    ws = torch.empty((hkv * nsplit * t * g * (d + 2) if nsplit > 1 else 1,),
+    # the splits' partials, and the counters of the split that merges them
+    ws = torch.empty((max(1, plan.workspace_floats(t * g, hkv, d)),),
                      dtype=torch.float32, device=q.device)
+    cnt = counters(q.device, plan.counters(t * g, hkv))
     from . import _build
 
     fn = _build.load()[_ENTRY[bits]]
@@ -203,8 +266,9 @@ def _launch(bits: int, q, k, v, mask, k_scale, v_scale, scale: float):
     rc = fn(qb.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
             k_scale.data_ptr() if quant else 0,
             v_scale.data_ptr() if quant else 0, out.data_ptr(), ws.data_ptr(),
-            t, hkv, g, s, d, k.stride(0), k_scale.stride(0) if quant else 0,
-            scale, rw, per, nsplit,
+            cnt.data_ptr(), t, hkv, g, s, d, k.stride(0),
+            k_scale.stride(0) if quant else 0, scale,
+            REGIMES.index(plan.regime), plan.per_split, plan.nsplit,
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{_ENTRY[bits]} launch failed: CUDA error {rc}")

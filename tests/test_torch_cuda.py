@@ -419,7 +419,9 @@ def test_cuda_dense_dot_matches_the_widened_product(card):
 
 FLASH_CASES = [(bits, t, s, heads) for bits in (16, 8, 4)
                for t, s, heads in ((1, 1000, (32, 8, 128)), (5, 300, (32, 8, 128)),
-                                   (64, 2048, (32, 8, 128)), (3, 777, (8, 2, 64)))]
+                                   (64, 2048, (32, 8, 128)), (3, 777, (8, 2, 64)),
+                                   (2, 1000, (32, 8, 128)), (3, 1000, (32, 8, 128)),
+                                   (64, 2000, (32, 8, 128)))]
 
 
 @pytest.mark.cuda
@@ -429,7 +431,10 @@ def test_cuda_flash_matches_plain(card, bits, t, s, heads):
     """Kernel F against its plain version within chip_smoke.py's limit
     (2**-7 of sum p|v| from the f64 law: the two round p against other
     running maxima), finite where a row is masked everywhere, at S that
-    are no multiple of 512 and at D = 64; one launch counted per call."""
+    are no multiple of 512 or of the kernel's 64-cell tile, at D = 64, and
+    on each side of the regime boundary (T = 2 and 3 at G = 4: 8 and 12
+    rows per head; 12 and 20 rows are no multiple of 16); one launch
+    counted per call."""
     gen = torch.Generator(device=card).manual_seed(t + s)
     args = flash_inputs(bits, t, s, card, gen, heads)
     name = "flash_decode4" if bits == 4 else "flash_decode"
@@ -441,6 +446,41 @@ def test_cuda_flash_matches_plain(card, bits, t, s, heads):
     assert fa.launches[name] == n0 + 1
     limit = FLASH_RTOL * exact_abs + FLASH_FLOOR * exact_abs.max()
     assert torch.isfinite(got).all() and ((got - want).abs() <= limit).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 64])
+@pytest.mark.parametrize("bits", [16, 8, 4])
+def test_cuda_flash_in_a_cuda_graph(card, bits, t):
+    """One kernel F call over 2,048 cells captured in a CUDA graph (after a
+    warm call that makes the arrival counters) replays to the eager call's
+    bits, twice, in both regimes: the splits' partials are merged in split
+    order, at decode by whichever split arrives last, which leaves its
+    counter at zero, at prefill by a second launch. Two eager calls are
+    bit-identical too."""
+    gen = torch.Generator(device=card).manual_seed(bits + t)
+    args = flash_inputs(bits, t, 2048, card, gen)
+    plan = fa.split_plan(t * 4, 8, 2048)
+    assert plan.nsplit > 1 and plan.regime == ("decode" if t == 1 else "prefill")
+    first = fa.flash_decode(*args)
+    again = fa.flash_decode(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fa.flash_decode(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    counters = fa.counters(first.device, 0)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = fa.flash_decode(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    replayed = got.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert fa.counters(first.device, 0) is counters and not counters.any()
+    assert torch.equal(first, again)
+    assert torch.equal(replayed, first) and torch.equal(got, first)
 
 
 @pytest.mark.cuda

@@ -141,14 +141,47 @@ def test_tile_rule_is_the_pallas_one():
 
 @pytest.mark.parametrize("rows,s", [(4, 1), (4, 512), (4, 1000), (4, 32768),
                                     (32, 2048), (256, 2048), (2048, 2048),
-                                    (12, 77)])
+                                    (12, 77), (8, 4096), (9, 4096), (8, 300),
+                                    (9, 300), (1, 65536), (65535 * 64, 64)])
 def test_split_plan_covers_every_cell(rows, s):
-    rw, per, n = fa.split_plan(rows, 8, s)
-    assert rw in (1, 4) and per % fa.TILE == 0 and per >= fa.MIN_SPLIT
-    assert per * (n - 1) < s <= per * n
-    row_tiles = -(-rows // (fa.WARPS * rw))
-    if s >= fa.MIN_SPLIT * fa.TARGET_BLOCKS // (8 * row_tiles):
-        assert 8 * row_tiles * n >= fa.TARGET_BLOCKS * 0.9
+    """The plan's regime switches between 8 and 9 rows per head; every cell
+    falls in exactly one split of whole tiles; the grid fits CUDA's limits;
+    the workspace and counters are what the kernel writes; a block's shared
+    memory fits the H100; the splits fill the card where the cells allow."""
+    hkv = 8
+    plan = fa.split_plan(rows, hkv, s)
+    regime, per, n = plan
+    assert regime == ("decode" if rows <= 8 else "prefill")
+    assert per % fa.TILE == 0 and per >= fa.TILE
+    assert per * (n - 1) < s <= per * n and n <= fa.MAX_SPLITS
+    blocks = plan.row_blocks(rows)
+    assert blocks == (1 if rows <= 8 else -(-rows // 64))
+    assert max(n, blocks, hkv) <= 65535
+    # partials: acc [Hkv, n, rows, D], then m and l [Hkv, n, rows]; at
+    # decode one counter per head (prefill merges in a second launch)
+    for d in fa.HEAD_DIMS:
+        assert plan.workspace_floats(rows, hkv, d) == (
+            hkv * n * rows * (d + 2) if n > 1 else 0)
+    assert plan.counters(rows, hkv) == (hkv if n > 1 and rows <= 8 else 0)
+    want = min(fa.MAX_SPLITS, -(-fa.TARGET_BLOCKS // (hkv * blocks)))
+    if s >= fa.TILE * want:
+        assert hkv * blocks * n >= fa.TARGET_BLOCKS * 0.9
+    else:  # too few cells: a tile per split
+        assert per == fa.TILE
+
+
+@pytest.mark.parametrize("bits", [16, 8, 4])
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_shared_memory_fits_the_card(bits, d):
+    """A block's shared memory (three ring slots, the widened tiles) stays
+    within the H100's 227 KB, and the decode regime's merge buffers (m, l
+    and acc [D] per warp and row; each row's split weights) fit inside it."""
+    smem = fa.shared_bytes(bits, d)
+    assert smem <= 232448  # what a block may use on the H100 (227 KB)
+    assert fa.WARPS * fa.DECODE_ROWS * (d + 2) * 4 <= smem
+    assert fa.DECODE_ROWS * (2 * fa.MAX_SPLITS + 1) * 4 <= smem
+    assert smem == {(16, 128): 104448, (8, 128): 85504, (4, 128): 60928,
+                    (16, 64): 55296, (8, 64): 44544, (4, 64): 32256}[(bits, d)]
 
 
 def test_cpu_wrapper_is_the_plain_law_and_launches_nothing():
@@ -202,16 +235,62 @@ def test_launch_arguments_on_a_mocked_card(kv, entry, count):
         out = fa.flash_decode(q, k, v, mask, ks, vs)
     assert out.shape == (1, 32, 128) and out.dtype == torch.float32
     assert fa.launches == {"flash_decode": 0, "flash_decode4": 0, count: 1}
-    (qp, kp, vp, mp, ksp, vsp, op, wsp, t, hkv, g, s, d, hstride, sstride,
-     scale, rw, per, nsplit, stream) = calls[0]
+    (qp, kp, vp, mp, ksp, vsp, op, wsp, cntp, t, hkv, g, s, d, hstride, sstride,
+     scale, regime, per, nsplit, stream) = calls[0]
     assert (kp, vp, mp, op) == (k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr())
     assert (t, hkv, g, s, d, stream) == (1, 8, 4, 1000, 128, 1234)
-    assert hstride == 4096 * k.shape[-1] and (rw, per, nsplit) == fa.split_plan(4, 8, 1000)
+    plan = fa.split_plan(4, 8, 1000)
+    assert hstride == 4096 * k.shape[-1] and (regime, per, nsplit) == (0, *plan[1:])
+    assert plan.regime == "decode" and nsplit > 1
+    assert cntp == fa._counters["cpu"].data_ptr()
     assert scale == pytest.approx(128 ** -0.5)
     if kv == "bf16":
         assert (ksp, vsp, sstride) == (0, 0, 0)
     else:
         assert (ksp, vsp, sstride) == (ks.data_ptr(), vs.data_ptr(), 4096)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "q8_0", "q4_0"])
+def test_prefill_launch_arguments_on_a_mocked_card(kv):
+    """A 64-token ubatch (256 rows per head) takes the prefill regime: the
+    plan's splits and a workspace of the splits' partials go to the entry
+    (whose second launch merges them: no counter is needed, the cached
+    buffer goes along); a second call passes the same counters."""
+    cache = KVCache.create(2, 2048, 8, 128, "cpu", dtype=kv)
+    k, v, ks, vs = cache.layer_planes(0, limit=2048)
+    q = torch.randn((64, 32, 128))
+    mask = torch.ones((64, 2048), dtype=torch.bool)
+    calls, sizes = [], []
+    entry = {"bf16": "flash_decode_bf16", "q8_0": "flash_decode_i8",
+             "q4_0": "flash_decode_i4"}[kv]
+    empty = torch.empty
+
+    def fn(*args):
+        calls.append(args)
+        return 0
+
+    def sized_empty(shape, *args, **kwargs):
+        out = empty(shape, *args, **kwargs)
+        sizes.append((out.data_ptr(), out.numel()))
+        return out
+
+    fa._counters.clear()
+    with mock.patch.object(fa, "_on_cuda", return_value=True), \
+            mock.patch("omni_tpu_torch.kernels._build.load", return_value={entry: fn}), \
+            mock.patch.object(fa.torch, "empty", side_effect=sized_empty), \
+            mock.patch("torch.cuda.current_stream",
+                       return_value=mock.Mock(cuda_stream=7)):
+        fa.flash_decode(q, k, v, mask, ks, vs)
+        fa.flash_decode(q, k, v, mask, ks, vs)
+    plan = fa.split_plan(256, 8, 2048)
+    assert plan.regime == "prefill" and plan.nsplit > 1
+    args = calls[0]
+    assert args[17:20] == (1, plan.per_split, plan.nsplit)
+    ws_floats = dict(sizes)[args[7]]
+    assert ws_floats == plan.workspace_floats(256, 8, 128) == 8 * plan.nsplit * 256 * 130
+    cnt = fa._counters["cpu"]
+    assert args[8] == calls[1][8] == cnt.data_ptr()
+    assert plan.counters(256, 8) == 0 and not cnt.any()
 
 
 def _bad(case):

@@ -148,9 +148,9 @@ def test_kernel_build_runs_nvcc_per_source_in_parallel(tmp_path):
                            "qgemm_q8_0"]
     for name, fn in fns.items():
         assert fn.argtypes[:7] == [ctypes.c_void_p] * 7
-        if name.startswith("flash"):  # 8 pointers, int64 strides, f32 scale
-            assert fn.argtypes == _build.FLASH_ARGS and len(fn.argtypes) == 20
-            assert fn.argtypes[13:16] == [ctypes.c_longlong] * 2 + [ctypes.c_float]
+        if name.startswith("flash"):  # 9 pointers, int64 strides, f32 scale
+            assert fn.argtypes == _build.FLASH_ARGS and len(fn.argtypes) == 21
+            assert fn.argtypes[14:17] == [ctypes.c_longlong] * 2 + [ctypes.c_float]
         elif name.startswith("qffn"):  # input, six planes, out or workspace, 6 ints
             assert fn.argtypes == _build.QFFN_ARGS and len(fn.argtypes) == 15
             assert fn.argtypes[7:14] == [ctypes.c_void_p] + [ctypes.c_int] * 6
