@@ -12,7 +12,10 @@ version does (`flip_limit`). Kernels B and D (one mainloop,
 `csrc/qmma.cuh`) are held so at their own split plan and, every entry of
 both, with the split count forced to 1 and 4 at wk and down, where a
 repeat launch must give the same bits; their timing lines print each
-call's split count and work units. It holds the dense dot of a bf16 weight
+call's split count and work units. Kernel A's six entries (`q4k_gemv.cu`)
+are held at every decode M (1..8) on each weight, a repeat launch and a
+CUDA-graph replay bit-identical; their timing lines print the plan
+(`gemv_plan`: one block per 16-row tile, K not split). It holds the dense dot of a bf16 weight
 (cuBLAS, K split into chunks) against the widened-f32 product the same
 way, and the flash-decode kernels (bf16, int8 and int4 KV cells) against
 their plain versions and the attention law in f64, in both of kernel F's
@@ -184,6 +187,10 @@ QFFN_MS = (1, 8, 9, 64)
 # themselves are held too, through an identity down weight (out = h).
 QFFN_ROWS = 512
 GEMV_MS = (1, 2, 3, 8)
+# kernel A's six entries (q4k_gemv.cu) at every decode M, held against
+# their plain versions on one x of 8 rows (check_gemv_rows); timed at the
+# ends of that range
+HALVES_GEMV_MS, HALVES_GEMV_TIMES = tuple(range(1, 9)), (1, 8)
 GEMM_MS = (64, 256)
 QGEMM_MS = (1, 64, 256)
 # kernel D's legacy branches: decode rows (GP_DECODE off) and a prefill
@@ -694,6 +701,17 @@ def check_kernel(name, kern, plain, w, shape_name, m, out_dtype, gen, max_err):
     exact = law_f64(name, x, w, out_dtype).float()
     if x.is_cuda:
         torch.cuda.synchronize()
+    hold(name, w, shape_name, m, out_dtype, got, want, exact, max_err)
+
+
+def hold(name, w, shape_name, m, out_dtype, got, want, exact, max_err, note="") -> None:
+    """check_kernel's verdict on kernel `name`'s outputs `got` against its
+    plain version's `want` and the f64 law's `exact` (f32 tensors of the
+    same shape): the agreement limit, and for bf16 outputs the share
+    rounded otherwise than the law under flip_limit; prints one line."""
+    import torch
+
+    n, k = w.shape
     err = (got - want).abs().max().item()
     worst = limit_ratio(got, want)
     fmt = getattr(w, "ggml_type", None)
@@ -712,7 +730,7 @@ def check_kernel(name, kern, plain, w, shape_name, m, out_dtype, gen, max_err):
               for a in (got, want)]
         vs_what = "max|d| / max|f64 law|"
     print(f"  {name} {fmt.name if fmt is not None else str(w.dtype)[6:]} "
-          f"{shape_name} {n}x{k} M={m}: max|d|={err:.3g} "
+          f"{shape_name} {n}x{k} M={m}{note}: max|d|={err:.3g} "
           f"max|want|={want.abs().max().item():.3g},"
           f" worst |d|/limit {worst:.3g} (limit {KERNEL_RTOL:g}|want| + "
           f"{KERNEL_FLOOR:g} max|want|) {'ok' if ok else 'FAIL'}; {vs_what}: "
@@ -724,6 +742,58 @@ def check_kernel(name, kern, plain, w, shape_name, m, out_dtype, gen, max_err):
             f"{name} at {shape_name} M={m} rounds {vs[0]:.3g} of its bf16 "
             f"outputs otherwise than the f64 law, its plain version {vs[1]:.3g}: "
             f"above flip_limit {lim:.3g}")
+
+
+def check_gemv_rows(name, w, shape_name, out_dtype, gen, max_err) -> None:
+    """Kernel A's entry `name` against its plain version at every M in
+    HALVES_GEMV_MS: the first m rows of one random x [8, K], whose plain and
+    f64-law outputs are computed once (an output row depends on its x row
+    alone), held as check_kernel holds them. At M = 8 a repeat launch and a
+    CUDA-graph replay must give the eager launch's bits."""
+    import torch
+
+    from omni_tpu_torch.kernels import dequant_matmul as dm
+
+    kern = getattr(dm, name)
+    n, k = w.shape
+    x = torch.randn((max(HALVES_GEMV_MS), k), device=w.q.device,
+                    generator=gen).to(torch.bfloat16)
+    want = dm.q4k_gemv_plain(x, w, out_dtype).float()
+    exact = law_f64(name, x, w, out_dtype).float()
+    note = f" ({dm.gemv_plan(x.shape[0], n, k, w.ggml_type).blocks(n)} blocks)"
+    for m in HALVES_GEMV_MS:
+        got = kern(x[:m], w, out_dtype).float()
+        torch.cuda.synchronize()
+        hold(name, w, shape_name, m, out_dtype, got, want[:m], exact[:m], max_err, note)
+    first, again = kern(x, w, out_dtype), kern(x, w, out_dtype)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture
+        kern(x, w, out_dtype)
+    torch.cuda.current_stream().wait_stream(side)
+    graph, out = torch.cuda.CUDAGraph(), []
+    with torch.cuda.graph(graph):
+        out.append(kern(x, w, out_dtype))
+    graph.replay()
+    torch.cuda.synchronize()
+    as_int = torch.int16 if out_dtype == torch.bfloat16 else torch.int32
+    for what, other in (("a repeat launch", again), ("a CUDA-graph replay", out[0])):
+        if not torch.equal(first.view(as_int), other.view(as_int)):
+            raise SystemExit(f"{name} {w.ggml_type.name} at {shape_name}: {what} gave "
+                             "other bits than the eager launch")
+
+
+def check_cases(name, qt, shape_name, ms, out_dtype, gen, max_err) -> None:
+    """check_kernel at each M of `ms`; kernel A's entries through
+    check_gemv_rows at HALVES_GEMV_MS instead."""
+    from omni_tpu_torch.kernels import dequant_matmul as dm
+
+    if name in dm.HALVES_GEMV.values():
+        check_gemv_rows(name, qt, shape_name, out_dtype, gen, max_err)
+        return
+    for m in ms:
+        check_kernel(name, getattr(dm, name), getattr(dm, name + "_plain"), qt,
+                     shape_name, m, out_dtype, gen, max_err)
 
 
 def check_qffn(gu, down, m, act, gen, max_err, rows=QFFN_ROWS) -> None:
@@ -1201,6 +1271,10 @@ def time_kernels(name, kern, plain, weights, ms, gen, synth, rows) -> None:
                 row.update(gemm_plan(m, n, k, w.ggml_type))
                 plan = (f"; {row['splits']} splits, {row['units']} work units on "
                         f"{row['blocks']} blocks")
+            elif name in dm.HALVES_GEMV.values():
+                p = dm.gemv_plan(m, n, k, w.ggml_type)
+                row.update(splits=p.splits, blocks=p.blocks(n))
+                plan = f"; {p.splits} split, {p.blocks(n)} blocks"
             rows.append(row)
             print(f"  {name} {fmt} {nm} {n}x{k} M={m}: {t_k:.4f} ms, plain "
                   f"{t_p:.4f}, torch.matmul(bf16) {t_l:.4f}, bound {b:.4f} "
@@ -1420,9 +1494,8 @@ def main() -> int:
         for nm, qt in group.items():
             out_dtype = torch.float32 if nm == "output" else torch.bfloat16
             for name, ms in cases:
-                for m in ms:
-                    check_kernel(name, getattr(dm, name), getattr(dm, name + "_plain"),
-                                 qt, nm, m, out_dtype, gen, max_err)
+                check_cases(name, qt, nm, ms, out_dtype, gen, max_err)
+    gemv_weights = {**weights, "wk": q4_unfused["wk"]}  # kernel A's times at N = 1024 too
     del q4_unfused
     # kernel A's and B's legacy branches at every unfused shape (the head's
     # too, though these files' head is Q6_K); the layer shapes are kept
@@ -1436,9 +1509,7 @@ def main() -> int:
             if nm != "output":  # D's legacy branch (the switched routes)
                 cases.append(("qgemm", LEGACY_QGEMM_MS))
             for name, ms in cases:
-                for m in ms:
-                    check_kernel(name, getattr(dm, name), getattr(dm, name + "_plain"),
-                                 qt, nm, m, out_dtype, gen, max_err)
+                check_cases(name, qt, nm, ms, out_dtype, gen, max_err)
             if nm != "output":
                 legacy_weights.setdefault(fmt, {})[nm] = qt
             del qt
@@ -1492,9 +1563,7 @@ def main() -> int:
                        (GGMLType.Q4_0, (("q4_0_gemv", GEMV_MS), ("q4_0_gemm", GEMM_MS)))):
         qt = synth_quant(fmt, *WQKV_SHAPE, dev, gen)
         for name, ms in cases:
-            for m in ms:
-                check_kernel(name, getattr(dm, name), getattr(dm, name + "_plain"), qt,
-                             "wqkv", m, torch.bfloat16, gen, max_err)
+            check_cases(name, qt, "wqkv", ms, torch.bfloat16, gen, max_err)
         del qt
     phase("kernels-vs-plain", t0, json.dumps(max_err))
 
@@ -1865,16 +1934,17 @@ def main() -> int:
     # ---- times at the paths' shapes ----------------------------------------
     t0 = time.perf_counter()
     rows = []
-    time_kernels("q4k_gemv", dm.q4k_gemv, dm.q4k_gemv_plain, weights, GEMV_MS,
-                 gen, synth_q4k, rows)
+    time_kernels("q4k_gemv", dm.q4k_gemv, dm.q4k_gemv_plain, gemv_weights,
+                 HALVES_GEMV_TIMES, gen, synth_q4k, rows)
+    del gemv_weights
     time_kernels("q4k_gemm", dm.q4k_gemm, dm.q4k_gemm_plain, weights, GEMM_MS,
                  gen, synth_q4k, rows)
     time_kernels("q6k_gemv", dm.q6k_gemv, dm.q6k_gemv_plain, q6_weights, GEMV_MS,
                  gen, synth_q6k, rows)
     time_kernels("qgemm", dm.qgemm, dm.qgemm_plain, q6_weights, QGEMM_MS,
                  gen, synth_q6k, rows)
-    time_kernels("q5k_gemv", dm.q5k_gemv, dm.q5k_gemv_plain, q5_weights, GEMV_MS,
-                 gen, synth_q5k, rows)
+    time_kernels("q5k_gemv", dm.q5k_gemv, dm.q5k_gemv_plain, q5_weights,
+                 HALVES_GEMV_TIMES, gen, synth_q5k, rows)
     time_kernels("q5k_gemm", dm.q5k_gemm, dm.q5k_gemm_plain, q5_weights, GEMM_MS,
                  gen, synth_q5k, rows)
     time_kernels("qgemm", dm.qgemm, dm.qgemm_plain, q5_weights, (N_PREFILL,),
@@ -1885,7 +1955,7 @@ def main() -> int:
                  gen, synth_q8_0, rows)
     for fmt, ws in legacy_weights.items():
         synth = functools.partial(synth_quant, fmt)
-        for table, ms in ((dm.HALVES_GEMV, GEMV_MS), (dm.HALVES_GEMM, GEMM_MS)):
+        for table, ms in ((dm.HALVES_GEMV, HALVES_GEMV_TIMES), (dm.HALVES_GEMM, GEMM_MS)):
             name = table[fmt]
             time_kernels(name, getattr(dm, name), getattr(dm, name + "_plain"), ws,
                          ms, gen, synth, rows)

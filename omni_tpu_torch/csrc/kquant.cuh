@@ -1,6 +1,7 @@
 // The values of a 16-byte chunk of a Q4_K or Q5_K weight, shared by kernels
-// A and G (q4k_gemv.cu), B (q4k_gemm.cu) and D (qgemm.cu): the one place
-// that knows which bits of the high-bit plane qh go with which bytes of q.
+// B (q4k_gemm.cu) and D (qgemm.cu): the one place that knows which bits of
+// the high-bit plane qh go with which bytes of q. Kernels A and G
+// (q4k_gemv.cu) take the formats and their scale rules (Fmt, legacy_min).
 //
 // q u8 [N, K/2] holds each 256-element superblock s in halves: byte r of
 // the superblock holds element r in its low nibble and element 128 + r in

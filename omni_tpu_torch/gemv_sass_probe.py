@@ -1,0 +1,86 @@
+"""Kernel A's registers, spills and instructions (csrc/q4k_gemv.cu), from
+its compiler, on the machine with the card.
+
+    python -m omni_tpu_torch.gemv_sass_probe
+
+Compiles csrc/q4k_gemv.cu with `-Xptxas -v` and prints, for each
+instantiation (format, aligned planes or not), the registers and spill
+bytes ptxas reports; then disassembles the library (`cuobjdump -sass`)
+and counts the instructions of each kernel's superblock loop (the longest
+backward branch: its two-buffer body holds two superblocks of a warp),
+by opcode. A warp's superblock is 16 rows x 256 weights, 128 a lane, so
+the loop's instructions over 256 are its instructions a weight. Prints
+one JSON line per kernel.
+"""
+
+from __future__ import annotations
+
+import json
+import re
+import subprocess
+from collections import Counter
+from pathlib import Path
+
+from .kernels import _build
+
+FORMATS = ("Q4_K", "Q5_K", "Q4_0", "Q4_1", "Q5_0", "Q5_1")  # kquant::Fmt order
+
+
+def kernel_name(mangled: str) -> str:
+    """'Q4_K aligned' for gemv_kernel<Fmt 0, true>."""
+    m = re.search(r"FmtE(\d)ELb([01])E", mangled)
+    return f"{FORMATS[int(m.group(1))]} {'aligned' if m.group(2) == '1' else 'bytewise'}"
+
+
+def ptxas() -> dict:
+    """{kernel: (registers, spill store bytes, spill load bytes)}."""
+    out = subprocess.run(
+        [_build.nvcc(), *_build.NVCC_FLAGS[:-3], "-Xptxas", "-v", "-c",
+         str(_build.CSRC / "q4k_gemv.cu"), "-o", "/dev/null"],
+        capture_output=True, text=True, check=True)
+    res, name, spills = {}, None, (0, 0)
+    for line in (out.stdout + out.stderr).splitlines():
+        if "Compiling entry function" in line and "gemv_kernel" in line:
+            name = kernel_name(line)
+        elif name and "spill stores" in line:
+            st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line).groups()
+            spills = (int(st), int(ld))
+        elif name and "Used" in line and "registers" in line:
+            res[name] = (int(re.search(r"Used (\d+) registers", line).group(1)), *spills)
+            name = None
+    return res
+
+
+def loops(so: Path) -> dict:
+    """{kernel: (instructions of its longest loop, Counter of opcodes)}."""
+    sass = subprocess.run([str(Path(_build.nvcc()).parent / "cuobjdump"), "-sass", str(so)],
+                          capture_output=True, text=True, check=True).stdout
+    res = {}
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        if "gemv_kernel" not in fn.split("\n")[0]:
+            continue
+        ins = [(int(m.group(1), 16), m.group(2)) for m in
+               re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", fn)]
+        back = [(a, int(t.group(1), 16)) for a, i in ins
+                for t in [re.search(r"BRA[^0-9]*0x([0-9a-f]+)", i)]
+                if t and int(t.group(1), 16) < a]
+        end, start = max(back, key=lambda b: b[0] - b[1])
+        body = [i for a, i in ins if start <= a <= end]
+        ops = Counter(i.split()[1 if i.startswith("@") else 0].split(".")[0] for i in body)
+        res[kernel_name(fn.split("\n")[0])] = (len(body), ops)
+    return res
+
+
+def main() -> None:
+    regs = ptxas()
+    _build.load()
+    for name, (n, ops) in sorted(loops(_build.build_dir() / "q4k_gemv.so").items()):
+        r, st, ld = regs.get(name, (None, None, None))
+        print(json.dumps({"kernel": name, "registers": r, "spill_store_bytes": st,
+                          "spill_load_bytes": ld, "loop_instructions": n,
+                          "per_superblock": n / 2, "per_weight": n / 256,
+                          "top": ops.most_common(12)}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

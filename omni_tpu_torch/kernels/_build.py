@@ -86,22 +86,17 @@ def build_dir() -> Path:
     return BUILD / h.hexdigest()[:16]
 
 
-@functools.cache
-def load() -> dict[str, Callable[..., int]]:
-    """Compile (if needed) and load every kernel library; returns
-    {entry point name: its C function}. Raises RuntimeError with nvcc's
-    output on a failed build."""
-    out_dir = build_dir()
-    out_dir.mkdir(parents=True, exist_ok=True)
+def _build(jobs: dict[Path, list[str]]) -> None:
+    """Compile each missing library `so` from its nvcc command (all
+    started together); raises RuntimeError with nvcc's output on a failed
+    build."""
     procs = {}
-    for name in SOURCES:
-        so = out_dir / (Path(name).stem + ".so")
+    for so, cmd in jobs.items():
         if so.exists():
             continue
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / name)]
         procs[so] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+            [*cmd, "-o", str(tmp)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
     errors = []
     for so, (tmp, p) in procs.items():
         log, _ = p.communicate()
@@ -112,13 +107,29 @@ def load() -> dict[str, Callable[..., int]]:
             os.replace(tmp, so)  # atomic: a concurrent build sees a whole file
     if errors:
         raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
+
+
+def _bind(so: Path, entries: dict) -> dict[str, Callable[..., int]]:
+    lib = ctypes.CDLL(str(so))
     fns = {}
-    for name, entries in SOURCES.items():
-        lib = ctypes.CDLL(str(out_dir / (Path(name).stem + ".so")))
-        for entry, argtypes in entries.items():
-            fn = getattr(lib, entry)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            fns[entry] = fn
+    for entry, argtypes in entries.items():
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        fns[entry] = fn
     return fns
 
+
+@functools.cache
+def load() -> dict[str, Callable[..., int]]:
+    """Compile (if needed) and load every kernel library; returns
+    {entry point name: its C function}. Raises RuntimeError with nvcc's
+    output on a failed build."""
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    _build({out_dir / (Path(name).stem + ".so"): [nvcc(), *NVCC_FLAGS, str(CSRC / name)]
+            for name in SOURCES})
+    fns = {}
+    for name, entries in SOURCES.items():
+        fns.update(_bind(out_dir / (Path(name).stem + ".so"), entries))
+    return fns

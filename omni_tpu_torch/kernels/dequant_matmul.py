@@ -36,7 +36,8 @@ Kernels B and D run one pipelined mainloop (csrc/qmma.cuh). Where an
 splits K across blocks (`gemm_splits`) and hands the kernel an f32
 workspace for the partials (`gemm_workspace_bytes`), made per call; the
 kernel sums them in split order, so the result is the same bit for bit
-from run to run.
+from run to run. Kernel A never splits K (`gemv_plan`): one block per
+16-row tile, one launch, and no workspace.
 Every format the JAX package keeps quantized has a kernel on every route;
 a QTensor of another format raises NotImplementedError on the card. Each
 kernel has a plain PyTorch version of the same law beside it: the wrapper
@@ -55,6 +56,7 @@ weight is made.
 from __future__ import annotations
 
 import os
+from typing import NamedTuple
 
 import torch
 
@@ -147,6 +149,38 @@ def gemm_splits(m: int, n: int, k: int, qtype: GGMLType) -> int:
             best = splits
         splits *= 2
     return best
+
+
+# kernel A's launch (csrc/q4k_gemv.cu): a block owns GEMV_ROWS weight rows
+# (the M of mma.m16n8k16) over all of K, whose superblocks its warps share
+# out; the kernel picks its warps itself
+GEMV_ROWS = 16
+
+
+class GemvPlan(NamedTuple):
+    """Kernel A's launch for an [m, k] x [n, k] call."""
+    rows: int  # weight rows a block owns
+    splits: int  # blocks along K of each row tile
+    workspace_bytes: int  # device memory the wrapper makes for the call
+
+    def blocks(self, n: int) -> int:
+        """The grid: row tiles x splits."""
+        return -(-n // self.rows) * self.splits
+
+
+def gemv_plan(m: int, n: int, k: int, qtype: GGMLType) -> GemvPlan:
+    """Kernel A's plan for an [m, k] x [n, k] call of halves-packed format
+    `qtype`: one block per GEMV_ROWS-row tile, K not split at any shape, so
+    a call is one launch with no workspace (0 bytes). At N = 1024 (wk, wv:
+    64 tiles for GEMM_SMS SMs) a split in two was no faster for Q4_K and
+    Q4_0 on the H100 and 7 % faster for Q5_K (PERF.md section 6)."""
+    if not 1 <= m <= GP_MAX_M:
+        raise ValueError(f"kernel A takes M = 1..{GP_MAX_M}, got {m}")
+    if qtype not in HALVES_GEMV:
+        raise ValueError(f"kernel A takes no {GGMLType(qtype).name}")
+    if k < 256 or k % 256:
+        raise ValueError(f"K={k} is not a positive multiple of 256")
+    return GemvPlan(GEMV_ROWS, 1, 0)
 
 
 def gemm_workspace_bytes(m: int, n: int, k: int, splits: int, side: bool) -> int:

@@ -710,3 +710,134 @@ def test_cuda_gemm_in_a_cuda_graph(card, name, fmt, k):
     want = wrapper(x, qt)
     torch.cuda.synchronize()
     assert torch.equal(out, want)
+
+
+# kernel A's six entries (csrc/q4k_gemv.cu): every format at K = 256 (one
+# superblock), 4096 and 12288, on ragged N (1000 = 62 row tiles and 8 rows)
+GEMV_ENTRIES = [(t, k) for t in dm.HALVES_GEMV for k in (256, 4096, 12288)]
+
+
+def _gemv_flips(got, want, exact):
+    """The shares of bf16 outputs the kernel and the plain version round
+    otherwise than the f64 law."""
+    return [(a != exact).float().mean().item() for a in (got, want)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt,k", GEMV_ENTRIES,
+                         ids=[f"{dm.HALVES_GEMV[t]}-k{k}" for t, k in GEMV_ENTRIES])
+def test_cuda_gemv_matches_plain_at_every_m(card, fmt, k):
+    """Kernel A's entry at M = 1..8 against its plain version within
+    chip_smoke.py's limit, both output dtypes; bf16 outputs rounded
+    otherwise than the f64 law no more than flip_limit allows; one launch
+    counted per call."""
+    from chip_smoke import law_f64
+
+    name = dm.HALVES_GEMV[fmt]
+    gen = torch.Generator(device=card).manual_seed(k)
+    qt = synth_quant(fmt, 1000, k, card, gen)
+    wrapper = getattr(dm, name)
+    for m in range(1, 9):
+        x = torch.randn((m, k), device=card, generator=gen).to(torch.bfloat16)
+        for out_dtype in (torch.bfloat16, torch.float32):
+            n0 = dm.launches[name]
+            got = wrapper(x, qt, out_dtype).float()
+            want = dm.q4k_gemv_plain(x, qt, out_dtype).float()
+            torch.cuda.synchronize()
+            assert dm.launches[name] == n0 + 1
+            assert torch.isfinite(got).all() and limit_ratio(got, want) <= 1.0
+            if out_dtype == torch.bfloat16:
+                share = _gemv_flips(got, want, law_f64(name, x, qt, out_dtype).float())
+                assert share[0] <= flip_limit(share[1], got.numel()), (m, share)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", list(dm.HALVES_GEMV), ids=lambda t: dm.HALVES_GEMV[t])
+def test_cuda_gemv_misaligned_planes(card, fmt):
+    """Planes other than q that start off a vector boundary (views one
+    element into their allocation; qh two bytes) run kernel A's byte-wise
+    loads and give the bits of the aligned planes."""
+    gen = torch.Generator(device=card).manual_seed(5)
+    qt = synth_quant(fmt, 1000, 4096, card, gen)
+    planes = {}
+    for nm in ("sc", "mn", "d", "dm", "qh"):
+        p = getattr(qt, nm)
+        if p is not None:
+            off = 2 if nm == "qh" else 1
+            p = torch.empty(p.numel() + off, dtype=p.dtype, device=card)[off:].view(
+                p.shape).copy_(p)
+        planes[nm] = p
+    off = qformats.QTensor(qt.ggml_type, qt.shape, q=qt.q, **planes)
+    wrapper = getattr(dm, dm.HALVES_GEMV[fmt])
+    x = torch.randn((5, 4096), device=card, generator=gen).to(torch.bfloat16)
+    got, want = wrapper(x, off, torch.float32), wrapper(x, qt, torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4, 1004, 151748 // 4])
+def test_cuda_gemv_tail_rows(card, n):
+    """N % 16 != 0 (a tile of 4 rows, 12 tail rows, the head's 4 tail rows
+    at a quarter of its N): every row written, nothing past N."""
+    gen = torch.Generator(device=card).manual_seed(n)
+    qt = synth_q4k(n, 4096, card, gen)
+    x = torch.randn((3, 4096), device=card, generator=gen).to(torch.bfloat16)
+    got = dm.q4k_gemv(x, qt, torch.float32)
+    want = dm.q4k_gemv_plain(x, qt, torch.float32)
+    torch.cuda.synchronize()
+    assert got.shape == (3, n) and torch.isfinite(got).all()
+    assert limit_ratio(got, want) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", [GGMLType.Q4_K, GGMLType.Q5_1], ids=lambda t: t.name)
+@pytest.mark.parametrize("n", [1024, 4096], ids=lambda n: f"n{n}")
+def test_cuda_gemv_in_a_cuda_graph(card, fmt, n):
+    """Kernel A captured in a CUDA graph (at N = 1024 64 blocks of 8 warps,
+    at 4096 256) and replayed on new x gives the bits of an eager launch on
+    that x; two eager launches give the same bits."""
+    gen = torch.Generator(device=card).manual_seed(n)
+    qt = synth_quant(fmt, n, 4096, card, gen)
+    wrapper = getattr(dm, dm.HALVES_GEMV[fmt])
+    x = torch.randn((8, 4096), device=card, generator=gen).to(torch.bfloat16)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up (build) off the capture
+        wrapper(x, qt)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = wrapper(x, qt)
+    x.copy_(torch.randn((8, 4096), device=card, generator=gen))
+    graph.replay()
+    want, again = wrapper(x, qt), wrapper(x, qt)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want) and torch.equal(want, again)
+
+
+@pytest.mark.cuda
+def test_cuda_gemv_launches_per_step_at_36_layers(card, tmp_path):
+    """Qwen3-8B's 36 layers (narrow widths): one fused all-Q4_K decode step
+    launches q4k_gemv 4 x 36 + 1 = 145 times, one step of an unfused Q4_K_M
+    file 216 times (its 37 Q6_K weights through q6k_gemv)."""
+    cfg = qwen3.Qwen3Config(n_layers=36, d_model=2048, n_heads=16, n_kv_heads=4,
+                            head_dim=128, d_ff=2048, n_vocab=1000)
+    params = synth_qwen3_params(cfg, card, torch.Generator(device=card).manual_seed(0))
+    ctx = Context(cfg, params, qwen3.forward, qwen3.embed, n_ctx=64,
+                  sampler=SamplerParams(greedy=True), device=card)
+    tok = int(torch.argmax(ctx.prefill([1, 2, 3])))
+    dm.reset_launches()
+    ctx.decode(Batch(tokens=[tok]))
+    assert dm.launches == {**dict.fromkeys(dm.launches, 0), "q4k_gemv": 145}
+    del ctx, params
+    path = tmp_path / "q4km.gguf"
+    write_qwen3_gguf(path, cfg, "Q4_K_M", torch.Generator(device=card).manual_seed(0))
+    params = qwen3.load_params(GGUFReader(path), device=card)
+    ctx = Context(cfg, params, qwen3.forward, qwen3.embed, n_ctx=64,
+                  sampler=SamplerParams(greedy=True), device=card)
+    tok = int(torch.argmax(ctx.prefill([1, 2, 3])))
+    dm.reset_launches()
+    ctx.decode(Batch(tokens=[tok]))
+    assert dm.launches == {**dict.fromkeys(dm.launches, 0), "q4k_gemv": 216,
+                           "q6k_gemv": 37}
