@@ -13,9 +13,10 @@ version does (`flip_limit`). Kernels B and D (one mainloop,
 both, with the split count forced to 1 and 4 at wk and down, where a
 repeat launch must give the same bits; their timing lines print each
 call's split count and work units. Kernel A's six entries (`q4k_gemv.cu`)
-are held at every decode M (1..8) on each weight, a repeat launch and a
-CUDA-graph replay bit-identical; their timing lines print the plan
-(`gemv_plan`: one block per 16-row tile, K not split). It holds the dense dot of a bf16 weight
+and kernel E's three codebook entries (`codebook_gemv.cu`) are held at
+every decode M (1..8) on each weight, a repeat launch and a CUDA-graph
+replay bit-identical; their timing lines print the plan (`gemv_plan`: one
+block per 16-row tile, K not split). It holds the dense dot of a bf16 weight
 (cuBLAS, K split into chunks) against the widened-f32 product the same
 way, and the flash-decode kernels (bf16, int8 and int4 KV cells) against
 their plain versions and the attention law in f64, in both of kernel F's
@@ -50,9 +51,11 @@ card from seed S, 0 by default), one model resident at a time, each through
 6. an IQ4_NL, an IQ4_XS and an MXFP4 Qwen3-8B GGUF (about 4.8, 4.5 and
    4.5 GB, each deleted before the next path; every weight in the
    recipe's type, the embedding too, the head Q6_K, as the JAX quantizer
-   writes them), loaded the same way: decode through kernel E's entries
-   `iq4_nl_gemv`, `iq4_xs_gemv` and `mxfp4_gemv`, prefill through kernel
-   D's IQ4_NL, IQ4_XS and MXFP4 branches, the head through C and D;
+   writes them), loaded the same way (q planes of nibble indexes, the
+   file's bytes; their plane bytes printed): decode through kernel E's
+   codebook entries `iq4_nl_gemv`, `iq4_xs_gemv` and `mxfp4_gemv`, prefill
+   through kernel D's IQ4_NL, IQ4_XS and MXFP4 branches, the head through
+   C and D;
 7. a Q2_K and a Q3_K Qwen3-8B GGUF (about 3.0 and 3.8 GB, each deleted
    before the next path; every layer weight and the embedding in the
    format, the head Q6_K), loaded the same way: decode through kernel H
@@ -187,10 +190,11 @@ QFFN_MS = (1, 8, 9, 64)
 # themselves are held too, through an identity down weight (out = h).
 QFFN_ROWS = 512
 GEMV_MS = (1, 2, 3, 8)
-# kernel A's six entries (q4k_gemv.cu) at every decode M, held against
+# the mma.sync GEMVs, kernel A's six entries (q4k_gemv.cu) and E's three
+# codebook entries (codebook_gemv.cu), at every decode M, held against
 # their plain versions on one x of 8 rows (check_gemv_rows); timed at the
 # ends of that range
-HALVES_GEMV_MS, HALVES_GEMV_TIMES = tuple(range(1, 9)), (1, 8)
+MMA_GEMV_MS, MMA_GEMV_TIMES = tuple(range(1, 9)), (1, 8)
 GEMM_MS = (64, 256)
 QGEMM_MS = (1, 64, 256)
 # kernel D's legacy branches: decode rows (GP_DECODE off) and a prefill
@@ -348,9 +352,11 @@ KERNELS = {
                  "replaces": "omni_tpu/kernels/dequant_matmul.py:333"},
     "qgemm": {"route": "cuda", "source": "omni_tpu_torch/csrc/qgemm.cu",
               "replaces": "omni_tpu/kernels/dequant_matmul.py:103"},
-    **{f"{f}_gemv": {"route": "cuda", "source": "omni_tpu_torch/csrc/q8_0_gemv.cu",
+    "q8_0_gemv": {"route": "cuda", "source": "omni_tpu_torch/csrc/q8_0_gemv.cu",
+                  "replaces": "omni_tpu/kernels/dequant_matmul.py:333"},
+    **{f"{f}_gemv": {"route": "cuda", "source": "omni_tpu_torch/csrc/codebook_gemv.cu",
                      "replaces": "omni_tpu/kernels/dequant_matmul.py:333"}
-       for f in ("q8_0", "iq4_nl", "iq4_xs", "mxfp4")},
+       for f in ("iq4_nl", "iq4_xs", "mxfp4")},
     **{f"{f}_gemv": {"route": "cuda", "source": "omni_tpu_torch/csrc/lowbit_gemv.cu",
                      "replaces": "omni_tpu/kernels/dequant_matmul.py:333"}
        for f in ("q2k", "q3k")},
@@ -499,9 +505,9 @@ def law_f64(name: str, x, qt, out_dtype):
 
     from omni_tpu_torch.kernels import dequant_matmul as dm
     from omni_tpu_torch.kernels.qformats import (dequant, int8_group_scales,
-                                                 kquant_values, lowbit_group_scales,
-                                                 lowbit_values, q4k_group_scales,
-                                                 q6k_group_scales)
+                                                 int8_values, kquant_values,
+                                                 lowbit_group_scales, lowbit_values,
+                                                 q4k_group_scales, q6k_group_scales)
 
     f64 = torch.float64
     if name == "dense_matmul":
@@ -537,9 +543,10 @@ def law_f64(name: str, x, qt, out_dtype):
         if ml is not None:
             w = w - ml.to(f64).repeat_interleave(16, 1)
         out = xd @ w.T
-    elif name in dm.INT8_GEMV.values():  # q·dl is exact in f64 (dl in f32)
+    elif name == "q8_0_gemv" or name in dm.CODEBOOK_GEMV.values():
+        # q·dl is exact in f64 (dl in f32; q the codebook value)
         dl = int8_group_scales(qt).to(f64).repeat_interleave(32, 1)
-        out = xd @ (qt.q.to(f64) * dl).T
+        out = xd @ (int8_values(qt).to(f64) * dl).T
     elif name == "qgemm":
         out = xd @ dequant(qt, torch.bfloat16).to(f64).T
     else:
@@ -745,8 +752,8 @@ def hold(name, w, shape_name, m, out_dtype, got, want, exact, max_err, note="") 
 
 
 def check_gemv_rows(name, w, shape_name, out_dtype, gen, max_err) -> None:
-    """Kernel A's entry `name` against its plain version at every M in
-    HALVES_GEMV_MS: the first m rows of one random x [8, K], whose plain and
+    """Kernel A's or E's codebook entry `name` against its plain version at
+    every M in MMA_GEMV_MS: the first m rows of one random x [8, K], whose plain and
     f64-law outputs are computed once (an output row depends on its x row
     alone), held as check_kernel holds them. At M = 8 a repeat launch and a
     CUDA-graph replay must give the eager launch's bits."""
@@ -756,12 +763,12 @@ def check_gemv_rows(name, w, shape_name, out_dtype, gen, max_err) -> None:
 
     kern = getattr(dm, name)
     n, k = w.shape
-    x = torch.randn((max(HALVES_GEMV_MS), k), device=w.q.device,
+    x = torch.randn((max(MMA_GEMV_MS), k), device=w.q.device,
                     generator=gen).to(torch.bfloat16)
-    want = dm.q4k_gemv_plain(x, w, out_dtype).float()
+    want = getattr(dm, name + "_plain")(x, w, out_dtype).float()
     exact = law_f64(name, x, w, out_dtype).float()
     note = f" ({dm.gemv_plan(x.shape[0], n, k, w.ggml_type).blocks(n)} blocks)"
-    for m in HALVES_GEMV_MS:
+    for m in MMA_GEMV_MS:
         got = kern(x[:m], w, out_dtype).float()
         torch.cuda.synchronize()
         hold(name, w, shape_name, m, out_dtype, got, want[:m], exact[:m], max_err, note)
@@ -784,11 +791,11 @@ def check_gemv_rows(name, w, shape_name, out_dtype, gen, max_err) -> None:
 
 
 def check_cases(name, qt, shape_name, ms, out_dtype, gen, max_err) -> None:
-    """check_kernel at each M of `ms`; kernel A's entries through
-    check_gemv_rows at HALVES_GEMV_MS instead."""
+    """check_kernel at each M of `ms`; kernel A's and E's codebook entries
+    through check_gemv_rows at MMA_GEMV_MS instead."""
     from omni_tpu_torch.kernels import dequant_matmul as dm
 
-    if name in dm.HALVES_GEMV.values():
+    if name in dm.MMA_GEMV.values():
         check_gemv_rows(name, qt, shape_name, out_dtype, gen, max_err)
         return
     for m in ms:
@@ -1271,7 +1278,7 @@ def time_kernels(name, kern, plain, weights, ms, gen, synth, rows) -> None:
                 row.update(gemm_plan(m, n, k, w.ggml_type))
                 plan = (f"; {row['splits']} splits, {row['units']} work units on "
                         f"{row['blocks']} blocks")
-            elif name in dm.HALVES_GEMV.values():
+            elif name in dm.MMA_GEMV.values():
                 p = dm.gemv_plan(m, n, k, w.ggml_type)
                 row.update(splits=p.splits, blocks=p.blocks(n))
                 plan = f"; {p.splits} split, {p.blocks(n)} blocks"
@@ -1513,23 +1520,22 @@ def main() -> int:
             if nm != "output":
                 legacy_weights.setdefault(fmt, {})[nm] = qt
             del qt
-    # kernel E's codebook entries and kernel D's codebook branches at every
-    # layer shape of the codebook files (kept for the times), and D at a K
-    # of whole 32-blocks but no whole 256 (IQ4_NL and MXFP4)
+    # kernel E's codebook entries (at M = 1..8, repeat launch and graph
+    # replay) and kernel D's codebook branches at every layer shape of the
+    # codebook files (kept for the times), and D at a K of whole 32-blocks
+    # but no whole 256 (IQ4_NL and MXFP4)
     codebook_weights = {}
     for recipe in CODEBOOK_RECIPES:
         fmt = GGMLType[recipe]
         codebook_weights[fmt] = {nm: synth_quant(fmt, n, k, dev, gen)
                                  for nm, (n, k) in CODEBOOK_SHAPES.items()}
-        cases = ((dm.INT8_GEMV[fmt], GEMV_MS), ("qgemm", GEMM_MS))
+        cases = ((dm.CODEBOOK_GEMV[fmt], GEMV_MS), ("qgemm", GEMM_MS))
         if fmt != GGMLType.IQ4_XS:
             codebook_weights[fmt]["odd_k"] = synth_quant(fmt, *ODD_K_CODEBOOK_SHAPE,
                                                          dev, gen)
         for nm, qt in codebook_weights[fmt].items():
             for name, ms in (cases if nm != "odd_k" else (("qgemm", (1, N_PREFILL)),)):
-                for m in ms:
-                    check_kernel(name, getattr(dm, name), getattr(dm, name + "_plain"),
-                                 qt, nm, m, torch.bfloat16, gen, max_err)
+                check_cases(name, qt, nm, ms, torch.bfloat16, gen, max_err)
         codebook_weights[fmt].pop("odd_k", None)
     # kernel H and kernel D's Q2_K and Q3_K branches at every layer shape of
     # the low-bit files (kept for the times), D also at M = 256 for down and
@@ -1857,11 +1863,22 @@ def main() -> int:
         phase(f"gguf-{recipe.lower()}", t0,
               f"{json.dumps(io)}; {N_CODEBOOK} {recipe} + 1 Q6_K weights, "
               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+        layer_qts = [w for w in qts if w.ggml_type == fmt]
+        io["layer_planes_gb"] = sum(w.nbytes for w in layer_qts) / 1e9
+        # the same weights as int8 value planes (the JAX package's layout)
+        io["int8_value_planes_gb"] = sum(
+            w.q.numel() * 2 + sum(p.nbytes for nm, p in w.planes().items() if nm != "q")
+            for w in layer_qts) / 1e9
+        print(f"  {recipe} planes: the {len(layer_qts)} layer weights "
+              f"{io['layer_planes_gb']:.3f} GB of nibble-index planes and scales "
+              f"(as int8 value planes {io['int8_value_planes_gb']:.3f} GB); all "
+              f"{len(qts)} quantized weights {io['planes_gb']:.3f} GB", flush=True)
+        del layer_qts
         t0 = time.perf_counter()
         rng = torch.Generator().manual_seed(0)
         launches, stats = serve_turn(
             f"{recipe} from GGUF", cfg, params, dev, qwen3,
-            {**zero, dm.INT8_GEMV[fmt]: N_CODEBOOK, "q6k_gemv": 1},
+            {**zero, dm.CODEBOOK_GEMV[fmt]: N_CODEBOOK, "q6k_gemv": 1},
             {**zero, "qgemm": N_CODEBOOK + 1, f"qgemm {recipe}": N_CODEBOOK,
              "qgemm Q6_K": 1}, rng)
         tf = teacher_forced(cfg, params, dev, dm, qwen3,
@@ -1935,7 +1952,7 @@ def main() -> int:
     t0 = time.perf_counter()
     rows = []
     time_kernels("q4k_gemv", dm.q4k_gemv, dm.q4k_gemv_plain, gemv_weights,
-                 HALVES_GEMV_TIMES, gen, synth_q4k, rows)
+                 MMA_GEMV_TIMES, gen, synth_q4k, rows)
     del gemv_weights
     time_kernels("q4k_gemm", dm.q4k_gemm, dm.q4k_gemm_plain, weights, GEMM_MS,
                  gen, synth_q4k, rows)
@@ -1944,7 +1961,7 @@ def main() -> int:
     time_kernels("qgemm", dm.qgemm, dm.qgemm_plain, q6_weights, QGEMM_MS,
                  gen, synth_q6k, rows)
     time_kernels("q5k_gemv", dm.q5k_gemv, dm.q5k_gemv_plain, q5_weights,
-                 HALVES_GEMV_TIMES, gen, synth_q5k, rows)
+                 MMA_GEMV_TIMES, gen, synth_q5k, rows)
     time_kernels("q5k_gemm", dm.q5k_gemm, dm.q5k_gemm_plain, q5_weights, GEMM_MS,
                  gen, synth_q5k, rows)
     time_kernels("qgemm", dm.qgemm, dm.qgemm_plain, q5_weights, (N_PREFILL,),
@@ -1955,7 +1972,7 @@ def main() -> int:
                  gen, synth_q8_0, rows)
     for fmt, ws in legacy_weights.items():
         synth = functools.partial(synth_quant, fmt)
-        for table, ms in ((dm.HALVES_GEMV, HALVES_GEMV_TIMES), (dm.HALVES_GEMM, GEMM_MS)):
+        for table, ms in ((dm.HALVES_GEMV, MMA_GEMV_TIMES), (dm.HALVES_GEMM, GEMM_MS)):
             name = table[fmt]
             time_kernels(name, getattr(dm, name), getattr(dm, name + "_plain"), ws,
                          ms, gen, synth, rows)
@@ -1970,8 +1987,9 @@ def main() -> int:
                      synth, rows)
     for fmt, ws in codebook_weights.items():
         synth = functools.partial(synth_quant, fmt)
-        time_kernels(dm.INT8_GEMV[fmt], getattr(dm, dm.INT8_GEMV[fmt]),
-                     dm.q8_0_gemv_plain, ws, GEMV_MS, gen, synth, rows)
+        name = dm.CODEBOOK_GEMV[fmt]
+        time_kernels(name, getattr(dm, name), getattr(dm, name + "_plain"), ws,
+                     MMA_GEMV_TIMES, gen, synth, rows)
         time_kernels("qgemm", dm.qgemm, dm.qgemm_plain, ws, (N_PREFILL,), gen,
                      synth, rows)
     del (weights, q6_weights, q8_weights, q5_weights, legacy_weights, codebook_weights,
@@ -2009,7 +2027,7 @@ def main() -> int:
     codebook_work = {
         f: (f"M={{m}}, the {N_CODEBOOK} {f} weights of {f} Qwen3-8B: 36 x (wq, wk, "
             "wv, wo, gate, up, down)") for f in CODEBOOK_RECIPES}
-    codebook_rows = [(dm.INT8_GEMV[GGMLType[f]], f, 1, CODEBOOK_CALLS,
+    codebook_rows = [(dm.CODEBOOK_GEMV[GGMLType[f]], f, 1, CODEBOOK_CALLS,
                       codebook_work[f].format(m=1)) for f in CODEBOOK_RECIPES]
     lowbit_work = {
         f: (f"M={{m}}, the {N_LOWBIT} {f} weights of {f} Qwen3-8B: 36 x (wq, wk, "
@@ -2051,6 +2069,9 @@ def main() -> int:
                  "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
                  "bound_by": tot["bound_by"], "library_ms": tot["library_ms"],
                  "planes_bound_ms": tot["planes_bound_ms"], "work": work}
+        if name in dm.CODEBOOK_GEMV.values():  # the same calls at M = 8
+            entry["m8"] = {**summed(name, fmt, 8, calls),
+                           "work": codebook_work[fmt].format(m=8)}
         if name == "qgemm":
             entry["launches_by_format"] = {
                 f: launches[f"qgemm {f}"] for f in dm.qgemm_launches}

@@ -5,7 +5,9 @@ converted to numpy (`jax.tree_util.tree_map(np.asarray, params)`): dicts,
 lists, QTensor-like objects (anything with `ggml_type`, `shape` and
 K-major planes) and arrays, bf16 arrays as ml_dtypes.bfloat16. Quantized
 planes are transposed from [K', N] to the port's [N, K'], a pure
-permutation of their bytes. It imports nothing of the JAX package.
+permutation of their bytes; the codebook formats' int8 value planes become
+the port's nibble-index planes through the inverse codebook
+(`qformats.codebook_plane`). It imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import torch
 
 from . import resolve_device
 from .core.dtypes import GGMLType
-from .kernels.qformats import PLANES, QTensor
+from .kernels.qformats import CODEBOOK, PLANES, QTensor, codebook_plane
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -26,13 +28,15 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
 
 
 def _qtensor(qt, device) -> QTensor:
+    t = GGMLType(int(qt.ggml_type))
     planes = {}
     for nm in PLANES:
         a = getattr(qt, nm, None)
         planes[nm] = (None if a is None
                       else _tensor(np.asarray(a).T, device))
-    return QTensor(GGMLType(int(qt.ggml_type)),
-                   tuple(int(s) for s in qt.shape), **planes)
+    if t in CODEBOOK:
+        planes["q"] = codebook_plane(planes["q"], t)
+    return QTensor(t, tuple(int(s) for s in qt.shape), **planes)
 
 
 def from_jax_params(params_np, device=None):

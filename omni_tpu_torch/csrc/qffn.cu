@@ -92,8 +92,8 @@ using namespace qstage;
 constexpr int kGemvMaxM = 8;  // decode rows: the N of mma.m16n8k16
 
 // The decode passes' launch shape per format, from a sweep on the card
-// (`python -m omni_tpu_torch.qffn_shape_probe`). The int8-value chunks (Q8_0, IQ4_NL, IQ4_XS, MXFP4 and
-// Q6_K) are light enough in registers for a lane to keep two chunks of each
+// (`python -m omni_tpu_torch.qffn_shape_probe`). The chunks of one scale (Q8_0, Q6_K
+// and the codebook formats) are light enough in registers for a lane to keep two chunks of each
 // row in flight; the halves-packed and low-bit chunks keep one, with more
 // blocks per SM instead. The blocks per SM set the register budget
 // (__launch_bounds__: 65,536 / (threads x blocks) registers a thread).
@@ -238,8 +238,6 @@ bool known(int qt) {
          qt == kQ4_0 || qt == kQ4_1 || qt == kQ5_0 || qt == kQ5_1 || qt == kIQ4NL ||
          qt == kIQ4XS || qt == kMXFP4;
 }
-
-int granule(int qt) { return int8_plane(qt) ? 32 : 256; }
 
 // every plane format qt reads is there (qformats.plane_specs)
 bool planes_ok(int qt, const Planes& p) {

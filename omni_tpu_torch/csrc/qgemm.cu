@@ -26,12 +26,13 @@
 //   plane qh u8 [N, K/8] (decoded by kquant.cuh);
 // - Q6_K: w = bf16((q - 32) * dl), dl = d * sc per 16-group;
 // - Q8_0: w = bf16(q * d), d per 32-group;
-// - IQ4_NL and MXFP4: the same on their int8 value planes (the codebook
-//   applied at load; MXFP4's d = 2^(e - 128) may be subnormal, and the
+// - IQ4_NL and MXFP4: w = bf16(v * d), v the codebook value of the nibble
+//   index in the q plane (codebook.cuh: an exact integer of at most 7
+//   bits), d per 32-group (MXFP4's d = 2^(e - 128) may be subnormal, and the
 //   default build keeps subnormals: no -ftz, no fast math);
-// - IQ4_XS: w = bf16(q * dl), dl = d * sc per 32-group formed first in f32
+// - IQ4_XS: w = bf16(v * dl), dl = d * sc per 32-group formed first in f32
 //   (d per 256, sc the int8 sub-scale), in dequant_tile's order (d holds an
-//   f16's 11 significant bits, q and sc 7 and 6: both f32 products are
+//   f16's 11 significant bits, v and sc 7 and 6: both f32 products are
 //   exact, and the cast to bf16 is the one rounding);
 // - Q2_K: w = bf16(q * dl - ml), q in 0..3 from the quarter plane, dl =
 //   d * sc and ml = dm * mn per 16-group;
@@ -62,8 +63,9 @@
 // missing chunks staged as zeros in x and w; for the legacy formats eight
 // 32-blocks of the halves plane) a producer group dequantises the weight
 // tile [64, 256] by its format's chunk type in qstage.cuh (one per kind
-// of plane: halves, quarters, int8 values and Q6_K's), whose weight
-// formula kernel I shares, staged on prefill and in registers at decode.
+// of plane: halves, quarters, codebook nibbles, int8 values and Q6_K's),
+// whose weight formula kernel I shares, staged on prefill and in registers
+// at decode.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -78,7 +80,7 @@ using namespace qstage;
 template <int QT>
 int launch(const void* x, Planes p, void* out, void* ws, int m, int n, int k, int splits,
            int out_f32, void* stream) {
-  constexpr int granule = int8_plane(QT) ? 32 : 256;  // K multiple of the planes
+  constexpr int granule = qstage::granule(QT);  // K multiple of the planes
   const bool needs_qh = QT == kQ5K || QT == kQ5_0 || QT == kQ5_1 || QT == kQ3K;
   const bool needs_sc = QT == kIQ4XS || QT == kQ2K || QT == kQ3K;
   const bool needs_min = QT == kQ2K || QT == kQ4_1 || QT == kQ5_1;  // dm (and Q2_K's mn)

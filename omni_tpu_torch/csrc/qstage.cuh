@@ -11,7 +11,7 @@
 //   32-blocks, ragged where K % 256 != 0) dequantised into shared memory.
 //   It is called by kThreads threads (tid 0..kThreads-1) and issues every
 //   global load of the tile before it uses any. Rows past N (and, on the
-//   int8 planes, chunks past K) are staged as zeros;
+//   planes of 32-element granule, chunks past K) are staged as zeros;
 // - kernel I's register path at decode M (qffn.cu), which hands the
 //   weights to the tensor cores straight from registers.
 #pragma once
@@ -22,6 +22,7 @@
 
 #include <type_traits>
 
+#include "codebook.cuh"
 #include "kquant.cuh"
 
 namespace qstage {
@@ -31,8 +32,15 @@ using kquant::Fmt;
 // GGML type ids
 constexpr int kQ4_0 = 2, kQ4_1 = 3, kQ5_0 = 6, kQ5_1 = 7, kQ8_0 = 8, kQ2K = 10, kQ3K = 11,
               kQ4K = 12, kQ5K = 13, kQ6K = 14, kIQ4NL = 20, kIQ4XS = 23, kMXFP4 = 39;
-// the formats with an int8 value plane and one scale per 32 elements
-constexpr bool int8_plane(int qt) { return qt == kQ8_0 || qt == kIQ4NL || qt == kMXFP4; }
+// the K multiple of a format's planes: one scale per 32 elements (Q8_0,
+// IQ4_NL, MXFP4) or per 256
+__host__ __device__ constexpr int granule(int qt) {
+  return qt == kQ8_0 || qt == kIQ4NL || qt == kMXFP4 ? 32 : 256;
+}
+// the codebook formats, whose q plane holds nibble indexes
+__host__ __device__ constexpr bool codebook_fmt(int qt) {
+  return qt == kIQ4NL || qt == kIQ4XS || qt == kMXFP4;
+}
 // the halves-packed formats (kquant.cuh), and each one's Fmt
 __host__ __device__ constexpr bool halves(int qt) {
   return qt == kQ4K || qt == kQ5K || qt == kQ4_0 || qt == kQ4_1 || qt == kQ5_0 || qt == kQ5_1;
@@ -107,13 +115,14 @@ __device__ __forceinline__ float halves_weight(float q, float a, float b) {
 }
 
 // ---- chunks: each format's weight formula, in one place --------------------
-// A chunk is 16 bytes of a weight row's value plane and the scales they
-// need. Each format's chunk type has
+// A chunk is 16 bytes of a weight row's q plane and the scales they need.
+// Each format's chunk type has
 //   kPerStep      chunks per 256-element K step (BK) of a row;
 //   kRuns         runs of 16 consecutive elements in a chunk;
 //   offset(c, j)  the first element of run j of chunk c in its K step;
-//   count(K)      the chunks of a row (K steps x kPerStep, or K / 16 for
-//                 the int8 planes, whose last step may be ragged);
+//   count(K)      the chunks of a row (K steps x kPerStep, or K / 16 and
+//                 K / 32 for the planes of 32-element granule, whose last
+//                 step may be ragged);
 //   load(p, row, K, s, c, live)  every global load of chunk c of K step s
 //                 of `row` (zeros where !live: zero weights);
 //   run(j, w)     the bf16 weights of run j with dequant_tile's law, two to
@@ -247,11 +256,10 @@ struct LowbitChunk {
 };
 
 // 16 int8 values, elements 16c.. of K step s, times one f32 scale dl:
-// bf16(q * dl). Q6_K (kQ6): dl = d[superblock] * sc[16-group]. The int8
-// planes: dl = d[32-group] (Q8_0, IQ4_NL, MXFP4) or, kSub (IQ4_XS, K % 256
-// == 0), d[superblock] * sc[32-group], rounded once; chunks past K (K % 32
-// == 0, so a chunk is wholly in or out) are zero.
-template <bool kQ6, bool kSub>
+// bf16(q * dl). Q6_K (kQ6): dl = d[superblock] * sc[16-group], rounded
+// once. Q8_0: dl = d[32-group]; chunks past K (K % 32 == 0, so a chunk is
+// wholly in or out) are zero.
+template <bool kQ6>
 struct Int8Chunk {
   static constexpr int kPerStep = 16, kRuns = 1;
   uint4 q;
@@ -270,15 +278,12 @@ struct Int8Chunk {
     if constexpr (kQ6) {
       d = __ldg(p.d + (size_t)row * (K >> 8) + s);
       sc = __ldg(p.sc + (size_t)row * (K >> 4) + s * 16 + c);
-    } else if constexpr (kSub) {
-      d = __ldg(p.d + (size_t)row * (K >> 8) + s);
-      sc = __ldg(p.sc + (size_t)row * (K >> 5) + (k0 >> 5));
     } else {
       d = __ldg(p.d + (size_t)row * (K >> 5) + (k0 >> 5));
     }
   }
   __device__ __forceinline__ void run(int, uint32_t (&w)[8]) const {
-    const float dl = kQ6 || kSub ? __fmul_rn(d, (float)sc) : d;
+    const float dl = kQ6 ? __fmul_rn(d, (float)sc) : d;
     const uint32_t w32[4] = {q.x, q.y, q.z, q.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -291,12 +296,68 @@ struct Int8Chunk {
   }
 };
 
+// IQ4_NL, IQ4_XS or MXFP4 chunk c of K step s: one 32-group's 16 bytes of
+// nibble indexes, byte i holding element 32c + i in its low nibble (run 0)
+// and 32c + 16 + i in its high one (run 1), the value v the codebook's,
+// times one f32 scale dl: bf16(v * dl), the product exact in f32 (v needs
+// at most 7 bits, dl at most 17). dl = d[32-group] (IQ4_NL, MXFP4) or
+// d[superblock] * sc[32-group] rounded once (IQ4_XS, K % 256 == 0); chunks
+// past K (K % 32 == 0) are zero. The weights are looked up in the
+// codebook scaled by dl (codebook.cuh: 16 products for the group's 32
+// weights), both nibbles of a byte at once, so run(0) keeps run 1's
+// weights for run(1): both callers take run 0 before run 1.
+template <int QT>
+struct CodebookChunk {
+  static constexpr int kPerStep = 8, kRuns = 2;
+  using Book = codebook::Codebook<QT == kMXFP4>;
+  uint4 q;
+  float d;
+  int sc;
+  mutable uint32_t high[8];  // run 1's weights, from run(0)
+  __device__ static int offset(int c, int j) { return c * 32 + j * 16; }
+  __device__ static int count(int K) { return K >> 5; }
+  __device__ __forceinline__ void load(const Planes& p, int row, int K, int s, int c, bool live) {
+    const int k0 = s * BK + c * 32;
+    q = make_uint4(0, 0, 0, 0);
+    d = 0.f;
+    sc = 0;
+    if (!live || k0 >= K) return;
+    const uint8_t* qrow = static_cast<const uint8_t*>(p.q) + (size_t)row * (K >> 1);
+    q = __ldg(reinterpret_cast<const uint4*>(qrow + (k0 >> 1)));
+    if constexpr (QT == kIQ4XS) {
+      d = __ldg(p.d + (size_t)row * (K >> 8) + s);
+      sc = __ldg(p.sc + (size_t)row * (K >> 5) + (k0 >> 5));
+    } else {
+      d = __ldg(p.d + (size_t)row * (K >> 5) + (k0 >> 5));
+    }
+  }
+  __device__ __forceinline__ void run(int j, uint32_t (&w)[8]) const {
+    if (j == 0) {
+      // IQ4_XS: (float)sc as 1.5 * 2^23 + sc less 1.5 * 2^23, exactly
+      const codebook::Table t = codebook::scaled<QT == kMXFP4>(
+          QT == kIQ4XS ? __fmul_rn(d, __int_as_float(0x4B400000 + sc) - 12582912.f) : d);
+      const uint32_t w32[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {  // bytes 4i..4i+3: elements 4i..4i+3 of each run
+        uint32_t lo[2], hi[2];
+        codebook::word_pairs<Book::kLowRepeats>(t, w32[i], lo, hi);
+        w[2 * i] = lo[0], w[2 * i + 1] = lo[1];
+        high[2 * i] = hi[0], high[2 * i + 1] = hi[1];
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) w[e] = high[e];
+    }
+  }
+};
+
 // The chunk type of format QT (a GGML type id)
 template <int QT>
 using Chunk = std::conditional_t<
     halves(QT), HalvesChunk<fmt_of(QT)>,
     std::conditional_t<QT == kQ2K || QT == kQ3K, LowbitChunk<QT == kQ3K>,
-                       Int8Chunk<QT == kQ6K, QT == kIQ4XS>>>;
+                       std::conditional_t<codebook_fmt(QT), CodebookChunk<QT>,
+                                          Int8Chunk<QT == kQ6K>>>>;
 
 // The weight tile of K step s of format QT: BN rows of C::kPerStep chunks,
 // rows past N zero. Every global load of the tile is issued before any is

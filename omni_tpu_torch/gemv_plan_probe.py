@@ -1,21 +1,25 @@
-"""Kernel A's launch choices (csrc/q4k_gemv.cu) against the alternatives,
-on the card.
+"""The launch choices of the mma.sync GEMVs, kernel A (csrc/q4k_gemv.cu)
+and kernel E's codebook entries (csrc/codebook_gemv.cu), against the
+alternatives, on the card.
 
-    python -m omni_tpu_torch.gemv_plan_probe
+    python -m omni_tpu_torch.gemv_plan_probe [--source q4k_gemv.cu|codebook_gemv.cu]
 
-Builds copies of csrc/q4k_gemv.cu with 8 warps a block at every shape
-(`kManyWarps` = 8), with the weight bytes read through L1 (an `__ldg` in
-place of the source's `ld.global.nc.L1::no_allocate`), and with both,
-beside the source as it is; then times each build at Qwen3-8B's decode
-shapes (N x K) for Q4_K, Q5_K and Q4_0, at M = 1 (and 8 at wo and the
-head), in a CUDA graph over weight copies larger than the L2, after
-holding its output to `q4k_gemv_plain`'s. Prints the card's name and
-power limit, then one JSON line per reading: the evidence for kManyWarps
-and for the weight load that bypasses L1.
+Builds copies of each source with other settings (SOURCES): 8 warps a
+block at every shape (`kManyWarps` = 8), the weight bytes read through L1
+or past it (an `__ldg` in place of an `ld.global.nc.L1::no_allocate`, or
+the reverse), three blocks an SM (`__launch_bounds__`), beside the
+source as it is; then times each build at Qwen3-8B's decode
+shapes (N x K) for three of its formats (Q4_K, Q5_K and Q4_0; IQ4_NL,
+IQ4_XS and MXFP4), at M = 1 (and 8 at wo and the head), in a CUDA graph
+over weight copies larger than the L2, after holding its output to its
+plain version's. Prints the card's name and power limit, then one JSON
+line per reading: the evidence for kManyWarps and for the weight load that
+bypasses L1 or not.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import re
 import subprocess
@@ -28,53 +32,86 @@ from .kernels import _build
 from .kernels import dequant_matmul as dm
 from .testing_synth import synth_quant
 
-# name: (kManyWarps, weight bytes through L1)
-VARIANTS = {"source": None, "warps8": (8, False), "via-l1": (4, True),
-            "warps8-via-l1": (8, True)}
 SHAPES = {"wk": (1024, 4096), "wo": (4096, 4096), "wqkv": (6144, 4096),
           "down": (4096, 12288), "gateup": (24576, 4096), "head": (151748, 4096)}
-FORMATS = (GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q4_0)
 L2_FLUSH_BYTES = 100 * 2**20
 HBM_BYTES_PER_S = 3.35e12
 
-
-# the source's weight load, and the L1 load the via-l1 copies put there
-NO_ALLOC_LOAD = re.compile(r'asm volatile\("ld\.global\.nc\.L1::no_allocate\.v2\.u32.*?\)\);',
-                           re.S)
-L1_LOAD = "w.q[r][h] = __ldg(qp + 4 * h);"
+# the edits a variant makes to a source: (pattern matching once, its
+# replacement)
+NO_ALLOC_LOAD = r'asm volatile\("ld\.global\.nc\.L1::no_allocate\..*?\)\);'
 
 
-def variant_source(many: int, via_l1: bool) -> str:
-    """csrc/q4k_gemv.cu with kManyWarps set and, where `via_l1`, the weight
-    bytes read through L1."""
-    src = (_build.CSRC / "q4k_gemv.cu").read_text()
-    src, a = re.subn(r"constexpr int kManyWarps = \d+;", f"constexpr int kManyWarps = {many};",
-                     src)
-    b = 1
-    if via_l1:
-        src, b = NO_ALLOC_LOAD.subn(L1_LOAD, src)
-    if (a, b) != (1, 1):
-        raise RuntimeError("q4k_gemv.cu: no kManyWarps or weight load to set")
+def many_warps(v: int) -> tuple[str, str]:
+    return r"constexpr int kManyWarps = \d+;", f"constexpr int kManyWarps = {v};"
+
+
+def min_blocks(v: int) -> tuple[str, str]:
+    return (r"__launch_bounds__\(kMaxWarps \* 32, \d+\)",
+            f"__launch_bounds__(kMaxWarps * 32, {v})")
+
+
+# each source: the formats it is timed on, and its variants beside it
+SOURCES = {
+    "q4k_gemv.cu": ((GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q4_0), {
+        "warps8": (many_warps(8),),
+        "via-l1": ((NO_ALLOC_LOAD, "w.q[r][h] = __ldg(qp + 4 * h);"),),
+        "warps8-via-l1": (many_warps(8),
+                          (NO_ALLOC_LOAD, "w.q[r][h] = __ldg(qp + 4 * h);"))}),
+    "codebook_gemv.cu": ((GGMLType.IQ4_NL, GGMLType.IQ4_XS, GGMLType.MXFP4), {
+        "warps8": (many_warps(8),),
+        "no-alloc": ((re.escape("b.q[r][i] = __ldg(qp + 4 * i);"),
+                      'asm volatile("ld.global.nc.L1::no_allocate.u32 %0, [%1];\\n"\n'
+                      '                   : "=r"(b.q[r][i])\n'
+                      '                   : "l"(qp + 4 * i));'),),
+        "blocks3": (min_blocks(3),)}),
+}
+
+
+def block_warps(n: int, k: int, many: int) -> int:
+    """The warps a block of either source runs (its block_warps): one a
+    superblock, at most 8, or `many` where the 16-row tiles fill two waves
+    of blocks on the card's 132 SMs."""
+    most = many if -(-n // dm.GEMV_ROWS) >= 2 * dm.GEMM_SMS else 8
+    return min(k // 256, most)
+
+
+def edits(source: str, variant: str) -> list[tuple[str, str]]:
+    """(text of the source, its replacement) for each edit of `variant`;
+    raises RuntimeError where a pattern does not match exactly once."""
+    src = (_build.CSRC / source).read_text()
+    out = []
+    for pattern, repl in SOURCES[source][1][variant]:
+        found = list(re.finditer(pattern, src, re.S))
+        if len(found) != 1:
+            raise RuntimeError(f"{source}: {pattern!r} matches {len(found)} times")
+        out.append((found[0].group(0), repl))
+    return out
+
+
+def variant_source(source: str, variant: str) -> str:
+    """csrc/`source` with the edits of `variant`."""
+    src = (_build.CSRC / source).read_text()
+    for old, new in edits(source, variant):
+        src = src.replace(old, new)
     return src
 
 
-def build_variants() -> dict:
-    """{variant: kernel A's six entry points} for the source as it is and
-    for each setting of VARIANTS, built in parallel."""
+def build_variants(source: str) -> dict:
+    """{variant: the source's entry points} for the source as it is and for
+    each of its variants, built in parallel."""
     out_dir = _build.build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
+    stem = source.removesuffix(".cu")
     jobs = {}
-    for name, setting in VARIANTS.items():
-        if setting is None:
-            continue
-        src = out_dir / f"q4k_gemv.probe-{name}.cu"
-        src.write_text(variant_source(*setting))
-        jobs[out_dir / f"q4k_gemv.probe-{name}.so"] = [
-            _build.nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), str(src)]
-    _build._build(jobs)
+    for name in SOURCES[source][1]:
+        src = out_dir / f"{stem}.probe-{name}.cu"
+        src.write_text(variant_source(source, name))
+        jobs[name] = [_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), str(src)]
+    _build._build({out_dir / f"{stem}.probe-{name}.so": cmd for name, cmd in jobs.items()})
     libs = {"source": {}}
-    for (name, _), so in zip(((n, s) for n, s in VARIANTS.items() if s is not None), jobs):
-        libs[name] = _build._bind(so, _build.SOURCES["q4k_gemv.cu"])
+    for name in jobs:
+        libs[name] = _build._bind(out_dir / f"{stem}.probe-{name}.so", _build.SOURCES[source])
     return libs
 
 
@@ -106,45 +143,60 @@ def weights(fmt: GGMLType, n: int, k: int, dev, gen) -> list:
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--source", choices=sorted(SOURCES), action="append",
+                    help="the source(s) to probe (default: both)")
+    sources = ap.parse_args().source or list(SOURCES)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
     print(smi, flush=True)
     own = _build.load()
-    libs = build_variants()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    for fmt in FORMATS:
-        name = dm.HALVES_GEMV[fmt]
-        kern = getattr(dm, name)
-        for shape, (n, k) in SHAPES.items():
-            ws = weights(fmt, n, k, dev, gen)
-            w0 = ws[0]
-            out_dtype = torch.float32 if shape == "head" else torch.bfloat16
-            for m in ((1, 8) if shape in ("wo", "head") else (1,)):
-                x = torch.randn((m, k), device=dev, generator=gen).to(torch.bfloat16)
-                want = dm.q4k_gemv_plain(x, w0, torch.float32)
-                nbytes = n * row_nbytes(fmt, k) + m * k * 2 + m * n * out_dtype.itemsize
-                bound = nbytes / HBM_BYTES_PER_S * 1e3
-                times = {}
-                for rep in range(2):  # the variants in turn, twice; the least
-                    for var, lib in libs.items():
-                        with mock.patch.object(_build, "load", return_value={**own, **lib}):
-                            if rep == 0:
-                                got = kern(x, w0, torch.float32)
-                                torch.cuda.synchronize()
-                                err = ((got - want).abs().max() / want.abs().max()).item()
-                                if not err < 1e-3:
-                                    raise SystemExit(f"{var} {name} {shape}: off by {err}")
-                            t = graph_ms(lambda i: kern(x, ws[i % len(ws)], out_dtype))
-                        times[var] = min(times.get(var, float("inf")), t)
-                blocks = dm.gemv_plan(m, n, k, fmt).blocks(n)
-                for var, t in times.items():
-                    print(json.dumps({"variant": var, "fmt": fmt.name, "shape": shape, "n": n,
-                                      "k": k, "m": m, "ms": t, "bound_ms": bound,
-                                      "share": bound / t, "blocks": blocks, "card": smi}),
-                          flush=True)
-            del ws, w0
+    for source in sources:
+        libs = build_variants(source)
+        many = {name: int(re.search(r"kManyWarps = (\d+)", variant_source(source, name)
+                                    if name != "source" else (_build.CSRC / source)
+                                    .read_text()).group(1)) for name in libs}
+        for fmt in SOURCES[source][0]:
+            probe(fmt, libs, many, own, smi, dev, gen)
+
+
+def probe(fmt: GGMLType, libs: dict, many: dict, own: dict, smi: str, dev, gen) -> None:
+    """Time format `fmt`'s entry in each build of `libs` (whose kManyWarps
+    are `many`) at SHAPES."""
+    name = dm.MMA_GEMV[fmt]
+    kern, plain = getattr(dm, name), getattr(dm, name + "_plain")
+    for shape, (n, k) in SHAPES.items():
+        ws = weights(fmt, n, k, dev, gen)
+        w0 = ws[0]
+        out_dtype = torch.float32 if shape == "head" else torch.bfloat16
+        for m in ((1, 8) if shape in ("wo", "head") else (1,)):
+            x = torch.randn((m, k), device=dev, generator=gen).to(torch.bfloat16)
+            want = plain(x, w0, torch.float32)
+            nbytes = n * row_nbytes(fmt, k) + m * k * 2 + m * n * out_dtype.itemsize
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            times = {}
+            for rep in range(2):  # the variants in turn, twice; the least
+                for var, lib in libs.items():
+                    with mock.patch.object(_build, "load", return_value={**own, **lib}):
+                        if rep == 0:
+                            got = kern(x, w0, torch.float32)
+                            torch.cuda.synchronize()
+                            err = ((got - want).abs().max() / want.abs().max()).item()
+                            if not err < 1e-3:
+                                raise SystemExit(f"{var} {name} {shape}: off by {err}")
+                        t = graph_ms(lambda i: kern(x, ws[i % len(ws)], out_dtype))
+                    times[var] = min(times.get(var, float("inf")), t)
+            blocks = dm.gemv_plan(m, n, k, fmt).blocks(n)
+            for var, t in times.items():
+                print(json.dumps({"variant": var, "fmt": fmt.name, "shape": shape, "n": n,
+                                  "k": k, "m": m, "ms": t, "bound_ms": bound,
+                                  "share": bound / t, "blocks": blocks,
+                                  "warps": block_warps(n, k, many[var]), "card": smi}),
+                      flush=True)
+        del ws, w0
 
 
 if __name__ == "__main__":

@@ -1,16 +1,17 @@
-"""Kernel A's registers, spills and instructions (csrc/q4k_gemv.cu), from
-its compiler, on the machine with the card.
+"""The registers, spills and instructions of the mma.sync GEMVs, kernel A
+(csrc/q4k_gemv.cu) and kernel E's codebook entries (csrc/codebook_gemv.cu),
+from their compiler, on the machine with the card.
 
     python -m omni_tpu_torch.gemv_sass_probe
 
-Compiles csrc/q4k_gemv.cu with `-Xptxas -v` and prints, for each
-instantiation (format, aligned planes or not), the registers and spill
-bytes ptxas reports; then disassembles the library (`cuobjdump -sass`)
-and counts the instructions of each kernel's superblock loop (the longest
-backward branch: its two-buffer body holds two superblocks of a warp),
-by opcode. A warp's superblock is 16 rows x 256 weights, 128 a lane, so
-the loop's instructions over 256 are its instructions a weight. Prints
-one JSON line per kernel.
+Compiles each source with `-Xptxas -v` and prints, for each instantiation
+(format, aligned planes or not), the registers and spill bytes ptxas
+reports; then disassembles its library (`cuobjdump -sass`) and counts the
+instructions of each kernel's superblock loop (the longest backward
+branch: its two-buffer body holds two superblocks of a warp), by opcode.
+A warp's superblock is 16 rows x 256 weights, 128 a lane, so the loop's
+instructions over 256 are its instructions a weight. Prints one JSON line
+per kernel.
 """
 
 from __future__ import annotations
@@ -23,25 +24,28 @@ from pathlib import Path
 
 from .kernels import _build
 
-FORMATS = ("Q4_K", "Q5_K", "Q4_0", "Q4_1", "Q5_0", "Q5_1")  # kquant::Fmt order
+# each source and its formats in the order of its Fmt enum
+SOURCES = {"q4k_gemv.cu": ("Q4_K", "Q5_K", "Q4_0", "Q4_1", "Q5_0", "Q5_1"),
+           "codebook_gemv.cu": ("IQ4_NL", "IQ4_XS", "MXFP4")}
 
 
-def kernel_name(mangled: str) -> str:
-    """'Q4_K aligned' for gemv_kernel<Fmt 0, true>."""
+def kernel_name(mangled: str, formats: tuple) -> str:
+    """'Q4_K aligned' for gemv_kernel<Fmt 0, true> of a source whose Fmt
+    enum lists `formats`."""
     m = re.search(r"FmtE(\d)ELb([01])E", mangled)
-    return f"{FORMATS[int(m.group(1))]} {'aligned' if m.group(2) == '1' else 'bytewise'}"
+    return f"{formats[int(m.group(1))]} {'aligned' if m.group(2) == '1' else 'bytewise'}"
 
 
-def ptxas() -> dict:
+def ptxas(source: str) -> dict:
     """{kernel: (registers, spill store bytes, spill load bytes)}."""
     out = subprocess.run(
         [_build.nvcc(), *_build.NVCC_FLAGS[:-3], "-Xptxas", "-v", "-c",
-         str(_build.CSRC / "q4k_gemv.cu"), "-o", "/dev/null"],
+         str(_build.CSRC / source), "-o", "/dev/null"],
         capture_output=True, text=True, check=True)
     res, name, spills = {}, None, (0, 0)
     for line in (out.stdout + out.stderr).splitlines():
         if "Compiling entry function" in line and "gemv_kernel" in line:
-            name = kernel_name(line)
+            name = kernel_name(line, SOURCES[source])
         elif name and "spill stores" in line:
             st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line).groups()
             spills = (int(st), int(ld))
@@ -51,7 +55,7 @@ def ptxas() -> dict:
     return res
 
 
-def loops(so: Path) -> dict:
+def loops(so: Path, formats: tuple) -> dict:
     """{kernel: (instructions of its longest loop, Counter of opcodes)}."""
     sass = subprocess.run([str(Path(_build.nvcc()).parent / "cuobjdump"), "-sass", str(so)],
                           capture_output=True, text=True, check=True).stdout
@@ -67,19 +71,22 @@ def loops(so: Path) -> dict:
         end, start = max(back, key=lambda b: b[0] - b[1])
         body = [i for a, i in ins if start <= a <= end]
         ops = Counter(i.split()[1 if i.startswith("@") else 0].split(".")[0] for i in body)
-        res[kernel_name(fn.split("\n")[0])] = (len(body), ops)
+        res[kernel_name(fn.split("\n")[0], formats)] = (len(body), ops)
     return res
 
 
 def main() -> None:
-    regs = ptxas()
     _build.load()
-    for name, (n, ops) in sorted(loops(_build.build_dir() / "q4k_gemv.so").items()):
-        r, st, ld = regs.get(name, (None, None, None))
-        print(json.dumps({"kernel": name, "registers": r, "spill_store_bytes": st,
-                          "spill_load_bytes": ld, "loop_instructions": n,
-                          "per_superblock": n / 2, "per_weight": n / 256,
-                          "top": ops.most_common(12)}), flush=True)
+    for source, formats in SOURCES.items():
+        regs = ptxas(source)
+        so = _build.build_dir() / (Path(source).stem + ".so")
+        for name, (n, ops) in sorted(loops(so, formats).items()):
+            r, st, ld = regs.get(name, (None, None, None))
+            print(json.dumps({"source": source, "kernel": name, "registers": r,
+                              "spill_store_bytes": st, "spill_load_bytes": ld,
+                              "loop_instructions": n, "per_superblock": n / 2,
+                              "per_weight": n / 256, "top": ops.most_common(12)}),
+                  flush=True)
 
 
 if __name__ == "__main__":

@@ -52,8 +52,9 @@ SOURCES = {
         ("q4k_gemm", "q5k_gemm", "q4_0_gemm", "q4_1_gemm", "q5_0_gemm",
          "q5_1_gemm"), GEMM_ARGS),
     "q6k_gemv.cu": {"q6k_gemv": MATMUL_ARGS},
-    "q8_0_gemv.cu": dict.fromkeys(
-        ("q8_0_gemv", "iq4_nl_gemv", "mxfp4_gemv", "iq4_xs_gemv"), MATMUL_ARGS),
+    "q8_0_gemv.cu": {"q8_0_gemv": MATMUL_ARGS},
+    "codebook_gemv.cu": dict.fromkeys(
+        ("iq4_nl_gemv", "iq4_xs_gemv", "mxfp4_gemv"), MATMUL_ARGS),
     "lowbit_gemv.cu": dict.fromkeys(("q2k_gemv", "q3k_gemv"), MATMUL_ARGS),
     "qgemm.cu": dict.fromkeys(
         ("qgemm_q4k", "qgemm_q5k", "qgemm_q6k", "qgemm_q8_0", "qgemm_iq4_nl",

@@ -12,8 +12,9 @@ under the same three switches, read once at import (`GP_DECODE`,
   Q5_K (A's template with the high bit), A's legacy branches `q4_0_gemv`,
   `q4_1_gemv`, `q5_0_gemv` and `q5_1_gemv` (a scale per 32 in place of
   d·sc), kernel C `q6k_gemv` for Q6_K, kernel E `q8_0_gemv` for Q8_0, E's
-  entries `iq4_nl_gemv`, `mxfp4_gemv` (E's device code: the same int8
-  value plane and per-32 scale) and `iq4_xs_gemv` (dl = d·sc per 32) for
+  codebook entries `iq4_nl_gemv`, `mxfp4_gemv` and `iq4_xs_gemv`
+  (csrc/codebook_gemv.cu: kernel A's design on nibble-index planes, the
+  codebook applied in registers; dl = d, or d·sc per 32 for IQ4_XS) for
   the codebook formats, and kernel H `q2k_gemv` and `q3k_gemv` for Q2_K
   and Q3_K (2-bit quarters, a scale per 16; all replace
   qmatmul_gp_pallas);
@@ -36,8 +37,8 @@ Kernels B and D run one pipelined mainloop (csrc/qmma.cuh). Where an
 splits K across blocks (`gemm_splits`) and hands the kernel an f32
 workspace for the partials (`gemm_workspace_bytes`), made per call; the
 kernel sums them in split order, so the result is the same bit for bit
-from run to run. Kernel A never splits K (`gemv_plan`): one block per
-16-row tile, one launch, and no workspace.
+from run to run. Kernel A and E's codebook entries never split K
+(`gemv_plan`): one block per 16-row tile, one launch, and no workspace.
 Every format the JAX package keeps quantized has a kernel on every route;
 a QTensor of another format raises NotImplementedError on the card. Each
 kernel has a plain PyTorch version of the same law beside it: the wrapper
@@ -62,7 +63,7 @@ import torch
 
 from ..core.dtypes import GGMLType
 from .qformats import (CODEBOOK, LEGACY, LOWBIT, PLANES, QUANTIZED, QTensor,
-                       check_qtensor, dequant, int8_group_scales,
+                       check_qtensor, dequant, int8_group_scales, int8_values,
                        kquant_values, lowbit_group_scales, lowbit_values,
                        q4k_group_scales, q6k_group_scales, tile_granule)
 
@@ -88,10 +89,12 @@ HALVES_GEMV = {GGMLType.Q4_K: "q4k_gemv", GGMLType.Q5_K: "q5k_gemv",
 HALVES_GEMM = {GGMLType.Q4_K: "q4k_gemm", GGMLType.Q5_K: "q5k_gemm",
                **{t: f"{t.name.lower()}_gemm" for t in LEGACY}}
 
-# the name of kernel E's wrapper and C entry point for each int8-plane
-# format (M = 1..8)
-INT8_GEMV = {GGMLType.Q8_0: "q8_0_gemv",
-             **{t: f"{t.name.lower()}_gemv" for t in CODEBOOK}}
+# the name of the wrapper and C entry point of each of kernel E's codebook
+# entries (M = 1..8)
+CODEBOOK_GEMV = {t: f"{t.name.lower()}_gemv" for t in CODEBOOK}
+# the mma.sync GEMVs, kernel A's entries and E's codebook entries: one
+# launch plan (`gemv_plan`)
+MMA_GEMV = {**HALVES_GEMV, **CODEBOOK_GEMV}
 
 # the name of kernel H's wrapper and C entry point for each 2- or 3-bit
 # K-quant (M = 1..8)
@@ -99,7 +102,7 @@ LOWBIT_GEMV = {GGMLType.Q2_K: "q2k_gemv", GGMLType.Q3_K: "q3k_gemv"}
 
 # kernel launches, one count per wrapper; a run resets and reads them
 launches = dict.fromkeys([*HALVES_GEMV.values(), *HALVES_GEMM.values(),
-                          "q6k_gemv", "qgemm", *INT8_GEMV.values(),
+                          "q6k_gemv", "qgemm", "q8_0_gemv", *CODEBOOK_GEMV.values(),
                           *LOWBIT_GEMV.values()], 0)
 
 # the C entry point of kernel D for each format: all thirteen
@@ -132,8 +135,8 @@ def gemm_splits(m: int, n: int, k: int, qtype: GGMLType) -> int:
     counting ceil(steps / splits) steps and one more for its epilogue per
     unit it walks, and the smallest of those (each split more writes and
     sums another [m, n] of f32 partials). `qtype`'s K granule must divide
-    k; every format steps through K 256 elements at a time (the int8-plane
-    formats' last step may be ragged)."""
+    k; every format steps through K 256 elements at a time (the last step
+    of a 32-granule format, Q8_0, IQ4_NL or MXFP4, may be ragged)."""
     if k % tile_granule(qtype):
         raise ValueError(f"K={k} is not a multiple of {GGMLType(qtype).name}'s "
                          f"granule {tile_granule(qtype)}")
@@ -151,14 +154,16 @@ def gemm_splits(m: int, n: int, k: int, qtype: GGMLType) -> int:
     return best
 
 
-# kernel A's launch (csrc/q4k_gemv.cu): a block owns GEMV_ROWS weight rows
-# (the M of mma.m16n8k16) over all of K, whose superblocks its warps share
-# out; the kernel picks its warps itself
+# the launch of kernel A (csrc/q4k_gemv.cu) and of E's codebook entries
+# (csrc/codebook_gemv.cu): a block owns GEMV_ROWS weight rows (the M of
+# mma.m16n8k16) over all of K, whose superblocks its warps share out; the
+# kernel picks its warps itself
 GEMV_ROWS = 16
 
 
 class GemvPlan(NamedTuple):
-    """Kernel A's launch for an [m, k] x [n, k] call."""
+    """Kernel A's or E's codebook entries' launch for an [m, k] x [n, k]
+    call."""
     rows: int  # weight rows a block owns
     splits: int  # blocks along K of each row tile
     workspace_bytes: int  # device memory the wrapper makes for the call
@@ -169,15 +174,17 @@ class GemvPlan(NamedTuple):
 
 
 def gemv_plan(m: int, n: int, k: int, qtype: GGMLType) -> GemvPlan:
-    """Kernel A's plan for an [m, k] x [n, k] call of halves-packed format
-    `qtype`: one block per GEMV_ROWS-row tile, K not split at any shape, so
-    a call is one launch with no workspace (0 bytes). At N = 1024 (wk, wv:
-    64 tiles for GEMM_SMS SMs) a split in two was no faster for Q4_K and
-    Q4_0 on the H100 and 7 % faster for Q5_K (PERF.md section 6)."""
+    """The plan of kernel A (a halves-packed `qtype`) or of E's codebook
+    entries (IQ4_NL, IQ4_XS, MXFP4) for an [m, k] x [n, k] call: one block
+    per GEMV_ROWS-row tile, K not split at any shape, so a call is one
+    launch with no workspace (0 bytes). At N = 1024 (wk, wv: 64 tiles for
+    GEMM_SMS SMs) a split in two was no faster for Q4_K and Q4_0 on the
+    H100 and 7 % faster for Q5_K (PERF.md section 6)."""
     if not 1 <= m <= GP_MAX_M:
         raise ValueError(f"kernel A takes M = 1..{GP_MAX_M}, got {m}")
-    if qtype not in HALVES_GEMV:
-        raise ValueError(f"kernel A takes no {GGMLType(qtype).name}")
+    if qtype not in MMA_GEMV:
+        raise ValueError(f"neither kernel A nor E's codebook entries take "
+                         f"{GGMLType(qtype).name}")
     if k < 256 or k % 256:
         raise ValueError(f"K={k} is not a positive multiple of 256")
     return GemvPlan(GEMV_ROWS, 1, 0)
@@ -346,22 +353,24 @@ def q6k_gemv_plain(x: torch.Tensor, qt: QTensor,
 def q8_0_gemv_plain(x: torch.Tensor, qt: QTensor,
                     out_dtype=torch.bfloat16) -> torch.Tensor:
     """Kernel E's law in plain PyTorch (the int8-plane group law of
-    qmatmul_gp_pallas, `_gp_slice`): per 32-group P = x_bf16 · q, exact
-    products summed in f32, then out = Σ_g dl·P, all in f32; dl = d (Q8_0,
-    IQ4_NL, MXFP4) or the f32 product d·sc (IQ4_XS), as
-    `int8_group_scales` gives it."""
+    qmatmul_gp_pallas, `_gp_slice`): per 32-group P = x_bf16 · q over the
+    int8 values q (`int8_values`: Q8_0's plane, or a codebook weight's
+    indexes through its codebook), exact products summed in f32, then
+    out = Σ_g dl·P, all in f32; dl = d (Q8_0, IQ4_NL, MXFP4) or the f32
+    product d·sc (IQ4_XS), as `int8_group_scales` gives it."""
     m, k = x.shape
     n = qt.shape[0]
     g = k // 32
     xb = x.to(torch.bfloat16).to(torch.float32).reshape(m, g, 32)
-    q = qt.q.to(torch.float32).reshape(n, g, 32)
+    q = int8_values(qt).to(torch.float32).reshape(n, g, 32)
     p = torch.einsum("mgk,ngk->mng", xb, q)  # [M, N, G]
     return (int8_group_scales(qt)[None] * p).sum(-1).to(out_dtype)
 
 
-# the codebook entries' law is kernel E's: the values are int8, exact in
-# bf16, and only IQ4_XS's dl differs
-iq4_nl_gemv_plain = mxfp4_gemv_plain = iq4_xs_gemv_plain = q8_0_gemv_plain
+# E's codebook entries run kernel E's law on the decoded values: they are
+# integers of at most 7 bits, exact in bf16, and only IQ4_XS's dl differs
+codebook_gemv_plain = q8_0_gemv_plain
+iq4_nl_gemv_plain = mxfp4_gemv_plain = iq4_xs_gemv_plain = codebook_gemv_plain
 
 
 def q2k_gemv_plain(x: torch.Tensor, qt: QTensor,
@@ -393,9 +402,9 @@ def qgemm_plain(x: torch.Tensor, qt: QTensor,
     """Kernel D's law in plain PyTorch (qmatmul_pallas with dequant_tile):
     each weight dequantised in f32 and rounded once to bf16 (uncentered for
     Q4_K, Q5_K and Q2_K: bf16(q·dl − ml); bf16(q·d) for Q8_0, IQ4_NL and
-    MXFP4; bf16(q·(d·sc)) for IQ4_XS, Q6_K and Q3_K; bf16((q − 8)·d) and
-    bf16((q − 16)·d) for Q4_0 and Q5_0, bf16(q·d + m) for Q4_1 and Q5_1),
-    then a dot with bf16 x in f32."""
+    MXFP4 (q the codebook value); bf16(q·(d·sc)) for IQ4_XS, Q6_K and
+    Q3_K; bf16((q − 8)·d) and bf16((q − 16)·d) for Q4_0 and Q5_0,
+    bf16(q·d + m) for Q4_1 and Q5_1), then a dot with bf16 x in f32."""
     w = dequant(qt, torch.bfloat16).to(torch.float32)
     return (x.to(torch.bfloat16).to(torch.float32) @ w.T).to(out_dtype)
 
@@ -457,27 +466,36 @@ def q6k_gemv(x: torch.Tensor, qt: QTensor,
     return _run("q6k_gemv", "q6k_gemv", q6k_gemv_plain, x, qt, out_dtype)
 
 
-def _int8_gemv(t: GGMLType, what: str, ks: str):
-    """The wrapper of kernel E's entry for int8-plane format `t`
-    (M = 1..8), named as its C entry point."""
-    name = INT8_GEMV[t]
+def q8_0_gemv(x: torch.Tensor, qt: QTensor,
+              out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Kernel E (replaces qmatmul_gp_pallas for Q8_0): M = 1..8, K % 32."""
+    _check(x, qt, out_dtype, GGMLType.Q8_0)
+    _check_gemv_m("q8_0_gemv", x)
+    return _run("q8_0_gemv", "q8_0_gemv", q8_0_gemv_plain, x, qt, out_dtype)
+
+
+def _codebook_gemv(t: GGMLType):
+    """The wrapper of kernel E's entry for codebook format `t` (M = 1..8,
+    K % 256), named as its C entry point."""
+    name = CODEBOOK_GEMV[t]
 
     def wrapper(x: torch.Tensor, qt: QTensor,
                 out_dtype=torch.bfloat16) -> torch.Tensor:
         _check(x, qt, out_dtype, t)
         _check_gemv_m(name, x)
-        return _run(name, name, q8_0_gemv_plain, x, qt, out_dtype)
+        if x.shape[1] % 256:
+            raise ValueError(f"{name} takes K % 256 == 0, got K = {x.shape[1]}")
+        return _run(name, name, codebook_gemv_plain, x, qt, out_dtype)
 
     wrapper.__name__ = wrapper.__qualname__ = name
-    wrapper.__doc__ = (f"{what} (replaces qmatmul_gp_pallas for {t.name}): "
-                       f"M = 1..8, {ks}.")
+    wrapper.__doc__ = (f"Kernel E's {t.name} entry (replaces qmatmul_gp_pallas "
+                       f"for {t.name}): M = 1..8, K % 256.")
     return wrapper
 
 
-q8_0_gemv = _int8_gemv(GGMLType.Q8_0, "Kernel E", "K % 32")
-iq4_nl_gemv = _int8_gemv(GGMLType.IQ4_NL, "Kernel E's IQ4_NL entry", "K % 32")
-mxfp4_gemv = _int8_gemv(GGMLType.MXFP4, "Kernel E's MXFP4 entry", "K % 32")
-iq4_xs_gemv = _int8_gemv(GGMLType.IQ4_XS, "Kernel E's IQ4_XS branch", "K % 256")
+iq4_nl_gemv = _codebook_gemv(GGMLType.IQ4_NL)
+iq4_xs_gemv = _codebook_gemv(GGMLType.IQ4_XS)
+mxfp4_gemv = _codebook_gemv(GGMLType.MXFP4)
 
 
 def _lowbit_gemv(t: GGMLType):

@@ -40,18 +40,23 @@ K-quants' q and qh planes, a scale per 32 instead of d·sc):
                      Q5_K's
 Q4_0 and Q5_0 dequantise as (q − 8)·d and (q − 16)·d.
 
-IQ4_NL, IQ4_XS and MXFP4 planes (the codebook formats, as the JAX package
-keeps them: the 16-entry codebook applied at load, int8 VALUE planes):
-- q  int8 [N, K]     the codebook value, element order (IQ4_NL and IQ4_XS
-                     -127..113; MXFP4 the e2m1 values pre-doubled,
-                     0, ±1, ±2, ±3, ±4, ±6, ±8, ±12)
+IQ4_NL, IQ4_XS and MXFP4 planes (the codebook formats). The JAX package
+applies the 16-entry codebook at load (int8 value planes, [K, N]); the
+port keeps the file's nibble INDEXES and applies the codebook where the
+values are used (`int8_values`; on the card, in registers):
+- q  u8   [N, K/2]   each 32-group's 16 quant bytes as the file holds
+                     them: byte j holds element j's index in its low
+                     nibble and element j + 16's in its high one; the
+                     values (CODEBOOK_VALUES) are IQ4_NL's and IQ4_XS's
+                     −127..113, MXFP4's the e2m1 values pre-doubled, 0,
+                     ±1, ±2, ±3, ±4, ±6, ±8, ±12 (0 at indexes 0 and 8)
 - d  f32  [N, K/32]  IQ4_NL: the block's f16 d, widened; MXFP4: 2^(e − 128)
                      built from the e8m0 byte's bits (subnormal for e < 2)
-IQ4_XS has Q8_0's q plane, and
+IQ4_XS has the same q plane, and
 - sc int8 [N, K/32]  the 6-bit group scale minus 32, in −32..31
 - d  f32  [N, K/256] the superblock's f16 d, widened
-IQ4_NL and MXFP4 dequantise as Q8_0 does (q·d), IQ4_XS as q·(d·sc), the
-f32 product d·sc formed first.
+IQ4_NL and MXFP4 dequantise as Q8_0 does (v·d, v the codebook value),
+IQ4_XS as v·(d·sc), the f32 product d·sc formed first.
 
 Q2_K planes (the 2-bit K-quant, a scale and a min per 16 elements):
 - q  u8   [N, K/4]   superblock-local quarters: byte r of superblock s holds
@@ -93,7 +98,8 @@ from ..core.dtypes import QK_K, GGMLType, type_traits
 PLANES = ("q", "sc", "mn", "d", "dm", "qh")
 # the 32-element legacy formats, whose q plane is the K-quants' halves
 LEGACY = (GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1)
-# the codebook formats, whose q plane holds int8 values
+# the codebook formats, whose q plane holds nibble indexes into a
+# 16-entry codebook (CODEBOOK_VALUES)
 CODEBOOK = (GGMLType.IQ4_NL, GGMLType.IQ4_XS, GGMLType.MXFP4)
 # the 2- and 3-bit K-quants, whose q plane holds superblock-local quarters
 # and whose scales (and Q2_K's mins) come per 16 elements
@@ -102,15 +108,14 @@ QUANTIZED = (GGMLType.Q4_K, GGMLType.Q5_K, GGMLType.Q6_K, GGMLType.Q8_0,
              *LEGACY, *CODEBOOK, *LOWBIT)
 # the formats whose values carry a fifth bit from the qh plane
 FIVE_BIT = (GGMLType.Q5_K, GGMLType.Q5_0, GGMLType.Q5_1)
-# int8 value planes with one scale per 32 elements need only whole 32-blocks
-# in K; the packed K-quant planes need whole 256-superblocks (the JAX
-# package's tile_granule)
-_INT8_PLANE = (GGMLType.Q8_0, GGMLType.IQ4_NL, GGMLType.MXFP4)
+# planes with one scale per 32 elements need only whole 32-blocks in K; the
+# others need whole 256-superblocks (the JAX package's tile_granule)
+_GRANULE_32 = (GGMLType.Q8_0, GGMLType.IQ4_NL, GGMLType.MXFP4)
 
 
 def tile_granule(t: GGMLType) -> int:
     """The K multiple a format's planes need."""
-    return 32 if t in _INT8_PLANE else QK_K
+    return 32 if t in _GRANULE_32 else QK_K
 
 
 @dataclass
@@ -137,11 +142,13 @@ class QTensor:
 
 def plane_specs(t: GGMLType, n: int, k: int) -> dict[str, tuple[tuple, torch.dtype]]:
     """The planes of an [n, k] weight of type `t`: name -> (shape, dtype)."""
-    if t in _INT8_PLANE:
+    if t == GGMLType.Q8_0:
         return {"q": ((n, k), torch.int8), "d": ((n, k // 32), torch.float32)}
-    if t == GGMLType.IQ4_XS:
-        return {"q": ((n, k), torch.int8), "sc": ((n, k // 32), torch.int8),
-                "d": ((n, k // QK_K), torch.float32)}
+    if t in CODEBOOK:
+        if t == GGMLType.IQ4_XS:
+            return {"q": ((n, k // 2), torch.uint8), "sc": ((n, k // 32), torch.int8),
+                    "d": ((n, k // QK_K), torch.float32)}
+        return {"q": ((n, k // 2), torch.uint8), "d": ((n, k // 32), torch.float32)}
     if t in (GGMLType.Q4_K, GGMLType.Q5_K):
         specs = {"q": ((n, k // 2), torch.uint8), "sc": ((n, k // 32), torch.int8),
                  "mn": ((n, k // 32), torch.int8),
@@ -283,20 +290,32 @@ def lowbit_group_scales(qt: QTensor) -> tuple[torch.Tensor, torch.Tensor | None]
 
 
 def int8_group_scales(qt: QTensor) -> torch.Tensor:
-    """Per-32-group dl as f32 [N, K/32] of a weight with an int8 value
-    plane, w = q·dl: d for Q8_0, IQ4_NL and MXFP4; the f32 product d·sc for
-    IQ4_XS (the reference's and `_gp_slice`'s dl)."""
+    """Per-32-group dl as f32 [N, K/32] of a weight of int8 values (Q8_0's
+    plane, the codebook formats' values), w = q·dl: d for Q8_0, IQ4_NL and
+    MXFP4; the f32 product d·sc for IQ4_XS (the reference's and
+    `_gp_slice`'s dl)."""
     if qt.ggml_type == GGMLType.IQ4_XS:
         return _expand(qt.d, 8) * qt.sc.to(torch.float32)
     return qt.d
 
 
+def int8_values(qt: QTensor) -> torch.Tensor:
+    """The int8 values [N, K] in element order of a Q8_0 weight (its q
+    plane) or of a codebook one (its indexes through the codebook: the JAX
+    package's value plane, transposed)."""
+    if qt.ggml_type in CODEBOOK:
+        n, k = qt.shape
+        return _codebook_values(qt.q.reshape(n, k // 32, 16),
+                                CODEBOOK_VALUES[qt.ggml_type]).reshape(n, k)
+    return qt.q
+
+
 def dequant(qt: QTensor, dtype=torch.float32) -> torch.Tensor:
     """Full dequantization -> logical [N, K] (bit-exact with the reference
     in f32): the law of `dequant_tile`, rounded once to `dtype`."""
-    if qt.ggml_type in (*_INT8_PLANE, GGMLType.IQ4_XS):
-        return (qt.q.to(torch.float32) * _expand(int8_group_scales(qt), 32)
-                ).to(dtype)
+    if qt.ggml_type in (GGMLType.Q8_0, *CODEBOOK):
+        return (int8_values(qt).to(torch.float32)
+                * _expand(int8_group_scales(qt), 32)).to(dtype)
     if qt.ggml_type in (GGMLType.Q4_K, GGMLType.Q5_K):
         q = kquant_values(qt).to(torch.float32)
         dl, ml = q4k_group_scales(qt)
@@ -480,19 +499,22 @@ def _legacy_fields(blocks: torch.Tensor, t: GGMLType, n: int, k: int):
 
 
 # the codebooks of `omni_tpu/core/quants.py` (kvalues_iq4nl; MXFP4's e2m1
-# values pre-doubled, as the JAX planes hold them)
+# values pre-doubled, as the JAX planes hold them), per format
 IQ4NL_KVALUES = (-127, -104, -83, -65, -49, -35, -22, -10,
                  1, 13, 25, 38, 53, 69, 89, 113)
 MXFP4_KVALUES = (0, 1, 2, 3, 4, 6, 8, 12, 0, -1, -2, -3, -4, -6, -8, -12)
+CODEBOOK_VALUES = {GGMLType.IQ4_NL: IQ4NL_KVALUES, GGMLType.IQ4_XS: IQ4NL_KVALUES,
+                   GGMLType.MXFP4: MXFP4_KVALUES}
 
 
 def _codebook_values(qs: torch.Tensor, kvalues: tuple) -> torch.Tensor:
     """[..., 16] quant bytes of 32-element groups -> int8 [..., 32]
     codebook values in element order: byte j holds element j in its low
-    nibble and element j + 16 in its high one."""
-    idx = torch.cat([qs & 0xF, qs >> 4], dim=-1)
+    nibble and element j + 16 in its high one (one lookup a byte)."""
     table = torch.tensor(kvalues, dtype=torch.int8, device=qs.device)
-    return table[idx.long()]
+    byte = torch.arange(256, device=qs.device)
+    pairs = torch.stack([table[byte & 0xF], table[byte >> 4]])  # [2, 256]
+    return pairs[:, qs.int()].movedim(0, -2).flatten(-2)
 
 
 def e8m0_half(e: torch.Tensor) -> torch.Tensor:
@@ -504,10 +526,28 @@ def e8m0_half(e: torch.Tensor) -> torch.Tensor:
     return bits.view(torch.float32)
 
 
+def codebook_plane(values: torch.Tensor, t: GGMLType) -> torch.Tensor:
+    """int8 codebook values [N, K] in element order (the JAX package's
+    value plane, transposed) -> the port's q plane of codebook format `t`,
+    u8 [N, K/2] of nibble indexes; the inverse of `int8_values`. MXFP4's 0
+    takes index 0 (index 8 holds the same value). Raises ValueError on a
+    value that is not in the codebook."""
+    n, k = values.shape
+    table = CODEBOOK_VALUES[t]
+    inverse = torch.full((256,), -1, dtype=torch.int16, device=values.device)
+    for i in reversed(range(16)):  # the first index of a repeated value
+        inverse[table[i] + 128] = i
+    idx = inverse[values.to(torch.int64) + 128]
+    if (idx < 0).any():
+        raise ValueError(f"{GGMLType(t).name}: a value outside the codebook")
+    idx = idx.to(torch.uint8).reshape(n, k // 32, 2, 16)
+    return (idx[:, :, 0] | (idx[:, :, 1] << 4)).reshape(n, k // 2)
+
+
 def _codebook_repack(blocks: torch.Tensor, t: GGMLType, n: int,
                      k: int) -> QTensor:
     """IQ4_NL, MXFP4 (blocks of 32) and IQ4_XS (superblocks of 256) block
-    bytes -> their planes: values through the codebook, scales widened."""
+    bytes -> their planes: the quant bytes copied, scales widened."""
     if t == GGMLType.IQ4_XS:
         nsb = k // QK_K
         b = blocks.reshape(n, nsb, type_traits(t).type_size)
@@ -518,16 +558,15 @@ def _codebook_repack(blocks: torch.Tensor, t: GGMLType, n: int,
         lo4 = torch.stack([sl & 0xF, sl >> 4], dim=-1).reshape(n, nsb, 8)
         hi2 = (sh[..., None] >> (2 * torch.arange(8, device=b.device))) & 3
         sc = ((lo4 | (hi2 << 4)) - 32).to(torch.int8).reshape(n, nsb * 8)
-        q = _codebook_values(b[..., 8:].reshape(n, nsb, 8, 16), IQ4NL_KVALUES)
-        return QTensor(t, (n, k), q=q.reshape(n, k), sc=sc, mn=None,
-                       d=_f16_field(b, 0), dm=None)
+        return QTensor(t, (n, k), q=b[..., 8:].reshape(n, k // 2).contiguous(), sc=sc,
+                       mn=None, d=_f16_field(b, 0), dm=None)
     b = blocks.reshape(n, k // 32, type_traits(t).type_size)
     if t == GGMLType.IQ4_NL:
-        q, d = _codebook_values(b[..., 2:], IQ4NL_KVALUES), _f16_field(b, 0)
+        qs, d = b[..., 2:], _f16_field(b, 0)
     else:
-        q, d = _codebook_values(b[..., 1:], MXFP4_KVALUES), e8m0_half(b[..., 0])
-    return QTensor(t, (n, k), q=q.reshape(n, k), sc=None, mn=None, d=d,
-                   dm=None)
+        qs, d = b[..., 1:], e8m0_half(b[..., 0])
+    return QTensor(t, (n, k), q=qs.reshape(n, k // 2).contiguous(), sc=None, mn=None,
+                   d=d, dm=None)
 
 
 def upload(a: np.ndarray, device) -> torch.Tensor:

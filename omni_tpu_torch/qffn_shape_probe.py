@@ -7,8 +7,8 @@ Builds copies of csrc/qffn.cu whose `Shape` is one fixed launch shape for
 every format (the chunks of each row a lane keeps in flight, the warps of
 a block and the blocks per SM of the gated and of the down pass) beside
 the source as it is, then times each build's two decode passes at M = 1
-and 8, at Qwen3-8B's FFN shape, for a halves-packed, a low-bit, a Q6_K
-and two int8-value formats, in a CUDA graph over weight copies larger
+and 8, at Qwen3-8B's FFN shape, for a halves-packed, a low-bit, a Q6_K,
+the Q8_0 and a codebook format, in a CUDA graph over weight copies larger
 than the L2, after holding its output to `qffn_plain`'s. Prints the
 card's name and power limit, then one JSON line per reading: the evidence
 for `Shape`.

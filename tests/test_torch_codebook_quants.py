@@ -1,10 +1,12 @@
 """The port's codebook formats (IQ4_NL, IQ4_XS, MXFP4) against the JAX
 package: the numpy oracles (with the e8m0 edge exponents and IQ4_XS's
-extreme sub-scales), the int8 value planes of the device repack, `dequant`
-and the load policy; the routes `kernel_for` picks; the plain laws of
-kernel E's `iq4_nl_gemv`, `iq4_xs_gemv` and `mxfp4_gemv` against
-qmatmul_gp_pallas and of kernel D's three codebook branches against
-qmatmul_pallas, both in interpret mode; `chip_smoke.check_kernel` failing
+extreme sub-scales), the nibble-index planes of the device repack (the
+file's quant bytes; through the codebook, the JAX package's int8 value
+planes), `dequant`, the load policy and `from_jax_params`' inverse
+codebook; the routes `kernel_for` picks; the plain laws of kernel E's
+`iq4_nl_gemv`, `iq4_xs_gemv` and `mxfp4_gemv` against qmatmul_gp_pallas
+and of kernel D's three codebook branches against qmatmul_pallas, both in
+interpret mode; `chip_smoke.check_kernel` failing
 a kernel that drops IQ4_XS's sub-scale or is one exponent off on MXFP4;
 and a tiny file of each recipe, made by omni_tpu's quantizer, served
 greedily by both packages. Everything here runs on the CPU; the CUDA
@@ -124,36 +126,55 @@ def _cases(shapes, granule_of):
     return [(t, *s) for t in CODEBOOK for s in shapes if s[-1] % granule_of(t) == 0]
 
 
+def _qs(blocks, qtype, n, k):
+    """The quant bytes of the blocks, [n, k/2] in file order (each
+    32-group's 16 bytes: element j in the low nibble of byte j, j + 16 in
+    its high one)."""
+    off = 8 if qtype == IQ4_XS else (2 if qtype == IQ4_NL else 1)
+    per = 128 if qtype == IQ4_XS else 16
+    return blocks[:, off:off + per].reshape(n, k // 2)
+
+
 @pytest.mark.parametrize("qtype,n,k", _cases([(5, 256), (24, 1280), (3, 4096 + 512),
                                               (4, 1056)], jax_granule),
                          ids=lambda v: getattr(v, "name", str(v)))
 def test_codebook_repack_is_the_transpose_of_jax_repack(qtype, n, k):
-    """The port's torch repack of the GGUF blocks (element j in the low and
-    j + 16 in the high nibble of byte j, through the codebook; IQ4_XS's
-    6-bit scales from scales_l and scales_h; MXFP4's d from the e8m0 byte's
-    bits) gives the transposes of the JAX planes bit for bit: q int8
-    [N, K], d f32 [N, K/32] (IQ4_XS: sc int8 [N, K/32], d [N, K/256]).
-    K = 1056 (33 blocks) is for the 32-granule formats only."""
+    """The port's torch repack of the GGUF blocks keeps the file's quant
+    bytes as its q plane, u8 [N, K/2] (element j in the low and j + 16 in
+    the high nibble of byte j of each 32-group); decoded through the
+    codebook (`int8_values`) it is the transpose of the JAX int8 value
+    plane bit for bit, and the scales (IQ4_XS's 6-bit sc from scales_l and
+    scales_h; MXFP4's d from the e8m0 byte's bits) are the transposes of
+    the JAX planes bit for bit: d f32 [N, K/32] (IQ4_XS: sc int8 [N, K/32],
+    d [N, K/256]). K = 1056 (33 blocks) is for the 32-granule formats
+    only."""
     jqt, _, blocks = _pair(3 * n + k, qtype, n, k)
     pqt = qformats.repack(torch.from_numpy(blocks.copy()), qtype, (n, k))
     qformats.check_qtensor(pqt, qtype)
     want = {"q", "d"} | ({"sc"} if qtype == IQ4_XS else set())
     assert set(pqt.planes()) == set(jqt.planes()) == want
+    assert pqt.q.dtype == torch.uint8 and tuple(pqt.q.shape) == (n, k // 2)
+    np.testing.assert_array_equal(pqt.q.numpy(), _qs(blocks, qtype, n, k))
+    values = qformats.int8_values(pqt)
+    assert values.dtype == torch.int8
+    np.testing.assert_array_equal(values.numpy(), np.asarray(jqt.q).T)
     for nm, a in pqt.planes().items():
-        np.testing.assert_array_equal(a.numpy(), np.asarray(getattr(jqt, nm)).T)
+        if nm != "q":
+            np.testing.assert_array_equal(a.numpy(), np.asarray(getattr(jqt, nm)).T)
     assert qformats.tile_granule(qtype) == jax_granule(qtype)
     # the elements of block 0 in element order: the codebook of nibble j of
     # byte j % 16, low for j < 16
     off = 4 + 4 if qtype == IQ4_XS else (2 if qtype == IQ4_NL else 1)
     nib = np.concatenate([blocks[0, off:off + 16] & 0xF, blocks[0, off:off + 16] >> 4])
     table = qformats.MXFP4_KVALUES if qtype == MXFP4 else qformats.IQ4NL_KVALUES
-    np.testing.assert_array_equal(pqt.q[0, :32].numpy(), np.array(table)[nib])
+    np.testing.assert_array_equal(values[0, :32].numpy(), np.array(table)[nib])
 
 
 @pytest.mark.parametrize("qtype", CODEBOOK, ids=ids)
 def test_codebook_load_policy_matches_jax(qtype):
-    """A 2-D tensor stays quantized, the JAX planes transposed, at K = 1280
-    and, for IQ4_NL and MXFP4, at K = 1056 (their granule is 32), where
+    """A 2-D tensor stays quantized, the JAX planes transposed (q as
+    nibble indexes whose codebook values are the JAX int8 plane's), at
+    K = 1280 and, for IQ4_NL and MXFP4, at K = 1056 (their granule is 32), where
     `kernel_for` sends it to kernel D at every M, as the JAX dispatcher's
     gp_supported refuses it; keep_quantized=False and a 1-D tensor widen
     exactly as the JAX load_quantized widens them."""
@@ -165,6 +186,8 @@ def test_codebook_load_policy_matches_jax(qtype):
         want = jax_load(blocks, qtype, shape)
         assert isinstance(got, qformats.QTensor) and got.ggml_type == qtype
         for nm, a in got.planes().items():
+            if nm == "q":
+                a = qformats.int8_values(got)
             np.testing.assert_array_equal(a.numpy(), np.asarray(getattr(want, nm)).T)
         for m in (1, 8, 9):
             assert (dm.kernel_for(m, got) is dm.qgemm) == (
@@ -181,10 +204,16 @@ def test_codebook_load_policy_matches_jax(qtype):
 
 
 def test_check_qtensor_wants_the_codebook_planes():
-    """IQ4_XS needs its sc plane, at one byte per 32; IQ4_NL and MXFP4 refuse
-    one."""
+    """The q plane is u8 nibble indexes [N, K/2] (the JAX package's int8
+    value plane [N, K] is refused); IQ4_XS needs its sc plane, at one byte
+    per 32; IQ4_NL and MXFP4 refuse one."""
     _, xs, _ = _pair(1, IQ4_XS, n=4, k=512)
     qformats.check_qtensor(xs, IQ4_XS)
+    qp = xs.q
+    xs.q = qformats.int8_values(xs)
+    with pytest.raises(ValueError, match="plane q"):
+        qformats.check_qtensor(xs, IQ4_XS)
+    xs.q = qp
     scp = xs.sc
     xs.sc = None
     with pytest.raises(ValueError, match="plane sc"):
@@ -200,18 +229,55 @@ def test_check_qtensor_wants_the_codebook_planes():
 
 def test_from_jax_params_carries_the_codebook_planes():
     """`from_jax_params` carries a parameter tree of the three formats'
-    QTensors across, each plane transposed, nothing widened."""
+    QTensors across, nothing widened: the scales transposed, the int8
+    value plane turned back into the port's nibble plane through the
+    inverse codebook, which equals the port's own repack of the same
+    blocks (the file's quant bytes) and decodes to the JAX values bit for
+    bit. MXFP4's 0 sits at indexes 0 and 8 of its codebook: blocks holding
+    both come back with index 0 for each, the same values."""
     import jax
 
-    jqts = {t.name: _pair(5, t, n=8, k=512)[0] for t in CODEBOOK}
-    tree = from_jax_params(jax.tree_util.tree_map(np.asarray, {"w": jqts}), "cpu")
-    for name, jqt in jqts.items():
+    pairs = {t.name: _pair(5, t, n=8, k=512) for t in CODEBOOK}
+    zeros = _blocks(6, MXFP4, 8, 512, edges=False)
+    zeros[:, 1:] = np.where(np.arange(16) % 2 == 0, 0x80, 0x08).astype(np.uint8)
+    pairs["MXFP4 zeros"] = (jax_repack(zeros, MXFP4, (8, 512)), None, zeros)
+    tree = from_jax_params(jax.tree_util.tree_map(
+        np.asarray, {"w": {nm: p[0] for nm, p in pairs.items()}}), "cpu")
+    for name, (jqt, _, blocks) in pairs.items():
+        t = GGMLType[name.split()[0]]
         pqt = tree["w"][name]
-        assert pqt.ggml_type == GGMLType[name] and pqt.shape == (8, 512)
+        assert pqt.ggml_type == t and pqt.shape == (8, 512)
         assert set(pqt.planes()) == set(jqt.planes())
+        qformats.check_qtensor(pqt, t)
         for nm, a in pqt.planes().items():
-            assert a.dtype == (torch.float32 if nm == "d" else torch.int8)
-            np.testing.assert_array_equal(a.numpy(), np.asarray(getattr(jqt, nm)).T)
+            assert a.dtype == {"d": torch.float32, "q": torch.uint8}.get(nm, torch.int8)
+            want = np.asarray(getattr(jqt, nm)).T
+            got = qformats.int8_values(pqt) if nm == "q" else a
+            np.testing.assert_array_equal(got.numpy(), want)
+        own = qformats.repack(torch.from_numpy(blocks.copy()), t, (8, 512))
+        if name == "MXFP4 zeros":  # every index 8 of the file comes back as 0
+            assert (_qs(blocks, t, 8, 512) == 0x80).sum() == 8 * 128
+            assert (pqt.q == 0).all() and torch.equal(qformats.dequant(pqt),
+                                                      qformats.dequant(own))
+        else:
+            assert torch.equal(pqt.q, own.q)
+
+
+@pytest.mark.parametrize("qtype", CODEBOOK, ids=ids)
+def test_codebook_plane_inverts_the_codebook(qtype):
+    """`codebook_plane` is the inverse of `int8_values` on every index (the
+    first of MXFP4's two zeros) and refuses a value outside the codebook."""
+    table = torch.tensor(qformats.CODEBOOK_VALUES[qtype], dtype=torch.int8)
+    values = table[torch.arange(64 * 32) % 16].reshape(64, 32)
+    plane = qformats.codebook_plane(values, qtype)
+    assert plane.dtype == torch.uint8 and tuple(plane.shape) == (64, 16)
+    qt = qformats.QTensor(qtype, (64, 32), plane, None, None, None, None)
+    assert torch.equal(qformats.int8_values(qt), values)
+    idx = torch.cat([plane & 0xF, plane >> 4], dim=1).reshape(-1)
+    first = {int(v): table.tolist().index(int(v)) for v in table}
+    assert idx.tolist() == [first[int(v)] for v in values.reshape(-1)]
+    with pytest.raises(ValueError, match="outside the codebook"):
+        qformats.codebook_plane(torch.full((1, 32), 7, dtype=torch.int8), qtype)
 
 
 # ------------------------------------------------------------ the kernels' laws
@@ -236,7 +302,7 @@ def test_plain_codebook_gemv_matches_gp_pallas(qtype, m):
     want = np.asarray(qmatmul_gp_pallas(jnp.asarray(x), jqt, block_n=16,
                                         out_dtype=jnp.float32, interpret=True))
     wrapper = dm.kernel_for(m, pqt)
-    assert wrapper.__name__ == dm.INT8_GEMV[qtype]
+    assert wrapper.__name__ == dm.CODEBOOK_GEMV[qtype]
     got = wrapper(torch.from_numpy(x).to(torch.bfloat16), pqt, torch.float32).numpy()
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(got, want, rtol=0, atol=ORDER_ATOL)
@@ -266,7 +332,7 @@ def test_iq4_xs_weights_are_exact_in_f32():
     significant bits), q and sc fit 7 and 6, so q·d·sc needs at most 24
     bits. The one rounding is the cast to bf16, which both orders share."""
     _, pqt, _ = _pair(3, IQ4_XS, n=64, k=4096)
-    q = pqt.q.double()
+    q = qformats.int8_values(pqt).double()
     d = pqt.d.double().repeat_interleave(256, 1)
     sc = pqt.sc.double().repeat_interleave(32, 1)
     exact = q * d * sc
@@ -285,7 +351,7 @@ def test_chip_smoke_f64_law_is_the_codebook_kernels_law(qtype):
     from chip_smoke import law_f64, limit_ratio
 
     _, pqt, _ = _pair(9, qtype, n=40, k=2048, edges=False)
-    for name, m in ((dm.INT8_GEMV[qtype], 3), ("qgemm", 16)):
+    for name, m in ((dm.CODEBOOK_GEMV[qtype], 3), ("qgemm", 16)):
         x = torch.from_numpy(_x(m, m, 2048)).to(torch.bfloat16)
         plain = getattr(dm, name + "_plain")
         want = plain(x, pqt, torch.float32)
@@ -305,7 +371,7 @@ def test_check_kernel_rejects_a_wrong_codebook_scale(qtype):
 
     qt = testing_synth.synth_quant(qtype, 256, 4096, "cpu",
                                    torch.Generator().manual_seed(0))
-    name = dm.INT8_GEMV[qtype]
+    name = dm.CODEBOOK_GEMV[qtype]
     plain = getattr(dm, name + "_plain")
 
     def standin(x, w, out_dtype):
@@ -339,11 +405,11 @@ def test_matmul_routes_codebook_formats_on_a_mocked_card(qtype):
         for m in (1, 8, 9, 64):
             x = torch.from_numpy(_x(m, m, k))
             gp = m <= 8 and k % dm.GP_MIN_K[qtype] == 0
-            assert dm.kernel_for(m, pqt).__name__ == (dm.INT8_GEMV[qtype] if gp
+            assert dm.kernel_for(m, pqt).__name__ == (dm.CODEBOOK_GEMV[qtype] if gp
                                                       else "qgemm")
             got += _on_a_mocked_card(dm.matmul, x, pqt)[1]
     nulls = {"mn", "dm", "qh"} | ({"sc"} if qtype != IQ4_XS else set())
-    gemv, gemm = dm.INT8_GEMV[qtype], dm._QGEMM_ENTRY[qtype]
+    gemv, gemm = dm.CODEBOOK_GEMV[qtype], dm._QGEMM_ENTRY[qtype]
     n_gemv = 4 if qtype != IQ4_XS else 2
     assert sorted(e for e, _ in got) == sorted([gemv] * n_gemv + [gemm] * (8 - n_gemv))
     assert all(set(n) == nulls for _, n in got)
@@ -363,13 +429,13 @@ def test_codebook_wrappers_launch_or_raise(qtype):
     with mock.patch.object(dm, "_on_cuda", return_value=True), \
             mock.patch("omni_tpu_torch.kernels._build.load",
                        side_effect=RuntimeError("nvcc not found")), \
-            mock.patch.object(dm, "q8_0_gemv_plain") as gemv_plain, \
+            mock.patch.object(dm, "codebook_gemv_plain") as gemv_plain, \
             mock.patch.object(dm, "qgemm_plain") as gemm_plain:
         for m in (1, 16):
             with pytest.raises(RuntimeError, match="nvcc"):
                 dm.matmul(torch.from_numpy(_x(0, m, 2048)), pqt)
-        others = [getattr(dm, n) for t, n in dm.INT8_GEMV.items() if t != qtype]
-        for wrapper in (dm.q4k_gemv, dm.q6k_gemv, *others):
+        others = [getattr(dm, n) for t, n in dm.CODEBOOK_GEMV.items() if t != qtype]
+        for wrapper in (dm.q4k_gemv, dm.q6k_gemv, dm.q8_0_gemv, *others):
             with pytest.raises(ValueError, match=qtype.name):
                 wrapper(torch.zeros((1, 2048), dtype=torch.bfloat16), pqt)
     assert not gemv_plain.called and not gemm_plain.called
@@ -408,7 +474,8 @@ def test_synthetic_codebook_blocks(qtype):
     assert 0.02 < np.sqrt(np.mean(ref.astype(np.float64) ** 2)) < 0.035
     qt = qformats.repack(blocks, qtype, (64, 2048))
     table = qformats.MXFP4_KVALUES if qtype == MXFP4 else qformats.IQ4NL_KVALUES
-    assert set(qt.q.unique().tolist()) == set(table)
+    assert set(qformats.int8_values(qt).unique().tolist()) == set(table)
+    assert set(torch.cat([qt.q & 0xF, qt.q >> 4]).unique().tolist()) == set(range(16))
     if qtype == IQ4_XS:
         assert qt.sc.min() == -32 and qt.sc.max() == 31
     if qtype == MXFP4:
@@ -454,7 +521,7 @@ def test_codebook_file_routes_as_the_jax_dispatcher(recipe, codebook_files):
                 gp, sh = gp_supported(m, jl[key]), sh_supported(m, jl[key])
                 assert not sh
                 kern = dm.kernel_for(m, w)
-                assert kern.__name__ == (dm.INT8_GEMV[w.ggml_type] if gp else "qgemm")
+                assert kern.__name__ == (dm.CODEBOOK_GEMV[w.ggml_type] if gp else "qgemm")
                 n_gemv += gp
     assert n_gemv == (0 if recipe == "IQ4_XS" else 2 * 7 * 2)
 

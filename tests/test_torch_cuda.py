@@ -255,13 +255,13 @@ def test_cuda_codebook_kernel_matches_plain(card, fmt, m, k):
     K = 1280, at any M), through `matmul`, against their plain versions on
     a ragged N (1000 rows), both output dtypes, on testing_synth's blocks;
     one launch counted per call, under the kernel's name (D's also under its
-    format)."""
+    format); a repeat launch bit-identical."""
     qtype = GGMLType[fmt]
     gen = torch.Generator(device=card).manual_seed(m + k)
     qt = synth_quant(qtype, 1000, k, card, gen)
     x = torch.randn((m, k), device=card, generator=gen).to(torch.bfloat16)
     kernel = dm.kernel_for(m, qt).__name__
-    assert kernel == (dm.INT8_GEMV[qtype] if m <= 8 and k % dm.GP_MIN_K[qtype] == 0
+    assert kernel == (dm.CODEBOOK_GEMV[qtype] if m <= 8 and k % dm.GP_MIN_K[qtype] == 0
                       else "qgemm")
     plain = getattr(dm, kernel + "_plain")
     for out_dtype in (torch.bfloat16, torch.float32):
@@ -273,6 +273,8 @@ def test_cuda_codebook_kernel_matches_plain(card, fmt, m, k):
         if kernel == "qgemm":
             assert dm.qgemm_launches[fmt] == 1
         assert torch.isfinite(got).all() and limit_ratio(got, want) <= 1.0
+        # every sum is taken in a fixed order: a repeat launch gives the same bits
+        assert torch.equal(dm.matmul(x, qt, out_dtype).float(), got)
 
 
 @pytest.mark.cuda
@@ -330,6 +332,8 @@ def test_cuda_lowbit_kernel_matches_plain(card, fmt, m, k):
         if kernel == "qgemm":
             assert dm.qgemm_launches[fmt] == 1
         assert torch.isfinite(got).all() and limit_ratio(got, want) <= 1.0
+        # every sum is taken in a fixed order: a repeat launch gives the same bits
+        assert torch.equal(dm.matmul(x, qt, out_dtype).float(), got)
 
 
 SWITCHED_CASES = [(t, m) for t in ("Q4_0", "Q4_1", "Q5_0", "Q5_1") for m in (1, 8, 130)]
@@ -712,9 +716,10 @@ def test_cuda_gemm_in_a_cuda_graph(card, name, fmt, k):
     assert torch.equal(out, want)
 
 
-# kernel A's six entries (csrc/q4k_gemv.cu): every format at K = 256 (one
-# superblock), 4096 and 12288, on ragged N (1000 = 62 row tiles and 8 rows)
-GEMV_ENTRIES = [(t, k) for t in dm.HALVES_GEMV for k in (256, 4096, 12288)]
+# kernel A's six entries (csrc/q4k_gemv.cu) and E's three codebook entries
+# (csrc/codebook_gemv.cu): every format at K = 256 (one superblock), 4096
+# and 12288, on ragged N (1000 = 62 row tiles and 8 rows)
+GEMV_ENTRIES = [(t, k) for t in dm.MMA_GEMV for k in (256, 4096, 12288)]
 
 
 def _gemv_flips(got, want, exact):
@@ -725,24 +730,24 @@ def _gemv_flips(got, want, exact):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("fmt,k", GEMV_ENTRIES,
-                         ids=[f"{dm.HALVES_GEMV[t]}-k{k}" for t, k in GEMV_ENTRIES])
+                         ids=[f"{dm.MMA_GEMV[t]}-k{k}" for t, k in GEMV_ENTRIES])
 def test_cuda_gemv_matches_plain_at_every_m(card, fmt, k):
-    """Kernel A's entry at M = 1..8 against its plain version within
+    """Kernel A's or E's codebook entry at M = 1..8 against its plain version within
     chip_smoke.py's limit, both output dtypes; bf16 outputs rounded
     otherwise than the f64 law no more than flip_limit allows; one launch
     counted per call."""
     from chip_smoke import law_f64
 
-    name = dm.HALVES_GEMV[fmt]
+    name = dm.MMA_GEMV[fmt]
     gen = torch.Generator(device=card).manual_seed(k)
     qt = synth_quant(fmt, 1000, k, card, gen)
-    wrapper = getattr(dm, name)
+    wrapper, plain = getattr(dm, name), getattr(dm, name + "_plain")
     for m in range(1, 9):
         x = torch.randn((m, k), device=card, generator=gen).to(torch.bfloat16)
         for out_dtype in (torch.bfloat16, torch.float32):
             n0 = dm.launches[name]
             got = wrapper(x, qt, out_dtype).float()
-            want = dm.q4k_gemv_plain(x, qt, out_dtype).float()
+            want = plain(x, qt, out_dtype).float()
             torch.cuda.synchronize()
             assert dm.launches[name] == n0 + 1
             assert torch.isfinite(got).all() and limit_ratio(got, want) <= 1.0
@@ -752,11 +757,12 @@ def test_cuda_gemv_matches_plain_at_every_m(card, fmt, k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("fmt", list(dm.HALVES_GEMV), ids=lambda t: dm.HALVES_GEMV[t])
+@pytest.mark.parametrize("fmt", list(dm.MMA_GEMV), ids=lambda t: dm.MMA_GEMV[t])
 def test_cuda_gemv_misaligned_planes(card, fmt):
     """Planes other than q that start off a vector boundary (views one
-    element into their allocation; qh two bytes) run kernel A's byte-wise
-    loads and give the bits of the aligned planes."""
+    element into their allocation; qh two bytes) run the byte-wise loads of
+    kernel A or of E's codebook entries and give the bits of the aligned
+    planes."""
     gen = torch.Generator(device=card).manual_seed(5)
     qt = synth_quant(fmt, 1000, 4096, card, gen)
     planes = {}
@@ -768,7 +774,7 @@ def test_cuda_gemv_misaligned_planes(card, fmt):
                 p.shape).copy_(p)
         planes[nm] = p
     off = qformats.QTensor(qt.ggml_type, qt.shape, q=qt.q, **planes)
-    wrapper = getattr(dm, dm.HALVES_GEMV[fmt])
+    wrapper = getattr(dm, dm.MMA_GEMV[fmt])
     x = torch.randn((5, 4096), device=card, generator=gen).to(torch.bfloat16)
     got, want = wrapper(x, off, torch.float32), wrapper(x, qt, torch.float32)
     torch.cuda.synchronize()
@@ -791,15 +797,16 @@ def test_cuda_gemv_tail_rows(card, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("fmt", [GGMLType.Q4_K, GGMLType.Q5_1], ids=lambda t: t.name)
+@pytest.mark.parametrize("fmt", [GGMLType.Q4_K, GGMLType.Q5_1, GGMLType.IQ4_NL,
+                                 GGMLType.IQ4_XS, GGMLType.MXFP4], ids=lambda t: t.name)
 @pytest.mark.parametrize("n", [1024, 4096], ids=lambda n: f"n{n}")
 def test_cuda_gemv_in_a_cuda_graph(card, fmt, n):
-    """Kernel A captured in a CUDA graph (at N = 1024 64 blocks of 8 warps,
-    at 4096 256) and replayed on new x gives the bits of an eager launch on
-    that x; two eager launches give the same bits."""
+    """Kernel A or E's codebook entry captured in a CUDA graph (at N = 1024
+    64 blocks of 8 warps, at 4096 256) and replayed on new x gives the bits
+    of an eager launch on that x; two eager launches give the same bits."""
     gen = torch.Generator(device=card).manual_seed(n)
     qt = synth_quant(fmt, n, 4096, card, gen)
-    wrapper = getattr(dm, dm.HALVES_GEMV[fmt])
+    wrapper = getattr(dm, dm.MMA_GEMV[fmt])
     x = torch.randn((8, 4096), device=card, generator=gen).to(torch.bfloat16)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())

@@ -260,13 +260,16 @@ def test_prefill_launch_arguments_on_a_mocked_card(kv):
     k, v, ks, vs = cache.layer_planes(0, limit=2048)
     q = torch.randn((64, 32, 128))
     mask = torch.ones((64, 2048), dtype=torch.bool)
-    calls, sizes = [], []
+    calls, sizes, ws_sizes = [], [], []
     entry = {"bf16": "flash_decode_bf16", "q8_0": "flash_decode_i8",
              "q4_0": "flash_decode_i4"}[kv]
     empty = torch.empty
 
     def fn(*args):
         calls.append(args)
+        # the size of the workspace as the launch sees it (a later tensor
+        # may take the address once the call has freed it)
+        ws_sizes.append(dict(sizes)[args[7]])
         return 0
 
     def sized_empty(shape, *args, **kwargs):
@@ -286,7 +289,7 @@ def test_prefill_launch_arguments_on_a_mocked_card(kv):
     assert plan.regime == "prefill" and plan.nsplit > 1
     args = calls[0]
     assert args[17:20] == (1, plan.per_split, plan.nsplit)
-    ws_floats = dict(sizes)[args[7]]
+    ws_floats = ws_sizes[0]
     assert ws_floats == plan.workspace_floats(256, 8, 128) == 8 * plan.nsplit * 256 * 130
     cnt = fa._counters["cpu"]
     assert args[8] == calls[1][8] == cnt.data_ptr()

@@ -1,5 +1,6 @@
-"""Kernel A's launch plan (csrc/q4k_gemv.cu, `dequant_matmul.gemv_plan`):
-one block per 16-row tile and no split of K at every Qwen3-8B decode shape,
+"""The launch plan of kernel A (csrc/q4k_gemv.cu) and of kernel E's
+codebook entries (csrc/codebook_gemv.cu), `dequant_matmul.gemv_plan`: one
+block per 16-row tile and no split of K at every Qwen3-8B decode shape,
 the wrappers' arguments on a mocked card (no CUDA here), and the copies
 gemv_plan_probe builds. This file imports no JAX."""
 
@@ -19,7 +20,7 @@ from omni_tpu_torch.testing_synth import synth_quant
 SHAPES = {"wq": (4096, 4096), "wk": (1024, 4096), "wqkv": (6144, 4096),
           "gate": (12288, 4096), "gateup": (24576, 4096), "down": (4096, 12288),
           "head": (151748, 4096)}
-FORMATS = tuple(dm.HALVES_GEMV)
+FORMATS = tuple(dm.MMA_GEMV)
 PLAN = [(nm, m, t) for nm in SHAPES for m in (1, 8) for t in FORMATS]
 SMS = 132
 
@@ -44,6 +45,9 @@ def test_gemv_plan_one_block_per_tile_over_all_of_k(shape, m, qtype):
     (1, 1000, 1280, GGMLType.Q5_1, 63),       # 62 tiles and 8 rows
     (1, 4, 256, GGMLType.Q4_1, 1),            # one superblock, a tile of 4 rows
     (8, 151748, 4096, GGMLType.Q5_0, 9485),   # the head: 9,484 tiles and 4 rows
+    (1, 1024, 4096, GGMLType.IQ4_NL, 64),     # E's codebook entries: the same tiles
+    (8, 4096, 12288, GGMLType.IQ4_XS, 256),
+    (3, 12288, 4096, GGMLType.MXFP4, 768),
 ])
 def test_gemv_plan_examples(m, n, k, qtype, blocks):
     p = dm.gemv_plan(m, n, k, qtype)
@@ -57,15 +61,17 @@ def test_gemv_plan_refuses_m_outside_1_to_8(m):
 
 
 @pytest.mark.parametrize("k,qtype", [(1248, GGMLType.Q4_0), (128, GGMLType.Q4_K),
-                                     (4096, GGMLType.Q6_K), (4096, GGMLType.Q8_0)])
+                                     (4096, GGMLType.Q6_K), (4096, GGMLType.Q8_0),
+                                     (1056, GGMLType.IQ4_NL), (1056, GGMLType.MXFP4)])
 def test_gemv_plan_refuses_other_k_and_formats(k, qtype):
     with pytest.raises(ValueError):
         dm.gemv_plan(1, 4096, k, qtype)
 
 
-def test_gemv_plan_states_the_kernels_constants():
+@pytest.mark.parametrize("source", ["q4k_gemv.cu", "codebook_gemv.cu"])
+def test_gemv_plan_states_the_kernels_constants(source):
     """The C side tiles N by the same rows, and counts the same SMs."""
-    src = (_build.CSRC / "q4k_gemv.cu").read_text()
+    src = (_build.CSRC / source).read_text()
     consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
     assert int(consts["kRows"]) == dm.GEMV_ROWS
     assert int(consts["kSms"]) == dm.GEMM_SMS
@@ -105,7 +111,7 @@ def test_gemv_wrapper_makes_no_workspace(qtype, m, n, k):
     (the planes the format has, m, n, k, out_f32), makes its output and
     nothing else, and counts one launch."""
     qt = synth_quant(qtype, n, k, "cpu", torch.Generator().manual_seed(m))
-    name = dm.HALVES_GEMV[qtype]
+    name = dm.MMA_GEMV[qtype]
     dm.reset_launches()
     called, made, out = _on_a_mocked_card(getattr(dm, name),
                                           torch.zeros((m, k), dtype=torch.bfloat16), qt)
@@ -118,20 +124,28 @@ def test_gemv_wrapper_makes_no_workspace(qtype, m, n, k):
     assert dm.gemv_plan(m, n, k, qtype).workspace_bytes == 0
 
 
-@pytest.mark.parametrize("many,via_l1", [(8, False), (4, True), (8, True)])
-def test_probe_variants_change_only_their_setting(many, via_l1):
-    """gemv_plan_probe's copies of q4k_gemv.cu: kManyWarps set, and the
-    weight load through L1 (one __ldg) in place of the no_allocate load
-    where asked; nothing else of the source changes."""
+PROBE_VARIANTS = [(src, v) for src in ("q4k_gemv.cu", "codebook_gemv.cu")
+                  for v in ("warps8", "via-l1", "warps8-via-l1", "no-alloc", "blocks3")
+                  if v in __import__("omni_tpu_torch.gemv_plan_probe",
+                                     fromlist=["SOURCES"]).SOURCES[src][1]]
+
+
+@pytest.mark.parametrize("source,variant", PROBE_VARIANTS,
+                         ids=[f"{s}-{v}" for s, v in PROBE_VARIANTS])
+def test_probe_variants_change_only_their_setting(source, variant):
+    """gemv_plan_probe's copies of each source: each of a variant's edits
+    (kManyWarps, the weight load through L1 or past it, the blocks an SM)
+    matches once and is made, and undoing them gives the source back:
+    nothing else changes."""
     from omni_tpu_torch import gemv_plan_probe
 
-    src = (_build.CSRC / "q4k_gemv.cu").read_text()
-    got = gemv_plan_probe.variant_source(many, via_l1)
-    assert f"constexpr int kManyWarps = {many};" in got
-    assert ("L1::no_allocate" in got) != via_l1
-    assert got.count(gemv_plan_probe.L1_LOAD) == int(via_l1)
-    undo = got.replace(f"kManyWarps = {many};", "kManyWarps = 4;")
-    if via_l1:
-        undo = undo.replace(gemv_plan_probe.L1_LOAD, gemv_plan_probe.NO_ALLOC_LOAD.search(
-            src).group(0))
-    assert undo == src
+    src = (_build.CSRC / source).read_text()
+    got = gemv_plan_probe.variant_source(source, variant)
+    assert got != src
+    for old, new in gemv_plan_probe.edits(source, variant):
+        assert got.count(new) == 1 and old != new
+        got = got.replace(new, old)
+    assert got == src
+    many = 8 if "warps8" in variant else 4
+    assert f"constexpr int kManyWarps = {many};" in gemv_plan_probe.variant_source(
+        source, variant)

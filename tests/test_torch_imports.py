@@ -129,7 +129,7 @@ def test_kernel_build_runs_nvcc_per_source_in_parallel(tmp_path):
             want_dir = _build.build_dir()
     finally:
         _build.load.cache_clear()
-    assert len(started) == len(_build.SOURCES) == 8
+    assert len(started) == len(_build.SOURCES) == 9
     assert waited[0] == len(started)  # all started before the first wait
     for cmd in started:
         assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
@@ -164,8 +164,8 @@ def test_kernel_build_runs_nvcc_per_source_in_parallel(tmp_path):
             assert fn.argtypes[7:12] == [ctypes.c_void_p] + [ctypes.c_int] * 4
         assert fn.argtypes[-1] == ctypes.c_void_p and fn.restype == ctypes.c_int
     assert sorted(p.name for p in want_dir.iterdir()) == [
-        "flash_decode.so", "lowbit_gemv.so", "q4k_gemm.so", "q4k_gemv.so", "q6k_gemv.so",
-        "q8_0_gemv.so", "qffn.so", "qgemm.so"]
+        "codebook_gemv.so", "flash_decode.so", "lowbit_gemv.so", "q4k_gemm.so",
+        "q4k_gemv.so", "q6k_gemv.so", "q8_0_gemv.so", "qffn.so", "qgemm.so"]
 
 
 def test_build_dir_hashes_the_shared_headers(tmp_path):
