@@ -12,18 +12,23 @@ version does (`flip_limit`). Kernels B and D (one mainloop,
 `csrc/qmma.cuh`) are held so at their own split plan and, every entry of
 both, with the split count forced to 1 and 4 at wk and down, where a
 repeat launch must give the same bits; their timing lines print each
-call's split count and work units. Kernel A's six entries (`q4k_gemv.cu`)
-and kernel E's three codebook entries (`codebook_gemv.cu`) are held at
-every decode M (1..8) on each weight, a repeat launch and a CUDA-graph
-replay bit-identical; their timing lines print the plan (`gemv_plan`: one
-block per 16-row tile, K not split). It holds the dense dot of a bf16 weight
+call's split count and work units. The mma.sync GEMVs, kernel A's six
+entries (`q4k_gemv.cu`), kernel E's three codebook entries
+(`codebook_gemv.cu`), kernel C (`q6k_gemv.cu`) and kernel H's two
+(`lowbit_gemv.cu`), are held at every decode M (1..8) on each weight, a
+repeat launch and a CUDA-graph replay bit-identical; they are timed at
+M = 1 and 8, their timing lines print the plan (`gemv_plan`: one block
+per 16-row tile, K not split), and their `kernels` entries carry the M = 8
+sums (`m8`). It holds the dense dot of a bf16 weight
 (cuBLAS, K split into chunks) against the widened-f32 product the same
 way, and the flash-decode kernels (bf16, int8 and int4 KV cells) against
 their plain versions and the attention law in f64, in both of kernel F's
 regimes (T = 1 and 2 decode, 3, 8 and 64 prefill at G = 4), a repeat
 launch bit-identical. Then it drives these
 paths at full width and depth (all 36 layers, random weights made on the
-card from seed S, 0 by default), one model resident at a time, each through
+card from seed S, 0 by default; one cut: the codebook files of path 6 at
+18 layers, CODEBOOK_LAYERS, an earlier slice's paths, so that the run
+stays well inside its time limit), one model resident at a time, each through
 `OmniPipeline.stream_prefill` / `stream_decode`:
 1. an all-Q4_K Qwen3-8B synthesised in the port's planes, fused QKV and
    gate+up (kernels A and B);
@@ -48,8 +53,8 @@ card from seed S, 0 by default), one model resident at a time, each through
    kernel D's Q4_0, Q4_1 and Q6_K branches;
 5. a Q8_0 Qwen3-8B GGUF (about 8.7 GB in $TMPDIR, every weight Q8_0),
    loaded the same way: decode through kernel E, prefill through D;
-6. an IQ4_NL, an IQ4_XS and an MXFP4 Qwen3-8B GGUF (about 4.8, 4.5 and
-   4.5 GB, each deleted before the next path; every weight in the
+6. an IQ4_NL, an IQ4_XS and an MXFP4 Qwen3-8B GGUF at 18 layers (each
+   deleted before the next path; every weight in the
    recipe's type, the embedding too, the head Q6_K, as the JAX quantizer
    writes them), loaded the same way (q planes of nibble indexes, the
    file's bytes; their plane bytes printed): decode through kernel E's
@@ -190,10 +195,11 @@ QFFN_MS = (1, 8, 9, 64)
 # themselves are held too, through an identity down weight (out = h).
 QFFN_ROWS = 512
 GEMV_MS = (1, 2, 3, 8)
-# the mma.sync GEMVs, kernel A's six entries (q4k_gemv.cu) and E's three
-# codebook entries (codebook_gemv.cu), at every decode M, held against
-# their plain versions on one x of 8 rows (check_gemv_rows); timed at the
-# ends of that range
+# the mma.sync GEMVs (dequant_matmul.MMA_GEMV: kernel A's six entries,
+# q4k_gemv.cu; E's three codebook entries, codebook_gemv.cu; kernel C,
+# q6k_gemv.cu; kernel H's two entries, lowbit_gemv.cu), at every decode M,
+# held against their plain versions on one x of 8 rows (check_gemv_rows);
+# timed at the ends of that range
 MMA_GEMV_MS, MMA_GEMV_TIMES = tuple(range(1, 9)), (1, 8)
 GEMM_MS = (64, 256)
 QGEMM_MS = (1, 64, 256)
@@ -295,7 +301,13 @@ KV_BUCKET = 512
 # 64-token ubatch, which reads the whole N_CTX pool
 FLASH_TIMES = ((1, KV_BUCKET), (1, 2048), (1, 8192), (1, 32768),
                (N_PREFILL, KV_BUCKET), (N_PREFILL, N_CTX))
-N_LAYERS = 36  # full depth: nothing is cut
+N_LAYERS = 36  # full depth, on every path but the codebook files
+# the IQ4_NL, IQ4_XS and MXFP4 files' depth: an earlier slice's paths (kernel
+# E's codebook entries, D's codebook branches), cut so that the whole run
+# stays well inside its time limit (they took 38-103 s of a 997-s run at 36
+# layers, NVIDIA H100 80GB HBM3, 700.00 W); their kernels are still held and
+# timed at the full model's shapes
+CODEBOOK_LAYERS = 18
 # Q4_K_M Qwen3-8B (llama.cpp's rules): the output head and attn_v, ffn_down
 # of 18 of the 36 layers are Q6_K, the other weights Q4_K
 N_Q6K, N_Q4K = 37, 216
@@ -306,9 +318,9 @@ N_Q5K = 216
 N_LEGACY, N_LEGACY_MIN = 248, 4
 # unfused Qwen3-8B: 36 x (wq, wk, wv, wo, gate, up, down) + output
 N_UNFUSED = 7 * N_LAYERS + 1
-# the codebook and low-bit files: the 252 layer weights in the recipe's
-# type, 1 Q6_K head
-N_CODEBOOK = N_LOWBIT = 7 * N_LAYERS
+# the codebook and low-bit files: the layer weights in the recipe's type
+# (252 at 36 layers; 126 at the codebook files' 18), 1 Q6_K head
+N_CODEBOOK, N_LOWBIT = 7 * CODEBOOK_LAYERS, 7 * N_LAYERS
 # the F16 path's decode step may allocate this much above its start: the
 # step's activations, logits, attention scores and the split dots' f32
 # partials (16 x 151748 x 4 B = 9.7 MB at the head) are ~12 MB; a widened
@@ -752,7 +764,7 @@ def hold(name, w, shape_name, m, out_dtype, got, want, exact, max_err, note="") 
 
 
 def check_gemv_rows(name, w, shape_name, out_dtype, gen, max_err) -> None:
-    """Kernel A's or E's codebook entry `name` against its plain version at
+    """The mma.sync GEMV entry `name` against its plain version at
     every M in MMA_GEMV_MS: the first m rows of one random x [8, K], whose plain and
     f64-law outputs are computed once (an output row depends on its x row
     alone), held as check_kernel holds them. At M = 8 a repeat launch and a
@@ -791,8 +803,9 @@ def check_gemv_rows(name, w, shape_name, out_dtype, gen, max_err) -> None:
 
 
 def check_cases(name, qt, shape_name, ms, out_dtype, gen, max_err) -> None:
-    """check_kernel at each M of `ms`; kernel A's and E's codebook entries
-    through check_gemv_rows at MMA_GEMV_MS instead."""
+    """check_kernel at each M of `ms`; the mma.sync GEMVs (kernel A's and
+    E's codebook entries, kernels C and H) through check_gemv_rows at
+    MMA_GEMV_MS instead."""
     from omni_tpu_torch.kernels import dequant_matmul as dm
 
     if name in dm.MMA_GEMV.values():
@@ -1537,9 +1550,10 @@ def main() -> int:
             for name, ms in (cases if nm != "odd_k" else (("qgemm", (1, N_PREFILL)),)):
                 check_cases(name, qt, nm, ms, torch.bfloat16, gen, max_err)
         codebook_weights[fmt].pop("odd_k", None)
-    # kernel H and kernel D's Q2_K and Q3_K branches at every layer shape of
-    # the low-bit files (kept for the times), D also at M = 256 for down and
-    # at a K of whole superblocks but no multiple of 2048 (gp refuses it)
+    # kernel H (at M = 1..8, repeat launch and graph replay) and kernel D's
+    # Q2_K and Q3_K branches at every layer shape of the low-bit files (kept
+    # for the times), D also at M = 256 for down and at a K of whole
+    # superblocks but no multiple of 2048 (gp refuses it)
     lowbit_weights = {}
     for recipe in LOWBIT_RECIPES:
         fmt = GGMLType[recipe]
@@ -1550,9 +1564,7 @@ def main() -> int:
             cases = ((dm.LOWBIT_GEMV[fmt], GEMV_MS),
                      ("qgemm", (N_PREFILL, 256) if nm == "down" else (N_PREFILL,)))
             for name, ms in (cases if nm != "odd_k" else (("qgemm", (1, N_PREFILL)),)):
-                for m in ms:
-                    check_kernel(name, getattr(dm, name), getattr(dm, name + "_plain"),
-                                 qt, nm, m, torch.bfloat16, gen, max_err)
+                check_cases(name, qt, nm, ms, torch.bfloat16, gen, max_err)
         lowbit_weights[fmt].pop("odd_k")
     # the dense dot (cuBLAS, K split) at the F16 path's shapes, against the
     # widened-f32 product
@@ -1851,15 +1863,16 @@ def main() -> int:
 
     # ---- path 6: IQ4_NL, IQ4_XS and MXFP4 Qwen3-8B from GGUF files (kernel
     # E's codebook entries, D's codebook branches, C, D) ---------------------
+    cb_cfg = dataclasses.replace(cfg, n_layers=CODEBOOK_LAYERS)
     for recipe in CODEBOOK_RECIPES:
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-            params, qts, io = write_and_load(cfg, recipe, dev, qwen3, tmp, args.seed)
+            params, qts, io = write_and_load(cb_cfg, recipe, dev, qwen3, tmp, args.seed)
         fmt = GGMLType[recipe]
         counts = [sum(w.ggml_type == t for w in qts) for t in (fmt, GGMLType.Q6_K)]
-        if counts != [N_CODEBOOK, 1] or len(qts) != N_UNFUSED:
+        if counts != [N_CODEBOOK, 1] or len(qts) != N_CODEBOOK + 1:
             raise SystemExit(f"{counts} {recipe} and Q6_K weights of {len(qts)}, "
-                             f"want {[N_CODEBOOK, 1]} of {N_UNFUSED}")
+                             f"want {[N_CODEBOOK, 1]} of {N_CODEBOOK + 1}")
         phase(f"gguf-{recipe.lower()}", t0,
               f"{json.dumps(io)}; {N_CODEBOOK} {recipe} + 1 Q6_K weights, "
               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
@@ -1877,11 +1890,11 @@ def main() -> int:
         t0 = time.perf_counter()
         rng = torch.Generator().manual_seed(0)
         launches, stats = serve_turn(
-            f"{recipe} from GGUF", cfg, params, dev, qwen3,
+            f"{recipe} from GGUF", cb_cfg, params, dev, qwen3,
             {**zero, dm.CODEBOOK_GEMV[fmt]: N_CODEBOOK, "q6k_gemv": 1},
             {**zero, "qgemm": N_CODEBOOK + 1, f"qgemm {recipe}": N_CODEBOOK,
              "qgemm Q6_K": 1}, rng)
-        tf = teacher_forced(cfg, params, dev, dm, qwen3,
+        tf = teacher_forced(cb_cfg, params, dev, dm, qwen3,
                             tf_prompts(rng, CODEBOOK_AGAINST[recipe]),
                             CODEBOOK_AGAINST[recipe])
         del params, qts
@@ -1956,8 +1969,8 @@ def main() -> int:
     del gemv_weights
     time_kernels("q4k_gemm", dm.q4k_gemm, dm.q4k_gemm_plain, weights, GEMM_MS,
                  gen, synth_q4k, rows)
-    time_kernels("q6k_gemv", dm.q6k_gemv, dm.q6k_gemv_plain, q6_weights, GEMV_MS,
-                 gen, synth_q6k, rows)
+    time_kernels("q6k_gemv", dm.q6k_gemv, dm.q6k_gemv_plain, q6_weights,
+                 MMA_GEMV_TIMES, gen, synth_q6k, rows)
     time_kernels("qgemm", dm.qgemm, dm.qgemm_plain, q6_weights, QGEMM_MS,
                  gen, synth_q6k, rows)
     time_kernels("q5k_gemv", dm.q5k_gemv, dm.q5k_gemv_plain, q5_weights,
@@ -1982,7 +1995,7 @@ def main() -> int:
         synth = functools.partial(synth_quant, fmt)
         name = dm.LOWBIT_GEMV[fmt]
         time_kernels(name, getattr(dm, name), getattr(dm, name + "_plain"), ws,
-                     GEMV_MS, gen, synth, rows)
+                     MMA_GEMV_TIMES, gen, synth, rows)
         time_kernels("qgemm", dm.qgemm, dm.qgemm_plain, ws, (N_PREFILL,), gen,
                      synth, rows)
     for fmt, ws in codebook_weights.items():
@@ -2011,7 +2024,7 @@ def main() -> int:
                  "gateup": cfg.n_layers, "down": cfg.n_layers, "output": 1}
     q6k_calls = {"wv": N_Q6K // 2, "down": N_Q6K // 2, "output": 1}
     q4k_work = "36 layers x (wqkv, wo, gateup, down) + output"
-    q6k_work = ("M=1 (C) or M=64 (D): 18 x (wv, down) + output of Q4_K_M "
+    q6k_work = ("M={m} (C) or M=64 (D): 18 x (wv, down) + output of Q4_K_M "
                 "Qwen3-8B")
     q8_work = ("M=1 (E) or M=64 (D): 36 x (wq, wk, wv, wo, gate, up, down) + "
                "output of Q8_0 Qwen3-8B")
@@ -2025,7 +2038,7 @@ def main() -> int:
         f: (f"the {N_LEGACY_MIN} {f} weights of {r} Qwen3-8B (importance-matrix "
             "layout): the down of layers 0-3") for r, f in LEGACY_RECIPES.items()})
     codebook_work = {
-        f: (f"M={{m}}, the {N_CODEBOOK} {f} weights of {f} Qwen3-8B: 36 x (wq, wk, "
+        f: (f"M={{m}}, the {7 * N_LAYERS} {f} weights of {f} Qwen3-8B: 36 x (wq, wk, "
             "wv, wo, gate, up, down)") for f in CODEBOOK_RECIPES}
     codebook_rows = [(dm.CODEBOOK_GEMV[GGMLType[f]], f, 1, CODEBOOK_CALLS,
                       codebook_work[f].format(m=1)) for f in CODEBOOK_RECIPES]
@@ -2058,8 +2071,8 @@ def main() -> int:
             ("q4k_gemm", "Q4_K", 64, q4k_calls, f"M=64, {q4k_work}"),
             ("q5k_gemv", "Q5_K", 1, Q5_CALLS, f"M=1, {q5_work}"),
             ("q5k_gemm", "Q5_K", 64, Q5_CALLS, f"M=64, {q5_work}"),
-            ("q6k_gemv", "Q6_K", 1, q6k_calls, q6k_work),
-            ("qgemm", "Q6_K", 64, q6k_calls, q6k_work),
+            ("q6k_gemv", "Q6_K", 1, q6k_calls, q6k_work.format(m=1)),
+            ("qgemm", "Q6_K", 64, q6k_calls, q6k_work.format(m=1)),
             ("q8_0_gemv", "Q8_0", 1, UNFUSED_CALLS, q8_work), *legacy_rows,
             *codebook_rows, *lowbit_rows):
         tot = summed(name, fmt, m, calls)
@@ -2069,9 +2082,15 @@ def main() -> int:
                  "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
                  "bound_by": tot["bound_by"], "library_ms": tot["library_ms"],
                  "planes_bound_ms": tot["planes_bound_ms"], "work": work}
-        if name in dm.CODEBOOK_GEMV.values():  # the same calls at M = 8
+        # the mma.sync GEMVs outside kernel A: the same calls at M = 8
+        if name in dm.CODEBOOK_GEMV.values():
             entry["m8"] = {**summed(name, fmt, 8, calls),
                            "work": codebook_work[fmt].format(m=8)}
+        elif name in dm.LOWBIT_GEMV.values():
+            entry["m8"] = {**summed(name, fmt, 8, calls),
+                           "work": lowbit_work[fmt].format(m=8)}
+        elif name == "q6k_gemv":
+            entry["m8"] = {**summed(name, fmt, 8, calls), "work": q6k_work.format(m=8)}
         if name == "qgemm":
             entry["launches_by_format"] = {
                 f: launches[f"qgemm {f}"] for f in dm.qgemm_launches}

@@ -37,8 +37,9 @@ Kernels B and D run one pipelined mainloop (csrc/qmma.cuh). Where an
 splits K across blocks (`gemm_splits`) and hands the kernel an f32
 workspace for the partials (`gemm_workspace_bytes`), made per call; the
 kernel sums them in split order, so the result is the same bit for bit
-from run to run. Kernel A and E's codebook entries never split K
-(`gemv_plan`): one block per 16-row tile, one launch, and no workspace.
+from run to run. The mma.sync GEMVs, kernels A, C, H and E's codebook
+entries, never split K (`gemv_plan`): one block per 16-row tile, one
+launch, and no workspace.
 Every format the JAX package keeps quantized has a kernel on every route;
 a QTensor of another format raises NotImplementedError on the card. Each
 kernel has a plain PyTorch version of the same law beside it: the wrapper
@@ -92,13 +93,13 @@ HALVES_GEMM = {GGMLType.Q4_K: "q4k_gemm", GGMLType.Q5_K: "q5k_gemm",
 # the name of the wrapper and C entry point of each of kernel E's codebook
 # entries (M = 1..8)
 CODEBOOK_GEMV = {t: f"{t.name.lower()}_gemv" for t in CODEBOOK}
-# the mma.sync GEMVs, kernel A's entries and E's codebook entries: one
-# launch plan (`gemv_plan`)
-MMA_GEMV = {**HALVES_GEMV, **CODEBOOK_GEMV}
-
 # the name of kernel H's wrapper and C entry point for each 2- or 3-bit
 # K-quant (M = 1..8)
 LOWBIT_GEMV = {GGMLType.Q2_K: "q2k_gemv", GGMLType.Q3_K: "q3k_gemv"}
+# the mma.sync GEMVs, kernel A's entries, E's codebook entries, kernel C
+# and kernel H's entries: one launch plan (`gemv_plan`)
+MMA_GEMV = {**HALVES_GEMV, **CODEBOOK_GEMV, GGMLType.Q6_K: "q6k_gemv",
+            **LOWBIT_GEMV}
 
 # kernel launches, one count per wrapper; a run resets and reads them
 launches = dict.fromkeys([*HALVES_GEMV.values(), *HALVES_GEMM.values(),
@@ -154,16 +155,16 @@ def gemm_splits(m: int, n: int, k: int, qtype: GGMLType) -> int:
     return best
 
 
-# the launch of kernel A (csrc/q4k_gemv.cu) and of E's codebook entries
-# (csrc/codebook_gemv.cu): a block owns GEMV_ROWS weight rows (the M of
-# mma.m16n8k16) over all of K, whose superblocks its warps share out; the
+# the launch of the mma.sync GEMVs (MMA_GEMV: kernel A, csrc/q4k_gemv.cu;
+# E's codebook entries, csrc/codebook_gemv.cu; kernel C, csrc/q6k_gemv.cu;
+# kernel H, csrc/lowbit_gemv.cu): a block owns GEMV_ROWS weight rows (the M
+# of mma.m16n8k16) over all of K, whose steps its warps share out; the
 # kernel picks its warps itself
 GEMV_ROWS = 16
 
 
 class GemvPlan(NamedTuple):
-    """Kernel A's or E's codebook entries' launch for an [m, k] x [n, k]
-    call."""
+    """An mma.sync GEMV's launch for an [m, k] x [n, k] call."""
     rows: int  # weight rows a block owns
     splits: int  # blocks along K of each row tile
     workspace_bytes: int  # device memory the wrapper makes for the call
@@ -174,17 +175,18 @@ class GemvPlan(NamedTuple):
 
 
 def gemv_plan(m: int, n: int, k: int, qtype: GGMLType) -> GemvPlan:
-    """The plan of kernel A (a halves-packed `qtype`) or of E's codebook
-    entries (IQ4_NL, IQ4_XS, MXFP4) for an [m, k] x [n, k] call: one block
-    per GEMV_ROWS-row tile, K not split at any shape, so a call is one
-    launch with no workspace (0 bytes). At N = 1024 (wk, wv: 64 tiles for
-    GEMM_SMS SMs) a split in two was no faster for Q4_K and Q4_0 on the
-    H100 and 7 % faster for Q5_K (PERF.md section 6)."""
+    """The plan of the mma.sync GEMV of `qtype` (MMA_GEMV: kernel A for a
+    halves-packed format, E's codebook entries for IQ4_NL, IQ4_XS and
+    MXFP4, kernel C for Q6_K, kernel H for Q2_K and Q3_K) for an [m, k] x
+    [n, k] call: one block per GEMV_ROWS-row tile, K not split at any
+    shape, so a call is one launch with no workspace (0 bytes). At N = 1024
+    (wk, wv: 64 tiles for GEMM_SMS SMs) a split in two was no faster for
+    Q4_K and Q4_0 on the H100 and 7 % faster for Q5_K (PERF.md section
+    6)."""
     if not 1 <= m <= GP_MAX_M:
-        raise ValueError(f"kernel A takes M = 1..{GP_MAX_M}, got {m}")
+        raise ValueError(f"the mma.sync GEMVs take M = 1..{GP_MAX_M}, got {m}")
     if qtype not in MMA_GEMV:
-        raise ValueError(f"neither kernel A nor E's codebook entries take "
-                         f"{GGMLType(qtype).name}")
+        raise ValueError(f"no mma.sync GEMV takes {GGMLType(qtype).name}")
     if k < 256 or k % 256:
         raise ValueError(f"K={k} is not a positive multiple of 256")
     return GemvPlan(GEMV_ROWS, 1, 0)

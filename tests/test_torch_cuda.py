@@ -716,10 +716,13 @@ def test_cuda_gemm_in_a_cuda_graph(card, name, fmt, k):
     assert torch.equal(out, want)
 
 
-# kernel A's six entries (csrc/q4k_gemv.cu) and E's three codebook entries
-# (csrc/codebook_gemv.cu): every format at K = 256 (one superblock), 4096
-# and 12288, on ragged N (1000 = 62 row tiles and 8 rows)
-GEMV_ENTRIES = [(t, k) for t in dm.MMA_GEMV for k in (256, 4096, 12288)]
+# the mma.sync GEMVs, kernel A's six entries (csrc/q4k_gemv.cu), E's three
+# codebook entries (csrc/codebook_gemv.cu), kernel C (csrc/q6k_gemv.cu) and
+# kernel H's two (csrc/lowbit_gemv.cu): every format at K = 256 (one
+# superblock), 4096 and 12288, C and H also at 2048 (their shortest gp K),
+# on ragged N (1000 = 62 row tiles and 8 rows)
+GEMV_ENTRIES = ([(t, k) for t in dm.MMA_GEMV for k in (256, 4096, 12288)]
+                + [(t, 2048) for t in (GGMLType.Q6_K, *dm.LOWBIT_GEMV)])
 
 
 def _gemv_flips(got, want, exact):
@@ -732,7 +735,7 @@ def _gemv_flips(got, want, exact):
 @pytest.mark.parametrize("fmt,k", GEMV_ENTRIES,
                          ids=[f"{dm.MMA_GEMV[t]}-k{k}" for t, k in GEMV_ENTRIES])
 def test_cuda_gemv_matches_plain_at_every_m(card, fmt, k):
-    """Kernel A's or E's codebook entry at M = 1..8 against its plain version within
+    """An mma.sync GEMV entry at M = 1..8 against its plain version within
     chip_smoke.py's limit, both output dtypes; bf16 outputs rounded
     otherwise than the f64 law no more than flip_limit allows; one launch
     counted per call."""
@@ -761,8 +764,7 @@ def test_cuda_gemv_matches_plain_at_every_m(card, fmt, k):
 def test_cuda_gemv_misaligned_planes(card, fmt):
     """Planes other than q that start off a vector boundary (views one
     element into their allocation; qh two bytes) run the byte-wise loads of
-    kernel A or of E's codebook entries and give the bits of the aligned
-    planes."""
+    the mma.sync GEMV and give the bits of the aligned planes."""
     gen = torch.Generator(device=card).manual_seed(5)
     qt = synth_quant(fmt, 1000, 4096, card, gen)
     planes = {}
@@ -781,28 +783,38 @@ def test_cuda_gemv_misaligned_planes(card, fmt):
     assert torch.equal(got, want)
 
 
+TAILS = ([(GGMLType.Q4_K, n) for n in (4, 1004, 151748 // 4)]
+         + [(t, n) for t in (GGMLType.Q6_K, *dm.LOWBIT_GEMV) for n in (4, 1000)]
+         + [(GGMLType.Q6_K, 151748)])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [4, 1004, 151748 // 4])
-def test_cuda_gemv_tail_rows(card, n):
-    """N % 16 != 0 (a tile of 4 rows, 12 tail rows, the head's 4 tail rows
-    at a quarter of its N): every row written, nothing past N."""
+@pytest.mark.parametrize("fmt,n", TAILS, ids=[f"{t.name}-n{n}" for t, n in TAILS])
+def test_cuda_gemv_tail_rows(card, fmt, n):
+    """N % 16 != 0 (a tile of 4 rows; 12 or 8 tail rows; the head's 4 tail
+    rows, at a quarter of its N for kernel A, whole for kernel C): every row
+    written, nothing past N, within chip_smoke.py's limit of the plain
+    version at M = 3 and 8."""
+    name = dm.MMA_GEMV[fmt]
     gen = torch.Generator(device=card).manual_seed(n)
-    qt = synth_q4k(n, 4096, card, gen)
-    x = torch.randn((3, 4096), device=card, generator=gen).to(torch.bfloat16)
-    got = dm.q4k_gemv(x, qt, torch.float32)
-    want = dm.q4k_gemv_plain(x, qt, torch.float32)
-    torch.cuda.synchronize()
-    assert got.shape == (3, n) and torch.isfinite(got).all()
-    assert limit_ratio(got, want) <= 1.0
+    qt = synth_quant(fmt, n, 4096, card, gen)
+    for m in (3, 8):
+        x = torch.randn((m, 4096), device=card, generator=gen).to(torch.bfloat16)
+        got = getattr(dm, name)(x, qt, torch.float32)
+        want = getattr(dm, name + "_plain")(x, qt, torch.float32)
+        torch.cuda.synchronize()
+        assert got.shape == (m, n) and torch.isfinite(got).all()
+        assert limit_ratio(got, want) <= 1.0
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("fmt", [GGMLType.Q4_K, GGMLType.Q5_1, GGMLType.IQ4_NL,
-                                 GGMLType.IQ4_XS, GGMLType.MXFP4], ids=lambda t: t.name)
+                                 GGMLType.IQ4_XS, GGMLType.MXFP4, GGMLType.Q6_K,
+                                 GGMLType.Q2_K, GGMLType.Q3_K], ids=lambda t: t.name)
 @pytest.mark.parametrize("n", [1024, 4096], ids=lambda n: f"n{n}")
 def test_cuda_gemv_in_a_cuda_graph(card, fmt, n):
-    """Kernel A or E's codebook entry captured in a CUDA graph (at N = 1024
-    64 blocks of 8 warps, at 4096 256) and replayed on new x gives the bits
+    """An mma.sync GEMV entry captured in a CUDA graph (at N = 1024 64
+    blocks of 8 warps, at 4096 256) and replayed on new x gives the bits
     of an eager launch on that x; two eager launches give the same bits."""
     gen = torch.Generator(device=card).manual_seed(n)
     qt = synth_quant(fmt, n, 4096, card, gen)
@@ -848,3 +860,24 @@ def test_cuda_gemv_launches_per_step_at_36_layers(card, tmp_path):
     ctx.decode(Batch(tokens=[tok]))
     assert dm.launches == {**dict.fromkeys(dm.launches, 0), "q4k_gemv": 216,
                            "q6k_gemv": 37}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("recipe", ["Q2_K", "Q3_K"])
+def test_cuda_lowbit_launches_per_step_at_36_layers(card, tmp_path, recipe):
+    """Qwen3-8B's 36 layers (narrow widths) in a Q2_K (Q3_K) GGUF: one
+    decode step launches kernel H's entry 7 x 36 = 252 times and kernel C
+    once (the Q6_K head), nothing else."""
+    cfg = qwen3.Qwen3Config(n_layers=36, d_model=2048, n_heads=16, n_kv_heads=4,
+                            head_dim=128, d_ff=2048, n_vocab=1000)
+    path = tmp_path / f"{recipe}.gguf"
+    write_qwen3_gguf(path, cfg, recipe, torch.Generator(device=card).manual_seed(0))
+    params = qwen3.load_params(GGUFReader(path), device=card)
+    ctx = Context(cfg, params, qwen3.forward, qwen3.embed, n_ctx=64,
+                  sampler=SamplerParams(greedy=True), device=card)
+    tok = int(torch.argmax(ctx.prefill([1, 2, 3])))
+    dm.reset_launches()
+    logits, _ = ctx.decode(Batch(tokens=[tok]))
+    assert torch.isfinite(logits).all()
+    assert dm.launches == {**dict.fromkeys(dm.launches, 0),
+                           dm.LOWBIT_GEMV[GGMLType[recipe]]: 252, "q6k_gemv": 1}

@@ -1,8 +1,10 @@
-"""The launch plan of kernel A (csrc/q4k_gemv.cu) and of kernel E's
-codebook entries (csrc/codebook_gemv.cu), `dequant_matmul.gemv_plan`: one
-block per 16-row tile and no split of K at every Qwen3-8B decode shape,
-the wrappers' arguments on a mocked card (no CUDA here), and the copies
-gemv_plan_probe builds. This file imports no JAX."""
+"""The launch plan of the mma.sync GEMVs, kernel A (csrc/q4k_gemv.cu),
+kernel E's codebook entries (csrc/codebook_gemv.cu), kernel C
+(csrc/q6k_gemv.cu) and kernel H (csrc/lowbit_gemv.cu),
+`dequant_matmul.gemv_plan`: one block per 16-row tile and no split of K at
+every Qwen3-8B decode shape, the wrappers' arguments on a mocked card (no
+CUDA here), and the copies gemv_plan_probe builds. This file imports no
+JAX."""
 
 import re
 from unittest import mock
@@ -48,6 +50,14 @@ def test_gemv_plan_one_block_per_tile_over_all_of_k(shape, m, qtype):
     (1, 1024, 4096, GGMLType.IQ4_NL, 64),     # E's codebook entries: the same tiles
     (8, 4096, 12288, GGMLType.IQ4_XS, 256),
     (3, 12288, 4096, GGMLType.MXFP4, 768),
+    (1, 1024, 4096, GGMLType.Q6_K, 64),       # kernel C: wv
+    (8, 4096, 12288, GGMLType.Q6_K, 256),     # down
+    (1, 151748, 4096, GGMLType.Q6_K, 9485),   # the head: 9,484 tiles and 4 rows
+    (5, 1000, 2048, GGMLType.Q6_K, 63),       # 62 tiles and 8 rows
+    (1, 4, 256, GGMLType.Q2_K, 1),            # kernel H: one superblock, 4 rows
+    (8, 1004, 12288, GGMLType.Q2_K, 63),      # 62 tiles and 12 rows
+    (1, 12288, 4096, GGMLType.Q3_K, 768),
+    (7, 20, 4096, GGMLType.Q3_K, 2),          # a tile and 4 rows
 ])
 def test_gemv_plan_examples(m, n, k, qtype, blocks):
     p = dm.gemv_plan(m, n, k, qtype)
@@ -61,14 +71,19 @@ def test_gemv_plan_refuses_m_outside_1_to_8(m):
 
 
 @pytest.mark.parametrize("k,qtype", [(1248, GGMLType.Q4_0), (128, GGMLType.Q4_K),
-                                     (4096, GGMLType.Q6_K), (4096, GGMLType.Q8_0),
-                                     (1056, GGMLType.IQ4_NL), (1056, GGMLType.MXFP4)])
+                                     (4096, GGMLType.F16), (4096, GGMLType.Q8_0),
+                                     (1056, GGMLType.IQ4_NL), (1056, GGMLType.MXFP4),
+                                     (4000, GGMLType.Q6_K), (128, GGMLType.Q2_K),
+                                     (1280 + 16, GGMLType.Q3_K)])
 def test_gemv_plan_refuses_other_k_and_formats(k, qtype):
     with pytest.raises(ValueError):
         dm.gemv_plan(1, 4096, k, qtype)
 
 
-@pytest.mark.parametrize("source", ["q4k_gemv.cu", "codebook_gemv.cu"])
+GEMV_SOURCES = ["q4k_gemv.cu", "codebook_gemv.cu", "q6k_gemv.cu", "lowbit_gemv.cu"]
+
+
+@pytest.mark.parametrize("source", GEMV_SOURCES)
 def test_gemv_plan_states_the_kernels_constants(source):
     """The C side tiles N by the same rows, and counts the same SMs."""
     src = (_build.CSRC / source).read_text()
@@ -124,8 +139,9 @@ def test_gemv_wrapper_makes_no_workspace(qtype, m, n, k):
     assert dm.gemv_plan(m, n, k, qtype).workspace_bytes == 0
 
 
-PROBE_VARIANTS = [(src, v) for src in ("q4k_gemv.cu", "codebook_gemv.cu")
-                  for v in ("warps8", "via-l1", "warps8-via-l1", "no-alloc", "blocks3")
+PROBE_VARIANTS = [(src, v) for src in GEMV_SOURCES
+                  for v in ("warps8", "warps2", "few4", "via-l1", "warps8-via-l1",
+                            "no-alloc", "blocks3", "stages2", "stages4")
                   if v in __import__("omni_tpu_torch.gemv_plan_probe",
                                      fromlist=["SOURCES"]).SOURCES[src][1]]
 
@@ -134,9 +150,9 @@ PROBE_VARIANTS = [(src, v) for src in ("q4k_gemv.cu", "codebook_gemv.cu")
                          ids=[f"{s}-{v}" for s, v in PROBE_VARIANTS])
 def test_probe_variants_change_only_their_setting(source, variant):
     """gemv_plan_probe's copies of each source: each of a variant's edits
-    (kManyWarps, the weight load through L1 or past it, the blocks an SM)
-    matches once and is made, and undoing them gives the source back:
-    nothing else changes."""
+    (kManyWarps, kFewWarps, the weight load through L1 or past it, the
+    blocks an SM, kernel C's steps in flight) matches once and is made, and
+    undoing them gives the source back: nothing else changes."""
     from omni_tpu_torch import gemv_plan_probe
 
     src = (_build.CSRC / source).read_text()
@@ -146,6 +162,29 @@ def test_probe_variants_change_only_their_setting(source, variant):
         assert got.count(new) == 1 and old != new
         got = got.replace(new, old)
     assert got == src
-    many = 8 if "warps8" in variant else 4
-    assert f"constexpr int kManyWarps = {many};" in gemv_plan_probe.variant_source(
-        source, variant)
+    many = 8 if "warps8" in variant else 2 if "warps2" in variant else 4
+    got = gemv_plan_probe.variant_source(source, variant)
+    assert f"constexpr int kManyWarps = {many};" in got
+    if "kFewWarps" in src:
+        assert f"constexpr int kFewWarps = {4 if variant == 'few4' else 2};" in got
+
+
+WARPS = [(src, n, k, want) for src in ("q6k_gemv.cu", "lowbit_gemv.cu") for n, k, want in (
+    (1024, 4096, 8), (4096, 12288, 8), (6144, 4096, 4), (12288, 4096, 2),
+    (24576, 4096, 4), (151748, 4096, 4))] + [
+    (src, 12288, 4096, 4) for src in ("q4k_gemv.cu", "codebook_gemv.cu")]
+
+
+@pytest.mark.parametrize("source,n,k,want", WARPS,
+                         ids=[f"{s}-n{n}-k{k}" for s, n, k, _ in WARPS])
+def test_gemv_block_warps_at_qwen3_shapes(source, n, k, want):
+    """The warps a block runs (the probe's copy of each source's
+    block_warps, on the source's own constants): 8 below two waves of row
+    tiles; for kernels C and H 2 where every tile is on the card at once at
+    2 warps a block but not at 4 (Qwen3-8B's gate, 768 tiles), else 4;
+    kernels A and E keep 4 there."""
+    from omni_tpu_torch import gemv_plan_probe
+
+    warps = gemv_plan_probe.warp_constants((_build.CSRC / source).read_text())
+    step = gemv_plan_probe.STEP.get(source, 256)
+    assert gemv_plan_probe.block_warps(n, k, warps, step) == want
