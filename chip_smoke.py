@@ -33,11 +33,21 @@ stays well inside its time limit), one model resident at a time, each through
 1. an all-Q4_K Qwen3-8B synthesised in the port's planes, fused QKV and
    gate+up (kernels A and B);
 2. a Q4_K_M Qwen3-8B GGUF written to a temporary directory (about 5 GB,
-   deleted before the next path) and loaded back through the port's GGUF
-   reader and `qwen3.load_params`, unfused: Q4_K through kernels A and B,
-   Q6_K through kernels C and D; the same model serves twice more with a
-   quantized KV cache, q8_0 (kernel F, `flash_decode`) and q4_0 (kernel F's
-   int4 branch, `flash_decode4`), every layer's attention in the kernel;
+   deleted before the next path; with the synthesised 151,748-token Qwen2
+   vocabulary, `testing_synth.qwen2_vocab_kv`) and loaded back through the
+   port's GGUF reader and `qwen3.load_params`, unfused: Q4_K through
+   kernels A and B, Q6_K through kernels C and D; the same model serves
+   twice more with a quantized KV cache, q8_0 (kernel F, `flash_decode`)
+   and q4_0 (kernel F's int4 branch, `flash_decode4`), every layer's
+   attention in the kernel; then a session (`session_phase`) with the
+   file's own tokenizer (`build_tokenizer(reader.kv)`): ChatML turns on a
+   q8_0 pool under the server's default `SamplerParams()` past a 512-token
+   round window, one turn with penalties and DRY, one mirostat-2 turn on
+   the host loop; after each slide the positions must be contiguous and
+   the re-rotated K within one code step of the rotation law in f64; a
+   fresh context from the same seed must repeat the first turn, a turn
+   after a session load the turn before it, and 20,000 draws of `sample()`
+   must follow softmax of the filtered row (chi-square p > 1e-4);
 3. a Q5_K_M Qwen3-8B GGUF (about 5.8 GB, deleted before the next path),
    loaded the same way, on the bf16 pool: Q5_K through kernel G
    (`q5k_gemv`) and kernel B's Q5_K branch (`q5k_gemm`), Q6_K through
@@ -344,6 +354,26 @@ FLASH_RTOL, FLASH_FLOOR = 2**-7, 1e-6
 # the quantized KV caches the Q4_K_M model serves with: Context kv_dtype ->
 # the flash kernel every layer's attention launches
 KV_TURNS = {"q8_0": "flash_decode", "q4_0": "flash_decode4"}
+
+# the session phase: ChatML turns of the Q4_K_M model on a q8_0 pool under
+# the server's default sampler, past a 512-token round window
+SESSION_WINDOW = 512  # SessionConfig.max_preserved_context
+SESSION_TURN = 160  # tokens a default turn (four; the slide fires at 3 and 4)
+SESSION_DRY = 64  # tokens of the turn with penalties and DRY
+SESSION_MIROSTAT = 48  # tokens of the mirostat-2 turn (the host loop)
+SESSION_SHORT = 24  # tokens of the repeat-from-seed and save/load turns
+SESSION_SYSTEM = "You are a helpful assistant. Answer in a few sentences."
+SESSION_USER = (
+    "What does a GGUF file hold, and how is it read?",
+    "Explain byte-level BPE tokenization in plain words, please.",
+    "Why would a server evict whole rounds of a conversation?",
+    "How does rotary position embedding let cached keys be shifted?",
+    "Summarise our talk so far; don't repeat yourself, OK?",
+    "One more thing: what is mirostat sampling?",
+    "Say hello again.")
+SESSION_CHECK_LAYERS = (0, 35)  # K layers held to the f64 rotation law
+CHI2_DRAWS, CHI2_MIN_P = 20000, 1e-4
+SAMPLE_TIMES = 200  # sample() calls timed with CUDA events
 
 KERNELS = {
     "q4k_gemv": {"route": "cuda", "source": "omni_tpu_torch/csrc/q4k_gemv.cu",
@@ -1063,6 +1093,369 @@ def serve_turn(label, cfg, params, dev, qwen3, want_step, want_ubatch, rng,
                       "kv_bytes_per_cell": kv_bytes_per_cell}
 
 
+def rerotation_excess(before, after, layers, rot, base: float) -> float:
+    """Largest error of `after`'s K (a KVCache) on `layers` against the f64
+    rotation of the K `before` (f64 [H, S, D] per layer, dequantized as the
+    pool does) by each cell's delta `rot` ([S]), over its limit: one code
+    step (the code times the row's f32 scale, in f64) on a quantized pool,
+    2^-7 of the value on a bf16 one (with a floor of 2^-24 of the row's
+    largest value). <= 1 holds. Runs on the tensors' device (the card
+    here, the CPU in tests/test_torch_kv_shift.py)."""
+    import torch
+
+    from omni_tpu_torch.runtime.kv_cache import unpack4
+
+    d = before[0].shape[-1]
+    dev = before[0].device
+    freqs = 1.0 / base ** (torch.arange(0, d, 2, dtype=torch.float64, device=dev) / d)
+    ang = rot.to(torch.float64)[:, None] * freqs  # [S, D/2]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    worst = 0.0
+    for li, kf in zip(layers, before):
+        x1, x2 = kf[..., :d // 2], kf[..., d // 2:]
+        want = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+        if after.quantized:
+            codes = unpack4(after.k[li]) if after.bits == 4 else after.k[li]
+            limit = after.k_scale[li].double()[..., None]
+            got = codes.double() * limit
+        else:
+            got = after.k[li].double()
+            limit = 2.0 ** -7 * want.abs() + 2.0 ** -24 * want.abs().amax(-1, keepdim=True)
+        worst = max(worst, float(((got - want).abs() / limit).max()))
+    return worst
+
+
+@contextmanager
+def no_host_sync():
+    """Raise on any host sync with the card (an `.item()`, a copy from or
+    to pageable host memory, a stream wait) inside the block."""
+    import torch
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def check_sync_guard(dev) -> None:
+    """Fail unless `no_host_sync` raises on a host read: a 0-d index
+    tensor, which ATen reads with `.item()`."""
+    import torch
+
+    try:
+        with no_host_sync():
+            torch.zeros(4, device=dev)[torch.zeros((), dtype=torch.int64, device=dev)]
+    except RuntimeError:
+        return
+    raise SystemExit("the sync guard let a 0-d index read pass")
+
+
+def filters_on_the_card(row, sp):
+    """sp's top-k, top-p and min-p on the card's `row`, each held against
+    the same filter on the CPU copy of its input: the -inf masks must be
+    equal but at a token whose deciding quantity (its cumulative
+    probability before it, for top-p; its probability, for min-p, against
+    max * min_p), computed on the CPU in f32, lies within 4 ulp of the
+    threshold, the rule of tests/test_torch_sampler.py; top-k's mask must
+    be equal. Returns (the filtered row on the card, the tokens so
+    admitted)."""
+    import numpy as np
+    import torch
+
+    from omni_tpu_torch.runtime import sampler as smp
+
+    def top_p_q(x):
+        srt = torch.sort(x, descending=True, stable=True)
+        cum = torch.cumsum(torch.softmax(srt.values, -1), 0)
+        q = torch.empty_like(x)
+        q[srt.indices] = torch.cat([torch.zeros(1), cum[:-1]])
+        return q, sp.top_p
+
+    def min_p_q(x):
+        probs = torch.softmax(x, -1)
+        return probs, float(probs.max() * np.float32(sp.min_p))
+
+    admitted = 0
+    for name, f, quantity in (
+            ("top_k", lambda x: smp.apply_top_k(x, sp.top_k), None),
+            ("top_p", lambda x: smp.apply_top_p(x, sp.top_p), top_p_q),
+            ("min_p", lambda x: smp.apply_min_p(x, sp.min_p), min_p_q)):
+        host = row.cpu()
+        got, row = f(host).isneginf(), f(row)
+        diff = torch.nonzero(row.cpu().isneginf() != got)[:, 0]
+        if len(diff):
+            ok = quantity is not None
+            if ok:
+                q, thresh = quantity(host)
+                ulp = float(np.spacing(np.float32(abs(thresh))))
+                ok = bool(((q[diff].double() - thresh).abs() <= 4 * ulp).all())
+            if not ok:
+                raise SystemExit(f"session: {name}'s mask on the card differs from "
+                                 f"the CPU's at tokens {diff[:8].tolist()}")
+            admitted += len(diff)
+    return row, admitted
+
+
+def session_phase(cfg, params, tok, dev, qwen3, smi: str):
+    """The session a real file needs, on the Q4_K_M model loaded with its
+    own tokenizer (`tok`, `build_tokenizer(reader.kv)`): ChatML turns
+    through OmniPipeline on a q8_0 pool (kernel F) under the server's
+    default SamplerParams(), past a SESSION_WINDOW-token round window (the
+    slide evicts whole rounds and re-rotates the later K cells), one turn
+    with the penalties and DRY, one mirostat-2 turn on the host loop. Every
+    launch count is set to 0 just before the turns and read just after;
+    A, B, C, D and F must have launched. Checks: after each slide the
+    positions are contiguous from 0 (so from n_keep), kv_high bounds the
+    occupied cells, and K on SESSION_CHECK_LAYERS is within the f64
+    rotation law of the cells before it; a fresh context from the same
+    seed repeats the first turn's tokens; a turn run after a session save
+    and again after its load (the generator reseeded) gives the same
+    tokens; CHI2_DRAWS draws from one logits row follow softmax of its
+    filtered row (chi-square p > CHI2_MIN_P), the card's filter masks equal
+    the CPU's (`filters_on_the_card`); every fused chunk of the turns and
+    the timed sample() calls run under `no_host_sync`. Prints the rounds dropped,
+    n_past after each slide, host ms to encode and decode the session's
+    ChatML text, device ms a call of `sample` alone and ms a slide, each
+    with the card. Returns (launches, stats)."""
+    import numpy as np
+    import torch
+    from scipy import stats as sps
+
+    from omni_tpu_torch.chat import apply_chat_template
+    from omni_tpu_torch.omni import pipeline as pipeline_mod
+    from omni_tpu_torch.omni.pipeline import OmniPipeline, SessionConfig
+    from omni_tpu_torch.runtime import Batch, Context, SamplerParams
+    from omni_tpu_torch.runtime import sampler as smp
+
+    t_phase = time.perf_counter()
+    default = SamplerParams()
+    slides, checks = [], []
+
+    def make():
+        llm = Context(cfg, params, qwen3.forward, qwen3.embed, n_ctx=N_CTX,
+                      sampler=default, device=dev, kv_dtype="q8_0")
+        pipe = OmniPipeline(llm, tok, SessionConfig(
+            max_preserved_context=SESSION_WINDOW))
+        fed = []  # every fed token passes the text filter once, in order
+        valid = pipe.is_valid_tts_token
+
+        def recording(tid):
+            fed.append(int(tid))
+            return valid(tid)
+
+        pipe.is_valid_tts_token = recording
+        return llm, pipe, fed
+
+    llm, pipe, fed = make()
+    cache = llm.cache
+
+    # every slide: its time, the rounds it dropped, n_past after, and the
+    # re-rotated K against the f64 law (the check's time left out)
+    seq_add, slide = llm.seq_add, pipe._slide_window_if_needed
+
+    def checked_seq_add(seq_id, p0, p1, delta):
+        t = time.perf_counter()
+        before = [cache.read_layer(li)[0].double() for li in SESSION_CHECK_LAYERS]
+        rot = cache.seq_add_delta(seq_id, p0, p1, delta)
+        checks.append(time.perf_counter() - t)
+        seq_add(seq_id, p0, p1, delta)
+        t = time.perf_counter()
+        slides[-1]["law"] = max(slides[-1].get("law", 0.0), rerotation_excess(
+            before, cache, SESSION_CHECK_LAYERS, rot, cfg.rope_base))
+        checks[-1] += time.perf_counter() - t
+
+    def timed_slide():
+        if llm.n_past.get(0, 0) <= SESSION_WINDOW:
+            return slide()
+        rounds = [(r.start_pos, r.end_pos) for r in pipe.rounds]
+        slides.append({})
+        checks.clear()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        slide()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t - sum(checks)) * 1e3
+        if "law" not in slides[-1]:  # no whole round could go
+            slides.pop()
+            return
+        occupied = torch.nonzero(cache.seq_mask != 0)[:, 0]
+        pos = torch.sort(cache.pos[occupied]).values.cpu().numpy()
+        n_past = llm.n_past[0]
+        slides[-1].update(
+            ms=ms, n_past=n_past, dropped=rounds[:len(rounds) - len(pipe.rounds)],
+            contiguous=bool(np.array_equal(pos, np.arange(n_past))),
+            bounded=int(occupied.max()) < max(llm.kv_high, llm.cells_used))
+
+    llm.seq_add = checked_seq_add
+    pipe._slide_window_if_needed = timed_slide
+
+    # every chunk the fused loop enqueues must make no host sync: each one
+    # runs with CUDA's sync debug mode set to raise
+    real_scan, synced = pipeline_mod.omni_decode_scan, [0]
+
+    def sync_free_scan(*a, **kw):
+        with no_host_sync():
+            out = real_scan(*a, **kw)
+        synced[0] += 1
+        return out
+
+    pipeline_mod.omni_decode_scan = sync_free_scan
+    check_sync_guard(dev)
+
+    messages = [{"role": "system", "content": SESSION_SYSTEM}]
+    turns = []
+
+    def turn(r, text, budget):
+        fed.clear()
+        pipe.prefill_text(text)
+        t = time.perf_counter()
+        pipe.stream_decode(round_idx=r, max_new_tokens=budget)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        reply = ""
+        while True:
+            try:
+                reply += pipe.text_out.get_nowait().get("content", "")
+            except queue.Empty:
+                break
+        messages.extend([{"role": "user", "content": text},
+                         {"role": "assistant", "content": reply}])
+        turns.append({"tokens": len(fed), "s": secs, "n_past": llm.n_past[0]})
+        return list(fed)
+
+    reset_launches()  # the session's main path starts here
+    pipe.stream_prefill(index=0, system_prompt=SESSION_SYSTEM)
+    first = None
+    for r in range(4):
+        toks = turn(r, SESSION_USER[r], SESSION_TURN)
+        first = toks if first is None else first
+    llm.sampler = SamplerParams(penalty_repeat=1.1, penalty_freq=0.05,
+                                penalty_present=0.05, dry_multiplier=0.8,
+                                dry_breakers=tuple(tok.encode("\n", add_special=False)))
+    turn(4, SESSION_USER[4], SESSION_DRY)
+    llm.sampler = SamplerParams(mirostat=2)
+    llm.mu = smp.mirostat_init(llm.sampler, dev)
+    turn(5, SESSION_USER[5], SESSION_MIROSTAT)
+    torch.cuda.synchronize()
+    launches = launch_counts()  # the session's main path ends here
+    pipeline_mod.omni_decode_scan = real_scan
+    llm.sampler, llm.mu = default, None
+    session_s = time.perf_counter() - t_phase
+    missing = [k for k in ("q4k_gemv", "q4k_gemm", "q6k_gemv", "qgemm", "flash_decode")
+               if not launches.get(k)]
+    if missing or len(slides) < 2 or not synced[0]:
+        raise SystemExit(f"session: kernels not launched {missing}; {len(slides)} "
+                         f"slides (want >= 2); {synced[0]} chunks checked for "
+                         "host syncs")
+
+    # the same seed, a fresh context: the first turn's tokens again
+    llm2, pipe2, fed2 = make()
+    pipe2.stream_prefill(index=0, system_prompt=SESSION_SYSTEM)
+    pipe2.prefill_text(SESSION_USER[0])
+    pipe2.stream_decode(round_idx=0, max_new_tokens=SESSION_SHORT)
+    repeat = list(fed2)
+    del llm2, pipe2
+    if not repeat or repeat != first[:len(repeat)]:
+        raise SystemExit(f"session: a fresh context from seed {default.seed} gave "
+                         f"{repeat[:8]}..., the first turn {first[:8]}...")
+
+    # save, run a turn, load, run it again from the same generator seed
+    llm.sync_cells_used()
+    t = time.perf_counter()
+    state = pipe.session_state_bytes()
+    save_s = time.perf_counter() - t
+    prev = llm.prev_tokens.clone()
+    again = []
+    for i in range(2):
+        llm.generator.manual_seed(1234)
+        llm.prev_tokens = prev.clone()
+        again.append(turn(6, SESSION_USER[6], SESSION_SHORT))
+        if i == 0:
+            t = time.perf_counter()
+            pipe.load_session_state_bytes(state)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t
+    if not again[0] or again[0] != again[1]:
+        raise SystemExit(f"session: the turn after a load gave {again[1][:8]}..., "
+                         f"before it {again[0][:8]}...")
+    bad = [d for d in slides if not (d["contiguous"] and d["bounded"] and d["law"] <= 1.0)]
+    if bad:
+        raise SystemExit(f"session: slides with cells out of place or K off its "
+                         f"f64 law: {bad}")
+
+    # host: the session's ChatML text through the file's tokenizer
+    text = apply_chat_template("chatml", messages, add_assistant=False)
+    t = time.perf_counter()
+    ids = tok.encode(text)
+    encode_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    back = tok.decode(ids)
+    decode_ms = (time.perf_counter() - t) * 1e3
+    if back != text:
+        raise SystemExit("session: the ChatML text does not decode to itself")
+
+    # sample() alone on one real logits row: its time, and its law
+    row = llm.decode(Batch(tokens=tok.encode("Once upon a time", add_special=False)))[0][-1]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    smp.sample(row, default, generator=gen)  # first use
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with no_host_sync():  # the timed calls are enqueued without a wait
+        start.record()
+        for _ in range(SAMPLE_TIMES):
+            smp.sample(row, default, generator=gen)
+        end.record()
+    torch.cuda.synchronize()
+    sample_ms = start.elapsed_time(end) / SAMPLE_TIMES
+    draws = torch.stack([smp.sample(row, default, generator=gen)
+                         for _ in range(CHI2_DRAWS)]).cpu().numpy()
+    filt, at_threshold = filters_on_the_card(row.float(), default)
+    filt = smp.apply_temp(filt, default)
+    p = torch.softmax(filt.double(), -1).cpu().numpy()
+    seen = np.bincount(draws, minlength=len(p))
+    if seen[p == 0].sum():
+        raise SystemExit(f"session: {seen[p == 0].sum()} draws of filtered tokens")
+    exp = p * CHI2_DRAWS
+    big = exp >= 5
+    obs_b = np.append(seen[big], seen[~big & (p > 0)].sum())
+    exp_b = np.append(exp[big], exp[~big & (p > 0)].sum())
+    if exp_b[-1] == 0:
+        obs_b, exp_b = obs_b[:-1], exp_b[:-1]
+    chi = sps.chisquare(obs_b, exp_b * obs_b.sum() / exp_b.sum())
+    if not chi.pvalue > CHI2_MIN_P:
+        raise SystemExit(f"session: {CHI2_DRAWS} draws against softmax of the "
+                         f"filtered row: chi-square p = {chi.pvalue}")
+
+    print(f"  session ({smi}): n_keep {pipe.n_keep}; turns "
+          f"{[(d['tokens'], round(d['s'], 3), d['n_past']) for d in turns]} "
+          f"(tokens, s, n_past); {len(slides)} slides", flush=True)
+    for i, d in enumerate(slides):
+        print(f"  session slide {i} ({smi}): dropped rounds {d['dropped']}, n_past "
+              f"after {d['n_past']}, {d['ms']:.3f} ms, K vs f64 law "
+              f"{d['law']:.3f} of one code step", flush=True)
+    print(f"  session text ({smi}): {len(text)} chars, {len(ids)} tokens, host "
+          f"encode {encode_ms:.3f} ms, decode {decode_ms:.3f} ms", flush=True)
+    print(f"  session sample ({smi}): {sample_ms:.4f} ms a call of sample() "
+          f"(CUDA events over {SAMPLE_TIMES} calls, vocab {row.shape[0]}); "
+          f"{CHI2_DRAWS} draws over {len(exp_b)} bins, chi-square p "
+          f"{chi.pvalue:.4g}; the card's filter masks equal the CPU's but "
+          f"{at_threshold} token(s) within 4 ulp of a threshold; {synced[0]} "
+          f"fused chunks and the timed sample() calls made no host sync; state save {save_s:.3f} s ({len(state) / 1e6:.1f} MB), "
+          f"load {load_s:.3f} s; repeat from seed {len(repeat)} tokens, after load "
+          f"{len(again[1])} tokens equal; phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches, {
+        "session_s": session_s, "phase_s": time.perf_counter() - t_phase,
+        "n_keep": pipe.n_keep, "turns": turns,
+        "slides": [{k: v for k, v in d.items()} for d in slides],
+        "slide_ms": [d["ms"] for d in slides],
+        "chatml_chars": len(text), "chatml_tokens": len(ids),
+        "encode_ms": encode_ms, "decode_ms": decode_ms, "sample_ms": sample_ms,
+        "chi2_p": chi.pvalue, "state_mb": len(state) / 1e6,
+        "filter_tokens_at_threshold": at_threshold, "sync_free_chunks": synced[0],
+        "save_s": save_s, "load_s": load_s}
+
+
 def teacher_forced(cfg, params, dev, dm, qwen3, prompts, against: str,
                    kv_dtype="bf16") -> dict:
     """Logits of the kernel path, the plain path and the f64 path (every
@@ -1197,24 +1590,28 @@ def decode_step_alloc(cfg, params, dev, qwen3, rng) -> tuple[int, int]:
     return torch.cuda.max_memory_allocated() - base, base
 
 
-def write_and_load(cfg, recipe, dev, qwen3, tmp, seed, imatrix=False):
+def write_and_load(cfg, recipe, dev, qwen3, tmp, seed, imatrix=False, vocab=False):
     """Write a random `recipe` Qwen3 GGUF of `cfg` (weights from `seed`;
-    imatrix: llama.cpp's importance-matrix layout) into directory `tmp`,
+    imatrix: llama.cpp's importance-matrix layout; vocab: the synthesised
+    Qwen2 vocabulary, `testing_synth.qwen2_vocab_kv`) into directory `tmp`,
     load it back through the port's reader and `qwen3.load_params`, check
     its metadata and that the loaded planes of three tensors equal a host
     repack of their blocks. Returns (params, types, {gguf_gb, write_s,
-    load_s, planes_gb})."""
+    load_s, planes_gb}, the file's tokenizer by `build_tokenizer(reader.kv)`
+    where vocab, else None)."""
     import numpy as np
     import torch
 
     from omni_tpu_torch.core.gguf import GGUFReader
     from omni_tpu_torch.kernels.qformats import QTensor, repack, upload
     from omni_tpu_torch.testing_synth import write_qwen3_gguf
+    from omni_tpu_torch.tokenizer import build_tokenizer
 
     path = os.path.join(tmp, f"qwen3-8b-{recipe.lower()}.gguf")
     t0 = time.perf_counter()
     types = write_qwen3_gguf(path, cfg, recipe,
-                             torch.Generator(device=dev).manual_seed(seed), imatrix)
+                             torch.Generator(device=dev).manual_seed(seed), imatrix,
+                             vocab=vocab)
     write_s = time.perf_counter() - t0
     size = os.path.getsize(path)
     t0 = time.perf_counter()
@@ -1237,12 +1634,13 @@ def write_and_load(cfg, recipe, dev, qwen3, tmp, seed, imatrix=False):
                 not torch.equal(p.cpu(), getattr(ref, nm))
                 for nm, p in w.planes().items()):
             raise SystemExit(f"{name}: loaded planes differ from its blocks")
+    tok = build_tokenizer(reader.kv) if vocab else None
     reader.close()
     qts = [w for lp in params["layers"] for w in lp.values()
            if isinstance(w, QTensor)] + [params["output"]]
     return params, qts, {"gguf_gb": size / 1e9, "write_s": write_s,
                          "load_s": load_s,
-                         "planes_gb": sum(w.nbytes for w in qts) / 1e9}
+                         "planes_gb": sum(w.nbytes for w in qts) / 1e9}, tok
 
 
 def synth_dense(n: int, k: int, device, gen):
@@ -1703,7 +2101,8 @@ def main() -> int:
     # ---- path 2: Q4_K_M Qwen3-8B from a GGUF file (kernels A, B, C, D) -----
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        params, qts, io = write_and_load(cfg, "Q4_K_M", dev, qwen3, tmp, args.seed)
+        params, qts, io, tok = write_and_load(cfg, "Q4_K_M", dev, qwen3, tmp,
+                                             args.seed, vocab=True)
     n_q6 = sum(w.ggml_type == GGMLType.Q6_K for w in qts)
     n_q4 = sum(w.ggml_type == GGMLType.Q4_K for w in qts)
     if (n_q6, n_q4) != (N_Q6K, N_Q4K):
@@ -1735,12 +2134,17 @@ def main() -> int:
         tf = teacher_forced(cfg, params, dev, dm, qwen3, prompts, "f64", kv_dtype=kv)
         finish(f"q4_k_m_gguf_kv_{kv}", f"served-turn-q4km-kv-{kv}", launches,
                stats, tf, t0)
-    del params, qts
+
+    # ---- the same model: a ChatML session past its round window ------------
+    t0 = time.perf_counter()
+    launches, stats = session_phase(cfg, params, tok, dev, qwen3, smi)
+    finish("q4_k_m_session", "session", launches, stats, None, t0)
+    del params, qts, tok
 
     # ---- path 3: Q5_K_M Qwen3-8B from a GGUF file (G, B's Q5_K branch, C, D)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        params, qts, io = write_and_load(cfg, "Q5_K_M", dev, qwen3, tmp, args.seed)
+        params, qts, io, _ = write_and_load(cfg, "Q5_K_M", dev, qwen3, tmp, args.seed)
     n_q6 = sum(w.ggml_type == GGMLType.Q6_K for w in qts)
     n_q5 = sum(w.ggml_type == GGMLType.Q5_K for w in qts)
     if (n_q6, n_q5) != (N_Q6K, N_Q5K):
@@ -1765,7 +2169,7 @@ def main() -> int:
     for recipe, with_min in LEGACY_RECIPES.items():
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-            params, qts, io = write_and_load(cfg, recipe, dev, qwen3, tmp, args.seed,
+            params, qts, io, _ = write_and_load(cfg, recipe, dev, qwen3, tmp, args.seed,
                                              imatrix=True)
         fmt, fmt_min = GGMLType[recipe], GGMLType[with_min]
         counts = [sum(w.ggml_type == t for w in qts)
@@ -1834,7 +2238,7 @@ def main() -> int:
             raise SystemExit(f"the Q8_0 Qwen3-8B GGUF needs {Q8_0_FILE_BYTES / 1e9:.1f} "
                              f"GB free in {tempfile.gettempdir()} ($TMPDIR); it has "
                              f"{free / 1e9:.2f} GB")
-        params, qts, io = write_and_load(cfg, "Q8_0", dev, qwen3, tmp, args.seed)
+        params, qts, io, _ = write_and_load(cfg, "Q8_0", dev, qwen3, tmp, args.seed)
     if len(qts) != N_UNFUSED or any(w.ggml_type != GGMLType.Q8_0 for w in qts):
         raise SystemExit(f"want {N_UNFUSED} Q8_0 weights, got "
                          f"{sorted(str(w.ggml_type.name) for w in qts)[:4]}...")
@@ -1867,7 +2271,7 @@ def main() -> int:
     for recipe in CODEBOOK_RECIPES:
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-            params, qts, io = write_and_load(cb_cfg, recipe, dev, qwen3, tmp, args.seed)
+            params, qts, io, _ = write_and_load(cb_cfg, recipe, dev, qwen3, tmp, args.seed)
         fmt = GGMLType[recipe]
         counts = [sum(w.ggml_type == t for w in qts) for t in (fmt, GGMLType.Q6_K)]
         if counts != [N_CODEBOOK, 1] or len(qts) != N_CODEBOOK + 1:
@@ -1906,7 +2310,7 @@ def main() -> int:
     for recipe in LOWBIT_RECIPES:
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-            params, qts, io = write_and_load(cfg, recipe, dev, qwen3, tmp, args.seed)
+            params, qts, io, _ = write_and_load(cfg, recipe, dev, qwen3, tmp, args.seed)
         fmt = GGMLType[recipe]
         counts = [sum(w.ggml_type == t for w in qts) for t in (fmt, GGMLType.Q6_K)]
         if counts != [N_LOWBIT, 1] or len(qts) != N_UNFUSED:

@@ -7,6 +7,7 @@ logits and the last hidden states."""
 from __future__ import annotations
 
 import dataclasses
+import io
 from typing import Callable
 
 import numpy as np
@@ -14,7 +15,7 @@ import torch
 
 from .. import resolve_device
 from .kv_cache import KVCache
-from .sampler import SamplerParams
+from .sampler import SamplerParams, mirostat_init, sample, update_prev_tokens
 
 # ubatch padding buckets (the JAX package compiles one step per bucket; the
 # port keeps them so both pad, and so place cells, identically)
@@ -66,11 +67,18 @@ class Context:
         self._embed = embed_fn
         self.n_ctx = n_ctx
         self.cache = KVCache.create(cfg.n_layers, n_ctx, cfg.n_kv_heads,
-                                    cfg.head_dim, self.device, dtype=kv_dtype)
+                                    cfg.head_dim, self.device, dtype=kv_dtype,
+                                    rope_base=cfg.rope_base)
         self.sampler = sampler or SamplerParams()
+        # the sampler's randomness: a generator on the device, seeded as the
+        # JAX Context seeds its key (the streams differ; the law is the same)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            self.sampler.seed)
         self.prev_tokens = torch.full((max(self.sampler.penalty_last_n, 1),),
                                       -1, dtype=torch.int64,
                                       device=self.device)
+        self.mu = (mirostat_init(self.sampler, self.device)
+                   if self.sampler.mirostat else None)
         self.n_past: dict[int, int] = {}  # per-seq position high-water mark
         # host shadow of the occupied-cell count: guards pool overflow with
         # no device sync on the hot path
@@ -182,11 +190,160 @@ class Context:
         self.cache.seq_keep(seq_id)
         self.sync_cells_used()
 
+    def seq_add(self, seq_id: int, p0: int, p1: int, delta: int) -> None:
+        """Shift seq_id's positions in [p0, p1) by `delta`, re-rotating K. A
+        negative shift can free cells (positions below 0), so it re-syncs
+        cells_used and kv_high."""
+        self.cache.seq_add(seq_id, p0, p1, delta)
+        if seq_id in self.n_past:
+            self.n_past[seq_id] = max(0, self.n_past[seq_id] + int(delta))
+        if int(delta) < 0:
+            self.sync_cells_used()
+
+    def seq_div(self, seq_id: int, p0: int, p1: int, d: int) -> None:
+        self.cache.seq_div(seq_id, p0, p1, d)
+        if seq_id in self.n_past:
+            self.n_past[seq_id] = self.n_past[seq_id] // int(d)
+
     def clear_kv(self) -> None:
         self.cache.clear()
         self.n_past.clear()
         self.cells_used = 0
         self.kv_high = 0
+
+    # ---- state save/load (llama_state_{get,set}_data counterparts) ---------
+    # The JAX Context's npz layout, array for array: K/V planes (bf16 as
+    # its uint16 bit pattern), pos int32, seq_mask uint32, the scales of a
+    # quantized pool, n_past as [n, 2] int64 (seq, n_past) rows; a state
+    # written by either package loads into the other.
+    @staticmethod
+    def _to_np(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16)
+        return t.numpy()
+
+    @staticmethod
+    def _from_np(x: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+        """`x` as `like`'s dtype, on its device (bf16 from its bits)."""
+        x = np.ascontiguousarray(x)
+        if like.dtype == torch.bfloat16:
+            return torch.from_numpy(x.view(np.int16)).view(
+                torch.bfloat16).to(like.device)
+        return torch.from_numpy(x.astype(np.int64) if x.dtype == np.uint32
+                                else x).to(like.device, like.dtype)
+
+    def state_bytes(self) -> bytes:
+        c = self.cache
+        arrs = {"k": self._to_np(c.k), "v": self._to_np(c.v),
+                "pos": self._to_np(c.pos),
+                "seq_mask": self._to_np(c.seq_mask).astype(np.uint32)}
+        if c.quantized:
+            arrs["k_scale"] = self._to_np(c.k_scale)
+            arrs["v_scale"] = self._to_np(c.v_scale)
+        np_past = np.array(sorted(self.n_past.items()), np.int64).reshape(-1, 2)
+        buf = io.BytesIO()
+        np.savez(buf, n_past=np_past, **arrs)
+        return buf.getvalue()
+
+    def load_state_bytes(self, data: bytes) -> None:
+        """Restore a whole-pool state into this context's pool (same shape
+        and cell type), then re-sync the host shadows exactly."""
+        z = np.load(io.BytesIO(data))
+        c = self.cache
+        if c.quantized != ("k_scale" in z.files):
+            raise ValueError("the state's cell type differs from this pool's")
+        names = ("k", "v", "pos", "seq_mask") + (
+            ("k_scale", "v_scale") if c.quantized else ())
+        for name in names:
+            dst = getattr(c, name)
+            if tuple(z[name].shape) != tuple(dst.shape):
+                raise ValueError(f"state {name} {z[name].shape} does not fit "
+                                 f"the pool's {tuple(dst.shape)}")
+            dst.copy_(self._from_np(z[name], dst))
+        self.n_past = {int(a): int(b) for a, b in z["n_past"]}
+        self.sync_cells_used()
+
+    def seq_state_bytes(self, seq_id: int) -> bytes:
+        """One sequence's KV cells in position order (the server's slot
+        save/restore)."""
+        c = self.cache
+        owned = ((self._to_np(c.seq_mask) >> seq_id) & 1) != 0
+        idx = np.nonzero(owned)[0]
+        pos = self._to_np(c.pos)[idx]
+        order = np.argsort(pos, kind="stable")
+        idx = idx[order]
+        ti = torch.as_tensor(idx, device=c.k.device)
+        arrs = {"pos": pos[order],
+                "k": self._to_np(c.k[:, :, ti]), "v": self._to_np(c.v[:, :, ti]),
+                "n_past": np.int64(self.n_past.get(seq_id, 0))}
+        if c.quantized:
+            arrs["k_scale"] = self._to_np(c.k_scale[:, :, ti])
+            arrs["v_scale"] = self._to_np(c.v_scale[:, :, ti])
+        buf = io.BytesIO()
+        np.savez(buf, **arrs)
+        return buf.getvalue()
+
+    def load_seq_state_bytes(self, seq_id: int, data: bytes) -> int:
+        """Restore a saved sequence into the lowest free cells under
+        `seq_id` (its old cells dropped first); returns the cells restored."""
+        z = np.load(io.BytesIO(data))
+        n = len(z["pos"])
+        if n == 0:
+            return 0
+        self.seq_rm(seq_id, -1, -1)
+        c = self.cache
+        free = np.nonzero(self._to_np(c.seq_mask) == 0)[0]
+        if len(free) < n:
+            raise RuntimeError(f"not enough free KV cells: need {n}, "
+                               f"have {len(free)}")
+        slots = torch.as_tensor(free[:n], device=c.k.device)
+        names = ("k", "v") + (("k_scale", "v_scale") if c.quantized else ())
+        for name in names:
+            dst = getattr(c, name)
+            dst[:, :, slots] = self._from_np(z[name], dst)
+        c.pos[slots] = self._from_np(z["pos"], c.pos)
+        c.seq_mask[slots] = 1 << seq_id
+        self.n_past[seq_id] = int(z["n_past"])
+        self.sync_cells_used()
+        return n
+
+    # ---- sampling ----------------------------------------------------------
+    def sample_token(self, logits_row) -> int:
+        """Draw one token with the context's sampler, generator, penalty
+        ring and mirostat mu (one host sync: the host loop's path)."""
+        row = torch.as_tensor(logits_row, device=self.device)
+        if self.mu is not None:
+            tok, self.mu = sample(row, self.sampler, self.prev_tokens,
+                                  mu=self.mu, generator=self.generator)
+        else:
+            tok = sample(row, self.sampler, self.prev_tokens,
+                         generator=self.generator)
+        self.prev_tokens = update_prev_tokens(self.prev_tokens, tok)
+        return int(tok)
+
+    def generate(self, prompt_tokens, max_new: int = 64, seq_id: int = 0,
+                 stop_tokens: tuple[int, ...] = (),
+                 return_hidden: bool = False):
+        """Plain autoregressive loop, one decode and one sample per token;
+        the first stop token ends it and is not returned."""
+        last = self.prefill(prompt_tokens, seq_id)
+        out, hiddens = [], []
+        tok = self.sample_token(last)
+        for _ in range(max_new):
+            if tok in stop_tokens:
+                break
+            out.append(tok)
+            logits, hidden = self.decode(
+                Batch(tokens=np.array([tok], np.int32),
+                      seq_id=np.array([seq_id], np.int32)),
+                return_hidden=return_hidden)
+            if return_hidden:
+                hiddens.append(hidden[0].float().cpu().numpy())
+            tok = self.sample_token(logits[0])
+        if return_hidden:
+            return out, hiddens
+        return out
 
     def prefill(self, tokens, seq_id: int = 0, chunk: int = 256):
         """Chunked prompt ingestion; returns logits of the last position."""

@@ -16,15 +16,21 @@ for bit.
 Unlike the JAX cache, which is an immutable pytree, this one is UPDATED IN
 PLACE: write, write_all, commit and the session operations (seq_rm,
 seq_cp, seq_rm_all, seq_keep, clear) mutate the tensors and return `self`,
-so a step never copies the pool. The session operations touch only the
-cells' (pos, seq_mask) metadata, never a cell's values, so they work alike
-on bf16, q8_0 and q4_0 pools; seq_add and seq_div, which re-rotate K, are
-not ported yet.
+so a step never copies the pool. seq_rm, seq_cp, seq_rm_all, seq_keep
+and clear touch only the cells' (pos, seq_mask) metadata. seq_add and
+seq_div move positions and re-rotate K by each cell's delta
+(`_apply_pos_change`): on a quantized pool K is dequantized, rotated and
+requantized, every cell of every layer, as the JAX cache does it. The
+partially roped keys of MLA (the JAX cache's rope_dim > 0) are not ported:
+the port's Qwen3Config refuses those models.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..kernels.rope import rope_shift
+
 
 def seq_bits_of(seq: torch.Tensor) -> torch.Tensor:
     """int seq encoding -> membership bitset (int64). seq >= 0: one id;
@@ -60,7 +66,8 @@ class KVCache:
 
     def __init__(self, k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor,
                  seq_mask: torch.Tensor, k_scale: torch.Tensor | None = None,
-                 v_scale: torch.Tensor | None = None, bits: int = 16):
+                 v_scale: torch.Tensor | None = None, bits: int = 16,
+                 rope_base: float = 10000.0):
         self.k = k  # [L, Hkv, S, D] bf16 or int8; [L, Hkv, S, D/2] uint8
         self.v = v
         self.k_scale = k_scale  # [L, Hkv, S] f32, set when quantized
@@ -68,10 +75,12 @@ class KVCache:
         self.pos = pos  # [S] int32, -1 = unused
         self.seq_mask = seq_mask  # [S] int64 bitset of owning sequences
         self.bits = bits  # 16 (bf16), 8 (int8) or 4 (packed nibbles)
+        self.rope_base = rope_base  # K's rotary law, for seq_add / seq_div
 
     @staticmethod
     def create(n_layers: int, size: int, n_kv_heads: int, head_dim: int,
-               device, dtype=torch.bfloat16) -> "KVCache":
+               device, dtype=torch.bfloat16,
+               rope_base: float = 10000.0) -> "KVCache":
         bits = kv_bits(dtype)
         if bits == 4 and head_dim % 2:
             raise ValueError(f"q4_0 cells need an even head_dim, got {head_dim}")
@@ -88,7 +97,7 @@ class KVCache:
             v=torch.zeros(shape, dtype=cell[1], device=device),
             pos=torch.full((size,), -1, dtype=torch.int32, device=device),
             seq_mask=torch.zeros((size,), dtype=torch.int64, device=device),
-            k_scale=scales(), v_scale=scales(), bits=bits)
+            k_scale=scales(), v_scale=scales(), bits=bits, rope_base=rope_base)
 
     @property
     def size(self) -> int:
@@ -224,6 +233,70 @@ class KVCache:
     def seq_keep(self, seq_id: int) -> "KVCache":
         """Drop every sequence but seq_id."""
         return self._drop_emptied(self.seq_mask & (1 << seq_id))
+
+    def seq_add_delta(self, seq_id: int, p0: int, p1: int,
+                      delta: int) -> torch.Tensor:
+        """Each cell's position change under `seq_add` ([S]: `delta` on
+        seq_id's cells in [p0, p1), else 0), the angle its K turns by."""
+        sel = self._owned(seq_id) & self._in_range(p0, p1)
+        return sel.to(self.pos.dtype) * delta
+
+    def seq_div_delta(self, seq_id: int, p0: int, p1: int,
+                      d: int) -> torch.Tensor:
+        """Each cell's position change under `seq_div` ([S])."""
+        sel = self._owned(seq_id) & self._in_range(p0, p1)
+        return torch.where(sel, self.pos // d - self.pos,
+                           torch.zeros_like(self.pos))
+
+    def seq_add(self, seq_id: int, p0: int, p1: int, delta: int) -> "KVCache":
+        """Shift the positions of seq_id's cells in [p0, p1) by `delta`
+        (context shift) and re-rotate their K; a cell shifted below 0 is
+        freed."""
+        rot = self.seq_add_delta(seq_id, p0, p1, delta)
+        new_pos = self.pos + rot
+        return self._apply_pos_change(new_pos, rot,
+                                      drop=(rot != 0) & (new_pos < 0))
+
+    def seq_div(self, seq_id: int, p0: int, p1: int, d: int) -> "KVCache":
+        """Divide the positions of seq_id's cells in [p0, p1) by `d`
+        (floor; self-extend's grouped attention) and re-rotate their K."""
+        rot = self.seq_div_delta(seq_id, p0, p1, d)
+        return self._apply_pos_change(self.pos + rot, rot,
+                                      drop=torch.zeros_like(rot, dtype=torch.bool))
+
+    def _apply_pos_change(self, new_pos: torch.Tensor, rot: torch.Tensor,
+                          drop: torch.Tensor) -> "KVCache":
+        """Rotate every cell's K by its delta `rot` ([S] int), store
+        `new_pos`, free the `drop` cells. A quantized K is dequantized (in
+        bf16, `read_layer`), rotated and requantized, every cell (a delta
+        of 0 is the identity rotation, but the row is requantized all the
+        same, as in the JAX cache); one layer at a time, through a
+        cell-major view."""
+        for li in range(self.k.shape[0]):
+            kf = self.read_layer(li)[0]  # [H, S, D] bf16
+            kr = rope_shift(kf.transpose(0, 1), rot,
+                            self.rope_base).transpose(0, 1)
+            if self.quantized:
+                sc, kq = (quant_rows4 if self.bits == 4 else quant_rows)(kr)
+                self.k[li] = kq
+                self.k_scale[li] = sc
+            else:
+                self.k[li] = kr
+        self.pos.copy_(torch.where(drop, torch.full_like(new_pos, -1), new_pos))
+        self.seq_mask.copy_(torch.where(drop, torch.zeros_like(self.seq_mask),
+                                        self.seq_mask))
+        return self
+
+    def seq_pos_min(self, seq_id: int) -> torch.Tensor:
+        """Lowest position of seq_id (int32 max where it owns no cell)."""
+        return torch.where(self._owned(seq_id), self.pos,
+                           torch.full_like(self.pos,
+                                           torch.iinfo(torch.int32).max)).min()
+
+    def seq_pos_max(self, seq_id: int) -> torch.Tensor:
+        """Highest position of seq_id (-1 where it owns no cell)."""
+        return torch.where(self._owned(seq_id), self.pos,
+                           torch.full_like(self.pos, -1)).max()
 
     def clear(self) -> "KVCache":
         self.pos.fill_(-1)

@@ -48,12 +48,22 @@ no multi-GB host-to-device copy happens. Three forms:
 - `synth_qwen3_dense_params`: the dense parameter dict of an F16 checkpoint
   as the port loads one (every weight bf16, drawn in F16 first), normal
   weights of RMS 0.025, unfused.
+- `qwen2_vocab_kv`: the tokenizer.ggml.* keys of a Qwen2-style byte-level
+  BPE vocabulary at any width, made with no download: the 256 byte symbols,
+  the merges a deterministic BPE pass learns from the repository's
+  SURVEY.md (split as qwen2 splits), filler tokens up to the width, and at
+  the end, as Qwen2 places them, the ChatML and MiniCPM-o specials the omni
+  pipeline names (`SPECIALS`), control tokens; <|im_end|> and
+  <|endoftext|> end a generation. `write_qwen3_gguf(..., vocab=True)`
+  writes it into the file.
 
 Dense decode speed does not depend on the values."""
 
 from __future__ import annotations
 
+import collections
 import functools
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -62,6 +72,8 @@ from .core.dtypes import GGMLType, type_traits
 from .core.gguf import GGUFWriter
 from .kernels.qformats import LEGACY, QTensor, repack
 from .models.qwen3 import Qwen3Config, fuse_layer
+from .tokenizer.bpe import bytes_to_unicode, split_qwen2
+from .tokenizer.vocab import TYPE_CONTROL, TYPE_NORMAL
 
 QWEN3_8B = Qwen3Config(
     n_layers=36, d_model=4096, n_heads=32, n_kv_heads=8, head_dim=128,
@@ -302,14 +314,108 @@ def pick_type(name: str, ftype: str, default: GGMLType, n_layers: int,
     return default
 
 
+# the corpus of the synthesised vocabulary's merges: a file of the
+# repository that no change rewrites
+VOCAB_CORPUS = Path(__file__).resolve().parent.parent / "SURVEY.md"
+# the specials of a Qwen2 vocabulary and of MiniCPM-o (the omni pipeline's
+# SPECIALS), in the order they take after the regular tokens
+VOCAB_SPECIALS = (
+    "<|endoftext|>", "<|im_start|>", "<|im_end|>", "<|speak|>", "<|listen|>",
+    "<|chunk_eos|>", "<|chunk_tts_eos|>", "<|turn_eos|>", "<|tts_eos|>", "</s>",
+    "<|tts_bos|>", "</unit>", "<unit>", "<|tts_pad|>", "<|audio_start|>",
+    "<|audio_end|>", "<think>", "</think>", "<image>", "</image>", "<slice>",
+    "</slice>")
+
+
+def learn_merges(text: str, n_merges: int) -> list[tuple[str, str]]:
+    """A deterministic byte-level BPE pass over `text`: words as qwen2
+    splits them, in GPT-2's byte alphabet; each step merges the most
+    frequent adjacent pair (ties: the smallest pair), until `n_merges` or
+    no pair occurs twice."""
+    b2u = bytes_to_unicode()
+    freq = collections.Counter(split_qwen2(text))
+    words = [[b2u[b] for b in w.encode("utf-8")] for w in freq]
+    counts = list(freq.values())
+    pairs: collections.Counter = collections.Counter()
+    where: dict[tuple[str, str], set[int]] = collections.defaultdict(set)
+    for wi, w in enumerate(words):
+        for a, b in zip(w, w[1:]):
+            pairs[a, b] += counts[wi]
+            where[a, b].add(wi)
+    merges = []
+    while len(merges) < n_merges and pairs:
+        best = min(pairs, key=lambda p: (-pairs[p], p))
+        if pairs[best] < 2:
+            break
+        merges.append(best)
+        a, b = best
+        for wi in sorted(where.pop(best, ())):
+            w, c = words[wi], counts[wi]
+            for x, y in zip(w, w[1:]):  # the word's pairs leave...
+                pairs[x, y] -= c
+                if pairs[x, y] <= 0:
+                    del pairs[x, y]
+            i, out = 0, []
+            while i < len(w):
+                if i + 1 < len(w) and w[i] == a and w[i + 1] == b:
+                    out.append(a + b)
+                    i += 2
+                else:
+                    out.append(w[i])
+                    i += 1
+            words[wi] = out
+            for x, y in zip(out, out[1:]):  # ...and come back merged
+                pairs[x, y] += c
+                where[x, y].add(wi)
+    return merges
+
+
+@functools.lru_cache(maxsize=4)
+def qwen2_vocab_kv(n_vocab: int, n_merges: int = 4096) -> dict:
+    """The tokenizer.ggml.* keys of a Qwen2-style vocabulary of `n_vocab`
+    tokens: byte symbols, the merged tokens of `learn_merges` over
+    VOCAB_CORPUS, fillers ("<filler i>": a space is no byte symbol, so no
+    merge makes one), then VOCAB_SPECIALS as control tokens. eos is
+    <|im_end|>, padding <|endoftext|>, no bos. Cached per process: copy
+    the dict before changing it."""
+    b2u = bytes_to_unicode()
+    merges = learn_merges(VOCAB_CORPUS.read_text(encoding="utf-8"), n_merges)
+    tokens = [b2u[b] for b in range(256)]
+    seen = set(tokens)
+    for a, b in merges:
+        if a + b not in seen:
+            seen.add(a + b)
+            tokens.append(a + b)
+    n_regular = n_vocab - len(VOCAB_SPECIALS)
+    if len(tokens) > n_regular:
+        raise ValueError(f"{n_vocab} tokens cannot hold {len(tokens)} byte "
+                         f"and merged tokens and {len(VOCAB_SPECIALS)} specials")
+    tokens += [f"<filler {i}>" for i in range(n_regular - len(tokens))]
+    tokens += VOCAB_SPECIALS
+    return {
+        "tokenizer.ggml.model": "gpt2",
+        "tokenizer.ggml.pre": "qwen2",
+        "tokenizer.ggml.tokens": tokens,
+        "tokenizer.ggml.token_type": ([TYPE_NORMAL] * n_regular
+                                      + [TYPE_CONTROL] * len(VOCAB_SPECIALS)),
+        "tokenizer.ggml.merges": [f"{a} {b}" for a, b in merges],
+        "tokenizer.ggml.eos_token_id": tokens.index("<|im_end|>"),
+        "tokenizer.ggml.padding_token_id": tokens.index("<|endoftext|>"),
+        "tokenizer.ggml.add_bos_token": False,
+    }
+
+
 def write_qwen3_gguf(path, cfg: Qwen3Config, recipe: str,
                      generator: torch.Generator,
-                     imatrix: bool = False) -> dict[str, GGMLType]:
+                     imatrix: bool = False,
+                     vocab: bool = False) -> dict[str, GGMLType]:
     """Write a random `qwen3` GGUF of `cfg` (separate output head) whose
     2-D tensors take the types of `recipe` (`pick_type`; imatrix=True: the
     importance-matrix layout of a Q4_0 or Q5_0 file); norms are F32 ones.
     The block bytes are made on `generator`'s device, one tensor at a time,
-    and streamed to the file. Returns {tensor name: type}."""
+    and streamed to the file. vocab=True writes `qwen2_vocab_kv`'s
+    tokenizer at the model's width (else placeholder tokens). Returns
+    {tensor name: type}."""
     default = RECIPES[recipe]
     device = generator.device
     arch = "qwen3"
@@ -326,8 +432,13 @@ def write_qwen3_gguf(path, cfg: Qwen3Config, recipe: str,
                    ("rope.freq_base", float(cfg.rope_base))):
         w.add_kv(f"{arch}.{key}", v)
     w.add_kv("general.architecture", arch)
-    w.add_kv("tokenizer.ggml.model", "gpt2")
-    w.add_kv("tokenizer.ggml.tokens", [f"<t{i}>" for i in range(cfg.n_vocab)])
+    if vocab:
+        for key, v in qwen2_vocab_kv(cfg.n_vocab).items():
+            w.add_kv(key, v)
+    else:
+        w.add_kv("tokenizer.ggml.model", "gpt2")
+        w.add_kv("tokenizer.ggml.tokens",
+                 [f"<t{i}>" for i in range(cfg.n_vocab)])
     types = {}
 
     def quant(name: str, n: int, k: int) -> None:

@@ -29,7 +29,7 @@ def _run(code, cwd=ROOT, env_extra=None):
 def test_port_imports_with_jax_and_omni_tpu_blocked():
     code = """
 import sys
-for name in ("jax", "jaxlib", "omni_tpu"):
+for name in ("jax", "jaxlib", "omni_tpu", "regex"):
     sys.modules[name] = None  # any import of them raises ImportError
 import importlib, pkgutil
 import omni_tpu_torch
@@ -38,6 +38,23 @@ names = [m.name for m in pkgutil.walk_packages(omni_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 assert "omni_tpu_torch.kernels.fused_ffn" in names  # kernel I's wrapper
+for name in ("omni_tpu_torch.tokenizer", "omni_tpu_torch.tokenizer.bpe",
+             "omni_tpu_torch.chat", "omni_tpu_torch.runtime.sampler",
+             "omni_tpu_torch.omni.pipeline"):
+    assert name in names, name
+# the tokenizer, the sampler chain and the round window work without them
+from omni_tpu_torch.tokenizer import build_tokenizer
+from omni_tpu_torch.testing_synth import qwen2_vocab_kv
+from omni_tpu_torch.chat import apply_chat_template
+from omni_tpu_torch.runtime.sampler import SamplerParams, sample
+from omni_tpu_torch.omni.pipeline import RoundBoundary, SessionConfig
+import torch
+tok = build_tokenizer(qwen2_vocab_kv(1024, 300))
+text = apply_chat_template("chatml", [{"role": "user", "content": "Hi 'S 一二"}])
+assert tok.decode(tok.encode(text)) == text
+assert 0 <= int(sample(torch.randn(64), SamplerParams(mirostat=0),
+                       generator=torch.Generator().manual_seed(0))) < 64
+assert SessionConfig().fused_decode and RoundBoundary(0, 1).end_pos == 1
 import chip_smoke
 assert not any(k == "jax" or k.startswith(("jax.", "omni_tpu."))
                for k, v in sys.modules.items() if v is not None)

@@ -173,8 +173,15 @@ def test_greedy_sample_matches_jax(penalty):
 
 
 def test_stochastic_sampling_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        sample(torch.zeros(8), SamplerParams(temp=0.8))
+    """Stochastic sampling is ported now (the name is kept): the default
+    SamplerParams draw omni_tpu's token when fed its Gumbel noise."""
+    rng = np.random.default_rng(4)
+    logits = rng.standard_normal(300, dtype=np.float32) * 3
+    key = jax.random.PRNGKey(9)
+    want = int(jax_sample(jnp.asarray(logits), key, JaxSamplerParams()))
+    noise = np.array(jax.random.gumbel(jax.random.split(key)[1], (300,)))
+    got = int(sample(_t(logits), SamplerParams(), gumbel=torch.from_numpy(noise)))
+    assert got == want
 
 
 # ------------------------------------------------------------------ model
