@@ -26,9 +26,10 @@ their plain versions and the attention law in f64, in both of kernel F's
 regimes (T = 1 and 2 decode, 3, 8 and 64 prefill at G = 4), a repeat
 launch bit-identical. Then it drives these
 paths at full width and depth (all 36 layers, random weights made on the
-card from seed S, 0 by default; one cut: the codebook files of path 6 at
-18 layers, CODEBOOK_LAYERS, an earlier slice's paths, so that the run
-stays well inside its time limit), one model resident at a time, each through
+card from seed S, 0 by default; cut, earlier slices' paths, so that the
+run stays inside its time limit: the Q8_0, codebook, Q2_K and Q3_K models
+of paths 5, 6 and 7 at 18 layers, CUT_LAYERS), one model resident at a
+time, each through
 `OmniPipeline.stream_prefill` / `stream_decode`:
 1. an all-Q4_K Qwen3-8B synthesised in the port's planes, fused QKV and
    gate+up (kernels A and B);
@@ -47,7 +48,14 @@ stays well inside its time limit), one model resident at a time, each through
    the re-rotated K within one code step of the rotation law in f64; a
    fresh context from the same seed must repeat the first turn, a turn
    after a session load the turn before it, and 20,000 draws of `sample()`
-   must follow softmax of the filtered row (chi-square p > 1e-4);
+   must follow softmax of the filtered row (chi-square p > 1e-4); then a
+   spoken round (`spoken_phase`): the full-width APM, TTS and Token2Wav
+   (F16 files written beside it) loaded by omni-cli's `build_pipeline`
+   around the loaded Q4_K_M LLM, one `run_test_cases` round of 2 s of
+   audio in, 10 text tokens, the TTS to audio_eos or its 500-code cap and
+   every Token2Wav window, its waves, sync-free TTS scan, card-vs-CPU
+   TTS and Token2Wav, and A-D launches checked, and four short rounds
+   that time the first wave with and without the first-window hold;
 3. a Q5_K_M Qwen3-8B GGUF (about 5.8 GB, deleted before the next path),
    loaded the same way, on the bf16 pool: Q5_K through kernel G
    (`q5k_gemv`) and kernel B's Q5_K branch (`q5k_gemm`), Q6_K through
@@ -61,9 +69,10 @@ stays well inside its time limit), one model resident at a time, each through
    switched off (`dequant_matmul.GP_DECODE`, `SH_PREFILL`: the JAX
    package's OMNI_GP_DECODE=0, OMNI_SH_PREFILL=0), every matmul through
    kernel D's Q4_0, Q4_1 and Q6_K branches;
-5. a Q8_0 Qwen3-8B GGUF (about 8.7 GB in $TMPDIR, every weight Q8_0),
-   loaded the same way: decode through kernel E, prefill through D;
-6. an IQ4_NL, an IQ4_XS and an MXFP4 Qwen3-8B GGUF at 18 layers (each
+5. a Q8_0 Qwen3-8B GGUF at 18 layers (CUT_LAYERS; about
+   4.4 GB in $TMPDIR, every weight Q8_0), loaded the same way: decode
+   through kernel E, prefill through D;
+6. an IQ4_NL, an IQ4_XS and an MXFP4 Qwen3-8B GGUF at 18 layers (CUT_LAYERS; each
    deleted before the next path; every weight in the
    recipe's type, the embedding too, the head Q6_K, as the JAX quantizer
    writes them), loaded the same way (q planes of nibble indexes, the
@@ -71,9 +80,10 @@ stays well inside its time limit), one model resident at a time, each through
    codebook entries `iq4_nl_gemv`, `iq4_xs_gemv` and `mxfp4_gemv`, prefill
    through kernel D's IQ4_NL, IQ4_XS and MXFP4 branches, the head through
    C and D;
-7. a Q2_K and a Q3_K Qwen3-8B GGUF (about 3.0 and 3.8 GB, each deleted
-   before the next path; every layer weight and the embedding in the
-   format, the head Q6_K), loaded the same way: decode through kernel H
+7. a Q2_K and a Q3_K Qwen3-8B GGUF at 18 layers (CUT_LAYERS; each
+   deleted before the next path; every layer weight and the
+   embedding in the format, the head Q6_K), loaded the same way: decode
+   through kernel H
    (`q2k_gemv`, `q3k_gemv`), prefill through kernel D's Q2_K and Q3_K
    branches, the head through C and D;
 8. an F16 Qwen3-8B as `load_params` loads one (dense bf16 weights made on
@@ -311,13 +321,16 @@ KV_BUCKET = 512
 # 64-token ubatch, which reads the whole N_CTX pool
 FLASH_TIMES = ((1, KV_BUCKET), (1, 2048), (1, 8192), (1, 32768),
                (N_PREFILL, KV_BUCKET), (N_PREFILL, N_CTX))
-N_LAYERS = 36  # full depth, on every path but the codebook files
-# the IQ4_NL, IQ4_XS and MXFP4 files' depth: an earlier slice's paths (kernel
-# E's codebook entries, D's codebook branches), cut so that the whole run
-# stays well inside its time limit (they took 38-103 s of a 997-s run at 36
-# layers, NVIDIA H100 80GB HBM3, 700.00 W); their kernels are still held and
-# timed at the full model's shapes
-CODEBOOK_LAYERS = 18
+N_LAYERS = 36  # full depth, on every path but those cut to CUT_LAYERS
+# the depth of earlier slices' paths, cut so that the whole run stays well
+# inside its time limit, their kernels still held and timed at the full
+# model's shapes: the IQ4_NL, IQ4_XS and MXFP4 files (kernel E's codebook
+# entries, D's codebook branches; 38-103 s each of a 997-s run at 36
+# layers), and since the spoken round the Q8_0, Q2_K and Q3_K files
+# (kernels E, H, D's branches; the run read 1,041.8 s with them at 18
+# layers, and their phases took 109 s more at 36 in the slice before:
+# ~1,150 s; NVIDIA H100 80GB HBM3, 700.00 W)
+CUT_LAYERS = 18
 # Q4_K_M Qwen3-8B (llama.cpp's rules): the output head and attn_v, ffn_down
 # of 18 of the 36 layers are Q6_K, the other weights Q4_K
 N_Q6K, N_Q4K = 37, 216
@@ -329,15 +342,18 @@ N_LEGACY, N_LEGACY_MIN = 248, 4
 # unfused Qwen3-8B: 36 x (wq, wk, wv, wo, gate, up, down) + output
 N_UNFUSED = 7 * N_LAYERS + 1
 # the codebook and low-bit files: the layer weights in the recipe's type
-# (252 at 36 layers; 126 at the codebook files' 18), 1 Q6_K head
-N_CODEBOOK, N_LOWBIT = 7 * CODEBOOK_LAYERS, 7 * N_LAYERS
+# (252 at 36 layers; 126 at CUT_LAYERS), 1 Q6_K head
+N_CUT = 7 * CUT_LAYERS
+# the Q8_0 file: every weight Q8_0, the head too
+N_Q8_0 = 7 * CUT_LAYERS + 1
 # the F16 path's decode step may allocate this much above its start: the
 # step's activations, logits, attention scores and the split dots' f32
 # partials (16 x 151748 x 4 B = 9.7 MB at the head) are ~12 MB; a widened
 # copy of the 151748 x 4096 head alone would be 2.49 GB
 DECODE_STEP_ALLOC_LIMIT = 100e6
-# the Q8_0 GGUF (8.70 GB) and room for its metadata
-Q8_0_FILE_BYTES = 8.8e9
+# the Q8_0 GGUF at CUT_LAYERS (about 4.4 GB; 8.70 at 36 layers) and room
+# for its metadata
+Q8_0_FILE_BYTES = 4.6e9
 # a served turn may drop this share of its sampled tokens from its text:
 # random weights sample ids >= 150000 (1748 of the 151748, 1.15 %), which
 # the pipeline's text filter drops; a sampler emitting special ids fails
@@ -1456,6 +1472,305 @@ def session_phase(cfg, params, tok, dev, qwen3, smi: str):
         "save_s": save_s, "load_s": load_s}
 
 
+SPOKEN_AUDIO_S = 2  # seconds of 16 kHz audio in the spoken round
+SPOKEN_TOKENS = 10  # text tokens out: one TTS chunk
+SPOKEN_TF_STEPS = 25  # TTS steps teacher-forced on the card and the CPU
+# the two card-vs-CPU limits, between the sound port's largest gap and the
+# smallest gap of a fault planted on the card, over seeds 0-4
+# (`python -m omni_tpu_torch.spoken_limits`, NVIDIA H100 80GB HBM3, 700.00 W):
+# the TTS teacher-forced, of max|logit| a step (bf16 activations, cuBLAS vs
+# CPU sums): sound 0.0203-0.0224, the rotary pairs flipped 0.220-0.245 (a
+# head in f32 reads as sound, 0.0199-0.0223: this check cannot see it)
+SPOKEN_TF_RTOL = 6e-2
+# one Token2Wav window (the wave's RMS 0.0082-0.0112, none of it clamped):
+# sound 7.0e-8-8.2e-8, TF32 dots 2.0e-4-2.8e-4, the noise table drawn on
+# the card or one frame off 0.0145-0.0166
+SPOKEN_WAVE_ATOL = 1e-5
+SPOKEN_APM_ITERS = 5
+# short rounds (two 25-code TTS scans) that time the end of prefill to the
+# first wave with the pipeline's first-window hold (True) and without it
+SPOKEN_HOLD_ROUNDS = (False, True, True, False)
+
+
+def spoken_phase(cfg, params, qts, tok, dev, qwen3, smi: str, seed: int):
+    """A spoken round on the Q4_K_M model (MiniCPM-o 4.5's "Full omni"
+    layout: the LLM Q4_K_M, the rest F16): the APM (24 x 1024), the TTS (20
+    x 768), Token2Wav (conformer 6 + 4, DiT 16 x 512, HiFiGAN2) written at
+    full width to a temporary model directory (`testing_synth`), loaded by
+    omni-cli's `build_pipeline` beside the loaded LLM, then one
+    `run_test_cases` round: SPOKEN_AUDIO_S s of 16 kHz audio in,
+    SPOKEN_TOKENS text tokens out (one TTS chunk), the TTS to audio_eos or
+    its cap, every Token2Wav window. Fails unless every wave is finite,
+    within +-0.99 and 24,000 samples a 25 codes (960 a code of the window
+    but its 3 look-ahead codes, which only the final window renders, after
+    the 3,840-sample cached head from the second window on); a 25-code TTS scan runs
+    with no host sync (`no_host_sync`); SPOKEN_TF_STEPS TTS steps
+    teacher-forced on the card agree with the port on the CPU within
+    SPOKEN_TF_RTOL of max|logit| a step, and one Token2Wav window within
+    SPOKEN_WAVE_ATOL (`spoken_limits` reads both gaps over seeds and
+    planted faults); and the launches of kernels A-D equal those of the
+    LLM's own forward calls (`kernel_for` at each call's rows over the
+    file's weights): the APM, the TTS and Token2Wav launch none. Then
+    short rounds of two TTS scans time the end of prefill to the first
+    wave with and without the pipeline's first-window hold
+    (SPOKEN_HOLD_ROUNDS). Prints ms a 1 s APM chunk, ms an audio code, ms
+    a Token2Wav window and its RTF, the time from the end of prefill to
+    the first wave and the peak memory, each with the card. Returns
+    (launches, stats)."""
+    import argparse
+
+    import numpy as np
+    import torch
+
+    from omni_tpu_torch.cli import omni_cli
+    from omni_tpu_torch.core.gguf import GGUFReader
+    from omni_tpu_torch.kernels import dequant_matmul as dm
+    from omni_tpu_torch.models import tts as tts_mod
+    from omni_tpu_torch.models import whisper
+    from omni_tpu_torch.models.token2wav import Token2Wav
+    from omni_tpu_torch.omni import audio as audio_mod
+    from omni_tpu_torch.omni import pipeline as pipeline_mod
+    from omni_tpu_torch.runtime import Batch, Context, SamplerParams
+    from omni_tpu_torch.runtime.loop import _scalar
+    from omni_tpu_torch.spoken_limits import forced_gap, forced_logits, wave_stats
+    from omni_tpu_torch.testing_synth import (write_apm_gguf, write_token2wav_ggufs,
+                                              write_tts_gguf)
+
+    t_phase = time.perf_counter()
+    check_sync_guard(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident_gib = torch.cuda.memory_allocated() / 2**30
+    llm_gib = (sum(w.nbytes for w in qts) + params["token_embd"].nbytes) / 2**30
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_spoken_") as tmp:
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        for sub in ("audio", "tts"):
+            os.makedirs(os.path.join(tmp, sub))
+        write_apm_gguf(os.path.join(tmp, "audio", "minicpmo-audio-apm-f16.gguf"), gen)
+        write_tts_gguf(os.path.join(tmp, "tts", "minicpmo-tts-f16.gguf"), gen)
+        write_token2wav_ggufs(os.path.join(tmp, "token2wav"), gen)
+        paths = omni_cli.resolve_model_paths(os.path.join(tmp, "llm.gguf"))
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        llm = Context(cfg, params, qwen3.forward, qwen3.embed, n_ctx=N_CTX,
+                      device=dev, sampler=SamplerParams(temp=0.7))
+        args = argparse.Namespace(ctx_size=N_CTX, temp=0.7, no_audio=False,
+                                  no_tts=False, omni=False, duplex=False)
+        pipe = omni_cli.build_pipeline(paths, args, dev, llm=llm, tokenizer=tok)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        x = np.arange(16000 * SPOKEN_AUDIO_S) / 16000
+        noise = np.random.default_rng(seed).standard_normal(len(x))
+        audio_mod.write_wav(os.path.join(tmp, "case_1.wav"),
+                            0.3 * np.sin(2 * np.pi * 220 * x) + 0.02 * noise, rate=16000)
+
+        # the round, instrumented: the LLM's forward calls by rows, the
+        # Token2Wav windows and their times, the end of prefill, the first wave
+        rows, windows, marks, tts_runs = [], [], {}, []
+        forward = llm._forward
+
+        def counted(p, c, xx, *a, **kw):
+            rows.append(int(xx.shape[0]))
+            return forward(p, c, xx, *a, **kw)
+
+        llm._forward = counted
+        feed = pipe.t2w.feed_window
+
+        def timed_window(tokens, is_final=False):
+            t = time.perf_counter()
+            wave = feed(tokens, is_final=is_final)
+            windows.append((np.asarray(tokens), is_final, wave,
+                            time.perf_counter() - t))
+            return wave
+
+        pipe.t2w.feed_window = timed_window
+        wait_prefill, put = pipe._wait_prefill, pipe.wav_out.put
+
+        def marked_wait():
+            wait_prefill()
+            torch.cuda.synchronize()
+            marks["prefilled"] = time.perf_counter()
+
+        def marked_put(item):
+            marks.setdefault("first_wave", time.perf_counter())
+            put(item)
+
+        pipe._wait_prefill, pipe.wav_out.put = marked_wait, marked_put
+        generate = pipe._tts_generate
+
+        def timed_generate(out, first_chunk, emit=None):
+            t = time.perf_counter()
+            codes = generate(out, first_chunk, emit=emit)
+            tts_runs.append((len(out.token_ids), len(codes), time.perf_counter() - t))
+            return codes
+
+        pipe._tts_generate = timed_generate
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            res = omni_cli.run_test_cases(pipe, os.path.join(tmp, "case_"), 1,
+                                          os.path.join(tmp, "out"), SPOKEN_TOKENS)
+            round_s = time.perf_counter() - t0
+            launches = launch_counts()
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            first_wave_ms = 1e3 * (marks["first_wave"] - marks["prefilled"])
+            n_main = len(rows), len(windows), len(tts_runs)
+            # the first wave with and without the hold, in rounds of two scans
+            held_ms, cap = {True: [], False: []}, pipeline_mod.SIMPLEX_AUDIO_CAP
+            pipeline_mod.SIMPLEX_AUDIO_CAP = 2 * pipeline_mod.T2W_MAIN
+            try:
+                for k, held in enumerate(SPOKEN_HOLD_ROUNDS):
+                    if not held:
+                        pipe._hold_for_token2wav = lambda: True
+                    marks.clear()
+                    omni_cli.run_test_cases(pipe, os.path.join(tmp, "case_"), 1,
+                                            os.path.join(tmp, f"hold_{k}"), SPOKEN_TOKENS)
+                    held_ms[held].append(1e3 * (marks["first_wave"] - marks["prefilled"]))
+                    pipe.__dict__.pop("_hold_for_token2wav", None)
+            finally:
+                pipeline_mod.SIMPLEX_AUDIO_CAP = cap
+            for lst, n in zip((rows, windows, tts_runs), n_main):
+                del lst[n:]  # the short rounds' records
+        finally:
+            pipe.shutdown()
+        llm._forward = forward
+        files = sorted(os.listdir(os.path.join(tmp, "out", "round_000", "tts_wav")))
+        # the copies the checks compare with: the TTS on the CPU, Token2Wav
+        # fresh on the card and on the CPU
+        t0 = time.perf_counter()
+        tcfg = pipe.tts_ctx.cfg
+        tts_cpu = tts_mod.load_params(GGUFReader(paths["tts"]), device="cpu")
+        t2w_files = [paths[k] for k in ("t2w_encoder", "t2w_flow", "t2w_extra",
+                                         "t2w_vocoder", "t2w_prompt")]
+        t2w_cpu = Token2Wav.from_gguf(*t2w_files, device="cpu")
+        t2w_card = Token2Wav.from_gguf(*t2w_files, device=dev)
+        cpu_s = time.perf_counter() - t0
+
+    # ---- the waves and the launches ----------------------------------------
+    waves = res["waves"]
+    if not waves or len(waves) != len(windows) or len(files) != len(waves):
+        raise SystemExit(f"spoken: {len(waves)} waves, {len(windows)} windows, "
+                         f"{len(files)} files")
+    for i, (toks, fin, wave, _) in enumerate(windows):
+        # 2 mel frames a code, less the 3 look-ahead codes of a window that
+        # is not final, after the 8 cached frames: 24,000 samples a 25 codes
+        want = 480 * ((8 if i else 0) + 2 * (len(toks) - (0 if fin else 3)))
+        if (len(wave) != want or not np.isfinite(wave).all()
+                or np.abs(wave).max() > 0.99):
+            raise SystemExit(f"spoken: window {i} has {len(wave)} samples (want "
+                             f"{want}), max |x| {np.abs(wave).max()}")
+    want_l = {}
+    for m in rows:
+        for w in qts:
+            name = dm.kernel_for(m, w).__name__
+            want_l[name] = want_l.get(name, 0) + 1
+            if name == "qgemm":
+                key = f"qgemm {w.ggml_type.name}"
+                want_l[key] = want_l.get(key, 0) + 1
+    if nonzero(launches) != want_l:
+        raise SystemExit(f"spoken: launches {nonzero(launches)}, the LLM's "
+                         f"{len(rows)} forward calls make {want_l}")
+
+    # ---- a TTS scan with no host sync; ms an audio code --------------------
+    ex, tctx = pipe.tts_extras, pipe.tts_ctx
+    tctx.clear_kv()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ids = torch.randint(0, 150000, (SPOKEN_TOKENS,), generator=g, device=dev)
+    hid = torch.randn((SPOKEN_TOKENS, cfg.d_model), generator=g, device=dev)
+    cond = tts_mod.build_condition(ex, ids, hid, True, pipe.spk_embed)
+    _, h0 = tctx.decode(Batch(embeds=cond), return_hidden=True)
+    start = tctx.n_past[0]
+
+    def scan(n=SPOKEN_TF_STEPS):
+        return tts_mod.tts_decode_scan(tctx.params, tcfg, ex, tctx.cache, h0[-1],
+                                       _scalar(start, dev), n, first_chunk=True,
+                                       generator=g)
+
+    torch.cuda.synchronize()
+    with no_host_sync():
+        codes = scan()[0]
+    tts_ms = cuda_ms(scan, 2) / SPOKEN_TF_STEPS
+    codes = codes.cpu().numpy()
+    codes = codes[codes >= 0]
+
+    # ---- 25 TTS steps teacher-forced: the card against the CPU ---------------
+    got = forced_logits(tcfg, tctx.params, ex, cond, codes, dev)
+    want = forced_logits(tcfg, *tts_cpu, cond, codes, "cpu")
+    tf_rel = forced_gap(got, want)
+    tf_argmax = float((got.argmax(1) == want.argmax(1)).float().mean())
+    if not tf_rel <= SPOKEN_TF_RTOL:
+        raise SystemExit(f"spoken: teacher-forced TTS logits {tf_rel:.3g} of "
+                         f"max|logit| from the CPU's (limit {SPOKEN_TF_RTOL})")
+
+    # ---- one Token2Wav window: the card against the CPU ----------------------
+    w_toks = windows[0][0]
+    w_card = t2w_card.feed_window(w_toks)
+    w_cpu = t2w_cpu.feed_window(w_toks)
+    t2w_err = float(np.abs(w_card - w_cpu).max())
+    w_stats = wave_stats(w_cpu)
+    if not t2w_err <= SPOKEN_WAVE_ATOL:
+        raise SystemExit(f"spoken: a Token2Wav window differs from the CPU's by "
+                         f"{t2w_err:.3g} (limit {SPOKEN_WAVE_ATOL}; the wave's RMS "
+                         f"{w_stats['rms']:.3g}, {w_stats['clamped']:.3g} clamped)")
+
+    # ---- ms a 1 s APM chunk --------------------------------------------------
+    enc = pipe.audio_encoder
+    mel = audio_mod.log_mel_spectrogram(
+        np.sin(2 * np.pi * 220 * x[:16000]).astype(np.float32), enc.filters)
+    mel_d = torch.from_numpy(mel).to(dev)
+    state = whisper.WhisperState.create(enc.cfg, device=dev)
+    params_apm = enc.params
+    apm_ms = cuda_ms(lambda: whisper.encode_chunk(params_apm, enc.cfg, mel_d, state),
+                     SPOKEN_APM_ITERS)
+
+    full = [wt for toks, fin, _, wt in windows if len(toks) == 28 and not fin]
+    win_ms = 1e3 * float(np.median(full)) if full else float("nan")
+    n_codes = sum(c for _, c, _ in tts_runs)
+    stats = {
+        "write_s": write_s, "load_s": load_s, "cpu_copies_s": cpu_s, "round_s": round_s,
+        "text": res["text"], "text_chars": len(res["text"]), "tts_chunks": tts_runs,
+        "audio_codes": n_codes, "windows": len(windows),
+        "window_codes": [len(t) for t, _, _, _ in windows],
+        "window_ms": [1e3 * wt for _, _, _, wt in windows],
+        "apm_ms_per_1s_chunk": apm_ms, "tts_ms_per_code": tts_ms,
+        "tts_round_ms_per_code": 1e3 * sum(t for _, _, t in tts_runs) / max(n_codes, 1),
+        "t2w_ms_per_window": win_ms, "t2w_rtf": win_ms / 1e3,
+        "prefill_end_to_first_wave_ms": first_wave_ms, "peak_gib": peak_gib,
+        "resident_gib": resident_gib, "llm_gib": llm_gib,
+        "tts_teacher_forced_rel": tf_rel, "tts_teacher_forced_argmax": tf_argmax,
+        "t2w_window_max_abs_err": t2w_err, "t2w_window_rms": w_stats["rms"],
+        "t2w_window_clamped": w_stats["clamped"],
+        "first_wave_held_ms": held_ms[True], "first_wave_not_held_ms": held_ms[False],
+        "llm_forward_calls": len(rows),
+        "phase_s": time.perf_counter() - t_phase}
+    print(f"  spoken APM ({smi}): {apm_ms:.3f} ms a 1 s chunk (24 x 1024, 50 conv "
+          f"frames -> 10 rows; CUDA events over {SPOKEN_APM_ITERS})", flush=True)
+    print(f"  spoken TTS ({smi}): {tts_ms:.3f} ms an audio code (a "
+          f"{SPOKEN_TF_STEPS}-code scan, CUDA events; no host sync inside); the "
+          f"round's {n_codes} codes at {stats['tts_round_ms_per_code']:.3f} ms a code "
+          f"(host clock, reads included); teacher-forced vs CPU {tf_rel:.3g} of "
+          f"max|logit|, argmax agreement {tf_argmax:.3f}", flush=True)
+    print(f"  spoken Token2Wav ({smi}): {win_ms:.3f} ms a full window (median of "
+          f"{len(full)}), RTF {win_ms / 1e3:.4f}; {len(windows)} windows; one window "
+          f"vs CPU max |diff| {t2w_err:.3g} (the wave's RMS {w_stats['rms']:.4g}, "
+          f"{w_stats['clamped']:.4g} of its samples at the clamp)", flush=True)
+    print(f"  spoken first wave ({smi}): end of prefill to first wave in rounds of "
+          f"two TTS scans, the second held for the first window "
+          f"{[round(t, 1) for t in held_ms[True]]} ms, not held "
+          f"{[round(t, 1) for t in held_ms[False]]} ms", flush=True)
+    print(f"  spoken round ({smi}): end of prefill to first wave {first_wave_ms:.1f} ms; "
+          f"peak memory {peak_gib:.3f} GiB, {resident_gib:.3f} GiB resident at the "
+          f"phase's start (the LLM {llm_gib:.3f} GiB; the rest earlier phases' "
+          f"weights), so the round's modules and state {peak_gib - resident_gib:.3f} "
+          f"GiB (the reference's ~9 GB is its RTX 4090 figure); "
+          f"{len(res['text'])} chars of text; round {round_s:.2f} s; "
+          f"write {write_s:.1f} s, load {load_s:.1f} s, CPU copies {cpu_s:.1f} s; "
+          f"LLM launches {nonzero(launches)} = its {len(rows)} forward calls'",
+          flush=True)
+    return launches, stats
+
+
 def teacher_forced(cfg, params, dev, dm, qwen3, prompts, against: str,
                    kv_dtype="bf16") -> dict:
     """Logits of the kernel path, the plain path and the f64 path (every
@@ -2037,20 +2352,22 @@ def main() -> int:
         phase(label, t_start, json.dumps({"launches": nonzero(launches), **stats,
                                           "teacher_forced": tf}))
 
-    def fused_ffn_turn(path, label, params, want_step, want_ubatch, against, n_prompts):
-        """The model served once more with the fused FFN switched on
-        (qwen3.FUSED_FFN, the JAX package's OMNI_FUSED_FFN=1): every layer's
-        gated FFN one launch of kernel I."""
+    def fused_ffn_turn(path, label, params, want_step, want_ubatch, against, n_prompts,
+                       model_cfg=None):
+        """The model (of `model_cfg`, Qwen3-8B by default) served once more
+        with the fused FFN switched on (qwen3.FUSED_FFN, the JAX package's
+        OMNI_FUSED_FFN=1): every layer's gated FFN one launch of kernel I."""
+        mcfg = model_cfg or cfg
         t0 = time.perf_counter()
         saved = qwen3.FUSED_FFN
         qwen3.FUSED_FFN = True
         try:
             rng = torch.Generator().manual_seed(0)
-            launches, stats = serve_turn(f"{label}, fused FFN", cfg, params, dev, qwen3,
+            launches, stats = serve_turn(f"{label}, fused FFN", mcfg, params, dev, qwen3,
                                          want_step, want_ubatch, rng)
             prompts = [torch.randint(0, 1000, (N_PREFILL,), generator=rng).numpy()
                        for _ in range(n_prompts)]
-            tf = teacher_forced(cfg, params, dev, dm, qwen3, prompts, against)
+            tf = teacher_forced(mcfg, params, dev, dm, qwen3, prompts, against)
         finally:
             qwen3.FUSED_FFN = saved
         finish(path, f"served-turn-{path.replace('_', '-')}", launches, stats, tf, t0)
@@ -2139,6 +2456,11 @@ def main() -> int:
     t0 = time.perf_counter()
     launches, stats = session_phase(cfg, params, tok, dev, qwen3, smi)
     finish("q4_k_m_session", "session", launches, stats, None, t0)
+
+    # ---- the same model: a spoken round (APM, TTS, Token2Wav) --------------
+    t0 = time.perf_counter()
+    launches, stats = spoken_phase(cfg, params, qts, tok, dev, qwen3, smi, args.seed)
+    finish("q4_k_m_spoken", "spoken-round", launches, stats, None, t0)
     del params, qts, tok
 
     # ---- path 3: Q5_K_M Qwen3-8B from a GGUF file (G, B's Q5_K branch, C, D)
@@ -2230,7 +2552,9 @@ def main() -> int:
             continue
         del params, qts
 
-    # ---- path 5: Q8_0 Qwen3-8B from a GGUF file (kernels E and D) ----------
+    # ---- path 5: Q8_0 Qwen3-8B from a GGUF file (kernels E and D), at
+    # CUT_LAYERS ---------------------------------------------------------------
+    q8_cfg = dataclasses.replace(cfg, n_layers=CUT_LAYERS)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         free = shutil.disk_usage(tmp).free
@@ -2238,47 +2562,46 @@ def main() -> int:
             raise SystemExit(f"the Q8_0 Qwen3-8B GGUF needs {Q8_0_FILE_BYTES / 1e9:.1f} "
                              f"GB free in {tempfile.gettempdir()} ($TMPDIR); it has "
                              f"{free / 1e9:.2f} GB")
-        params, qts, io, _ = write_and_load(cfg, "Q8_0", dev, qwen3, tmp, args.seed)
-    if len(qts) != N_UNFUSED or any(w.ggml_type != GGMLType.Q8_0 for w in qts):
-        raise SystemExit(f"want {N_UNFUSED} Q8_0 weights, got "
+        params, qts, io, _ = write_and_load(q8_cfg, "Q8_0", dev, qwen3, tmp, args.seed)
+    if len(qts) != N_Q8_0 or any(w.ggml_type != GGMLType.Q8_0 for w in qts):
+        raise SystemExit(f"want {N_Q8_0} Q8_0 weights, got "
                          f"{sorted(str(w.ggml_type.name) for w in qts)[:4]}...")
     phase("gguf-q8_0", t0, f"{json.dumps(io)}; {len(qts)} Q8_0 weights, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
     t0 = time.perf_counter()
     rng = torch.Generator().manual_seed(0)
-    launches, stats = serve_turn("Q8_0 from GGUF", cfg, params, dev, qwen3,
-                                 {**zero, "q8_0_gemv": N_UNFUSED},
-                                 {**zero, "qgemm": N_UNFUSED,
-                                  "qgemm Q8_0": N_UNFUSED}, rng)
-    tf = teacher_forced(cfg, params, dev, dm, qwen3, tf_prompts(rng, "f64_near_tie"),
+    launches, stats = serve_turn("Q8_0 from GGUF", q8_cfg, params, dev, qwen3,
+                                 {**zero, "q8_0_gemv": N_Q8_0},
+                                 {**zero, "qgemm": N_Q8_0, "qgemm Q8_0": N_Q8_0}, rng)
+    tf = teacher_forced(q8_cfg, params, dev, dm, qwen3, tf_prompts(rng, "f64_near_tie"),
                         "f64_near_tie")
     del qts
     finish("q8_0_gguf", "served-turn-q8_0", launches, {**stats, **io}, tf, t0)
     # the same model fused with the fused FFN: E and D take wqkv, wo and the
     # Q8_0 head, kernel I every FFN
     fuse_in_place(params)
-    per_step = 2 * cfg.n_layers + 1
-    ffn = ffn_launches({"Q8_0/Q8_0": cfg.n_layers})
+    per_step = 2 * q8_cfg.n_layers + 1
+    ffn = ffn_launches({"Q8_0/Q8_0": q8_cfg.n_layers})
     fused_ffn_turn("q8_0_gguf_fused_ffn", "Q8_0", params,
                    {**zero, "q8_0_gemv": per_step, **ffn},
                    {**zero, "qgemm": per_step, "qgemm Q8_0": per_step, **ffn},
-                   "f64_near_tie", args.near_tie_prompts)
+                   "f64_near_tie", args.near_tie_prompts, q8_cfg)
     del params
 
     # ---- path 6: IQ4_NL, IQ4_XS and MXFP4 Qwen3-8B from GGUF files (kernel
     # E's codebook entries, D's codebook branches, C, D) ---------------------
-    cb_cfg = dataclasses.replace(cfg, n_layers=CODEBOOK_LAYERS)
+    cb_cfg = dataclasses.replace(cfg, n_layers=CUT_LAYERS)
     for recipe in CODEBOOK_RECIPES:
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             params, qts, io, _ = write_and_load(cb_cfg, recipe, dev, qwen3, tmp, args.seed)
         fmt = GGMLType[recipe]
         counts = [sum(w.ggml_type == t for w in qts) for t in (fmt, GGMLType.Q6_K)]
-        if counts != [N_CODEBOOK, 1] or len(qts) != N_CODEBOOK + 1:
+        if counts != [N_CUT, 1] or len(qts) != N_CUT + 1:
             raise SystemExit(f"{counts} {recipe} and Q6_K weights of {len(qts)}, "
-                             f"want {[N_CODEBOOK, 1]} of {N_CODEBOOK + 1}")
+                             f"want {[N_CUT, 1]} of {N_CUT + 1}")
         phase(f"gguf-{recipe.lower()}", t0,
-              f"{json.dumps(io)}; {N_CODEBOOK} {recipe} + 1 Q6_K weights, "
+              f"{json.dumps(io)}; {N_CUT} {recipe} + 1 Q6_K weights, "
               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
         layer_qts = [w for w in qts if w.ggml_type == fmt]
         io["layer_planes_gb"] = sum(w.nbytes for w in layer_qts) / 1e9
@@ -2295,8 +2618,8 @@ def main() -> int:
         rng = torch.Generator().manual_seed(0)
         launches, stats = serve_turn(
             f"{recipe} from GGUF", cb_cfg, params, dev, qwen3,
-            {**zero, dm.CODEBOOK_GEMV[fmt]: N_CODEBOOK, "q6k_gemv": 1},
-            {**zero, "qgemm": N_CODEBOOK + 1, f"qgemm {recipe}": N_CODEBOOK,
+            {**zero, dm.CODEBOOK_GEMV[fmt]: N_CUT, "q6k_gemv": 1},
+            {**zero, "qgemm": N_CUT + 1, f"qgemm {recipe}": N_CUT,
              "qgemm Q6_K": 1}, rng)
         tf = teacher_forced(cb_cfg, params, dev, dm, qwen3,
                             tf_prompts(rng, CODEBOOK_AGAINST[recipe]),
@@ -2305,38 +2628,40 @@ def main() -> int:
         finish(f"{recipe.lower()}_gguf", f"served-turn-{recipe.lower()}", launches,
                {**stats, **io}, tf, t0)
 
-    # ---- path 7: Q2_K and Q3_K Qwen3-8B from GGUF files (kernel H, D's
-    # low-bit branches, C, D) -------------------------------------------------
+    # ---- path 7: Q2_K and Q3_K Qwen3-8B from GGUF files at CUT_LAYERS
+    # (kernel H, D's low-bit branches, C, D) ----------------------------------
+    lb_cfg = dataclasses.replace(cfg, n_layers=CUT_LAYERS)
     for recipe in LOWBIT_RECIPES:
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-            params, qts, io, _ = write_and_load(cfg, recipe, dev, qwen3, tmp, args.seed)
+            params, qts, io, _ = write_and_load(lb_cfg, recipe, dev, qwen3, tmp, args.seed)
         fmt = GGMLType[recipe]
         counts = [sum(w.ggml_type == t for w in qts) for t in (fmt, GGMLType.Q6_K)]
-        if counts != [N_LOWBIT, 1] or len(qts) != N_UNFUSED:
+        if counts != [N_CUT, 1] or len(qts) != N_CUT + 1:
             raise SystemExit(f"{counts} {recipe} and Q6_K weights of {len(qts)}, "
-                             f"want {[N_LOWBIT, 1]} of {N_UNFUSED}")
+                             f"want {[N_CUT, 1]} of {N_CUT + 1}")
         phase(f"gguf-{recipe.lower()}", t0,
-              f"{json.dumps(io)}; {N_LOWBIT} {recipe} + 1 Q6_K weights, "
+              f"{json.dumps(io)}; {N_CUT} {recipe} + 1 Q6_K weights, "
               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
         t0 = time.perf_counter()
         rng = torch.Generator().manual_seed(0)
         launches, stats = serve_turn(
-            f"{recipe} from GGUF", cfg, params, dev, qwen3,
-            {**zero, dm.LOWBIT_GEMV[fmt]: N_LOWBIT, "q6k_gemv": 1},
-            {**zero, "qgemm": N_LOWBIT + 1, f"qgemm {recipe}": N_LOWBIT,
+            f"{recipe} from GGUF", lb_cfg, params, dev, qwen3,
+            {**zero, dm.LOWBIT_GEMV[fmt]: N_CUT, "q6k_gemv": 1},
+            {**zero, "qgemm": N_CUT + 1, f"qgemm {recipe}": N_CUT,
              "qgemm Q6_K": 1}, rng)
-        tf = teacher_forced(cfg, params, dev, dm, qwen3,
+        tf = teacher_forced(lb_cfg, params, dev, dm, qwen3,
                             tf_prompts(rng, LOWBIT_AGAINST[recipe]),
                             LOWBIT_AGAINST[recipe])
         del params, qts
         finish(f"{recipe.lower()}_gguf", f"served-turn-{recipe.lower()}", launches,
                {**stats, **io}, tf, t0)
 
-    # ---- path 8: F16 Qwen3-8B, dense bf16 weights (no hand kernel) ---------
+    # ---- path 8: F16 Qwen3-8B, dense bf16 weights (no hand kernel) -------
+    f16_cfg = cfg
     t0 = time.perf_counter()
     params = synth_qwen3_dense_params(
-        cfg, dev, torch.Generator(device=dev).manual_seed(args.seed))
+        f16_cfg, dev, torch.Generator(device=dev).manual_seed(args.seed))
     torch.cuda.synchronize()
     dense_gb = sum(w.numel() * w.element_size() for lp in params["layers"]
                    for w in lp.values() if w.dim() == 2) / 1e9 + \
@@ -2345,17 +2670,17 @@ def main() -> int:
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
     t0 = time.perf_counter()
     rng = torch.Generator().manual_seed(0)
-    launches, stats = serve_turn("F16 dense", cfg, params, dev, qwen3,
+    launches, stats = serve_turn("F16 dense", f16_cfg, params, dev, qwen3,
                                  zero, zero, rng)
-    step_alloc, step_base = decode_step_alloc(cfg, params, dev, qwen3, rng)
+    step_alloc, step_base = decode_step_alloc(f16_cfg, params, dev, qwen3, rng)
     print(f"  F16 decode step: peak allocation {step_alloc / 1e6:.3f} MB above "
           f"the {step_base / 2**30:.2f} GiB before it (limit "
           f"{DECODE_STEP_ALLOC_LIMIT / 1e6:.0f} MB)", flush=True)
     if step_alloc >= DECODE_STEP_ALLOC_LIMIT:
         raise SystemExit(f"an F16 decode step allocates {step_alloc / 1e6:.1f} MB "
                          f"above its start, limit {DECODE_STEP_ALLOC_LIMIT / 1e6:.0f}")
-    tf = teacher_forced(cfg, params, dev, dm, qwen3, tf_prompts(rng, "f64_near_tie"),
-                        "f64_near_tie")
+    tf = teacher_forced(f16_cfg, params, dev, dm, qwen3,
+                        tf_prompts(rng, "f64_near_tie"), "f64_near_tie")
     del params
     finish("f16_dense", "served-turn-f16", launches,
            {**stats, "decode_step_alloc_mb": step_alloc / 1e6,
@@ -2447,7 +2772,7 @@ def main() -> int:
     codebook_rows = [(dm.CODEBOOK_GEMV[GGMLType[f]], f, 1, CODEBOOK_CALLS,
                       codebook_work[f].format(m=1)) for f in CODEBOOK_RECIPES]
     lowbit_work = {
-        f: (f"M={{m}}, the {N_LOWBIT} {f} weights of {f} Qwen3-8B: 36 x (wq, wk, "
+        f: (f"M={{m}}, the {7 * N_LAYERS} {f} weights of {f} Qwen3-8B: 36 x (wq, wk, "
             "wv, wo, gate, up, down)") for f in LOWBIT_RECIPES}
     lowbit_rows = [(dm.LOWBIT_GEMV[GGMLType[f]], f, 1, LOWBIT_CALLS,
                     lowbit_work[f].format(m=1)) for f in LOWBIT_RECIPES]
@@ -2586,7 +2911,8 @@ def main() -> int:
                                "max_abs_err": max_err[f"qffn {g}/{d}"]}
                   for g, d in QFFN_PAIRS}})
     dense = {f"per_{unit}": {**summed("dense_matmul", "dense", m, UNFUSED_CALLS),
-                             "work": f"M={m}: the F16 path's 253 dense dots"}
+                             "work": f"M={m}: the 253 dense dots of a 36-layer "
+                                     "F16 Qwen3-8B step"}
              for unit, m in (("token", 1), ("ubatch", N_PREFILL))}
 
     print(json.dumps({"paths": paths, "dense_matmul": dense}), flush=True)

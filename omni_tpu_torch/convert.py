@@ -7,7 +7,11 @@ K-major planes) and arrays, bf16 arrays as ml_dtypes.bfloat16. Quantized
 planes are transposed from [K', N] to the port's [N, K'], a pure
 permutation of their bytes; the codebook formats' int8 value planes become
 the port's nibble-index planes through the inverse codebook
-(`qformats.codebook_plane`). It imports nothing of the JAX package.
+(`qformats.codebook_plane`). The spoken round's trees come across the
+same way: the APM's, the TTS decoder's and its extras (then
+`tts.with_bf16`), the conformer's, the DiT's, the flow extras' and
+HiFiGAN's (its resblocks' lists of (weight, bias) tuples), f32 arrays as
+f32 tensors. It imports nothing of the JAX package.
 """
 
 from __future__ import annotations

@@ -216,7 +216,8 @@ class GGUFWriter:
                 raise ValueError(f"{name}: a lazy tensor needs its type and shape")
         elif ggml_type is None:
             ggml_type = {np.dtype(np.float32): GGMLType.F32,
-                         np.dtype(np.float16): GGMLType.F16}[data.dtype]
+                         np.dtype(np.float16): GGMLType.F16,
+                         np.dtype(np.int32): GGMLType.I32}[data.dtype]
         shape = logical_shape if logical_shape is not None else data.shape
         self._tensors.append((name, tuple(int(s) for s in shape),
                               GGMLType(ggml_type), data))

@@ -46,6 +46,9 @@ class Qwen3Config:
     n_vocab: int
     rope_base: float = 1000000.0
     rms_eps: float = 1e-6
+    # NeoX halves (qwen3) or adjacent pairs (the LLaMA-arch TTS decoder,
+    # which the JAX package sets False for llama, minicpm and minicpmtts)
+    rope_neox: bool = True
 
     @staticmethod
     def from_gguf(kv: dict[str, Any]) -> "Qwen3Config":
@@ -250,8 +253,8 @@ def forward(params: dict, cfg: Qwen3Config,
             q = rms_norm(q, lp["q_norm"], cfg.rms_eps)
         if lp.get("k_norm") is not None:
             k = rms_norm(k, lp["k_norm"], cfg.rms_eps)
-        q = apply_rope(q, pos, cfg.rope_base)
-        k = apply_rope(k, pos, cfg.rope_base)
+        q = apply_rope(q, pos, cfg.rope_base, neox=cfg.rope_neox)
+        k = apply_rope(k, pos, cfg.rope_base, neox=cfg.rope_neox)
         if deferred:
             kc, vc = cache.read_layer(li, limit=kv_limit)
             attn = mixed_attention(q, kc, vc, k, v, mask, mask_cur)
@@ -270,5 +273,10 @@ def forward(params: dict, cfg: Qwen3Config,
     hidden = rms_norm(h, params["output_norm"], cfg.rms_eps)
     head = params["output"] if params.get("output") is not None \
         else params["token_embd"]
-    logits = matmul(hidden, head, out_dtype=torch.float32)
+    if head is None:
+        # a headless decoder (the TTS read from the converter's names: its
+        # logits come from head_code); only the hidden tap is meaningful
+        logits = torch.zeros((t, 1), dtype=torch.float32, device=h.device)
+    else:
+        logits = matmul(hidden, head, out_dtype=torch.float32)
     return logits, hidden.to(torch.float32), cache

@@ -1,45 +1,82 @@
-"""The omni session orchestrator, LLM only (counterpart of
-omni_tpu/omni/pipeline.py with duplex=False, use_tts=False).
+"""The omni session orchestrator (counterpart of omni_tpu/omni/pipeline.py,
+simplex): an LLM `Context`, and for a spoken round the APM (an
+`audio_encoder` callable), the TTS `Context` with its side weights and a
+`Token2Wav` session, joined by three worker threads and bounded queues
+with the reference's cadence (omni.cpp:3713-3722): the prefill queue
+(1000 chunks of audio embeddings), the TTS queue (1 text chunk: the LLM
+never runs more than one chunk ahead of the TTS) and the Token2Wav queue
+(25 codes).
 
 A session starts with `stream_prefill(index=0, system_prompt=...)`, which
-opens the first user turn; a text turn's words go in with `prefill_text`;
-each response is one `stream_decode`, whose text arrives on the `text_out`
-queue in chunks of STEP_SIZE tokens. The prompts are MiniCPM-o's simplex
-ChatML: the system turn, then per round the user's words, the assistant
-header and the reply, closed by "<|im_end|>\n<|im_start|>user\n".
+opens the first user turn (the reference voice's audio, where given,
+conditions the LLM and sets the TTS speaker embedding); each later index
+carries one chunk of the user's audio, encoded on the caller's thread and
+prefilled by the LLM worker between <|audio_start|> and <|audio_end|>; a
+text turn's words go in with `prefill_text`. Each response is one
+`stream_decode`: its text arrives on `text_out` in chunks of STEP_SIZE
+tokens; with TTS on, each chunk and its hidden taps go to the TTS worker,
+whose audio codes stream 25 at a time to the Token2Wav worker, whose waves
+arrive on `wav_out` (and, with `output_dir`, as round_XXX/tts_wav/wav_N.wav
+and a generation_done.flag at the end of the turn). The prompts are
+MiniCPM-o's simplex ChatML.
 
 The decode loop is the JAX package's fused loop: STEP_SIZE-token chunks of
-`omni_decode_scan`, the next chunk issued before the current one's results
-are read (its `done_in` chains the previous chunk's frozen flag), so the
-host enqueues while the card runs. Mirostat, whose mu the host carries, or
-`SessionConfig(fused_decode=False)` take the host loop instead, one decode
-and one sample per token.
+`omni_decode_scan`, the next issued before the current one's results are
+read. The TTS generates in 25-code `tts_decode_scan`s the same way, each
+read once. Mirostat, or `SessionConfig(fused_decode=False)`, take the host
+loop, one decode and one sample per token.
+
+The workers are threads on one card, and every context issues its work
+on the device's one default stream, where it runs in the order issued:
+the LLM's and the TTS's calls of kernel F (whose split-merge arrival
+counters are one buffer per device) and of kernel I (one workspace per
+device and size) never overlap. A second stream would need its own
+counters and workspaces first. The workers also share one Python
+interpreter, so a TTS scan issued while Token2Wav renders a window slows
+both; the first chunk's second scan therefore waits until Token2Wav has
+rendered the turn's first window (`_hold_for_token2wav`, on an event, not
+a timeout), which brings the first wave forward. The JAX package's timed
+waits (0.4 s there, 0.5 s in the LLM loop) are not copied.
 
 Every finished round is recorded (`rounds`); past `max_preserved_context`
-the oldest whole rounds are evicted, never the `n_keep` cells of the system
-prompt, and the later cells shift down with `Context.seq_add` (K
-re-rotated). `session_state_bytes` saves the KV pool and the round window
-in the JAX package's layout.
+the oldest whole rounds are evicted, never the `n_keep` cells of the
+system prompt, and the later cells shift down (`Context.seq_add`).
+`session_state_bytes` saves the LLM's KV pool and the round window in the
+JAX package's layout.
 
-Duplex, TTS and Token2Wav and the encoders (audio, image: `stream_prefill`
-index > 0) are later slices.
+Not ported yet, and refused by name: duplex sessions and their unit
+window, images (the VPM, omni/image.py and the <image>/<slice>
+protocol), and a saved duplex session.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import io
+import os
 import pickle
 import queue
 import threading
+import time
+from typing import Any, Callable
 
 import numpy as np
 import torch
 
+from ..models import tts as tts_mod
 from ..runtime import Batch, Context, KVCacheFull
 from ..runtime.loop import _scalar, omni_decode_scan
 
+# queue capacities (omni.cpp:3713-3722)
+PREFILL_QUEUE_CAP = 1000
+TTS_QUEUE_CAP = 1
+T2W_QUEUE_CAP = 25
+
 STEP_SIZE = 10  # LLM tokens per chunk (omni.cpp:9120)
+SIMPLEX_AUDIO_CAP = 500  # audio codes per text chunk (omni.cpp:4976)
+T2W_MAIN = 25
+T2W_LOOKAHEAD = 3
+SILENCE_TOKEN = 4218
 
 SPECIALS = [
     "<|speak|>", "<|listen|>", "<|chunk_eos|>", "<|chunk_tts_eos|>",
@@ -57,15 +94,29 @@ SIMPLEX_TURN_END = "<|im_end|>\n<|im_start|>user\n"
 
 @dataclasses.dataclass
 class SessionConfig:
-    """Session config; this slice serves duplex=False, use_tts=False."""
+    """Session config (simplex; duplex is refused)."""
 
     duplex: bool = False
-    use_tts: bool = False
+    use_tts: bool = False  # needs the TTS context and Token2Wav too
     # the fused decode loop (STEP_SIZE-token chunks a host dispatch);
     # mirostat takes the host loop whatever this says
     fused_decode: bool = True
     max_preserved_context: int = 3072  # round-window watermark
     max_new_tokens: int = 512
+    # out-of-band audio: {output_dir}/round_XXX/tts_wav/wav_N.wav and
+    # generation_done.flag (omni-cli.cpp:370-377)
+    output_dir: str | None = None
+
+
+@dataclasses.dataclass
+class LLMOut:
+    """An LLM -> TTS chunk (struct LLMOut, omni.cpp:256)."""
+
+    text: str
+    token_ids: list[int]
+    hidden_states: np.ndarray  # [n, d_llm] f32
+    end_of_turn: bool = False
+    is_final: bool = False
 
 
 @dataclasses.dataclass
@@ -77,16 +128,27 @@ class RoundBoundary:
 
 
 class OmniPipeline:
-    """Session orchestrator over an injected LLM `Context` and tokenizer."""
+    """Session orchestrator over injected contexts: the LLM `Context` and
+    tokenizer, and for speech the TTS `Context` and its extras
+    (`tts.load_params`), a `Token2Wav` session and an `audio_encoder`
+    (wav [n] f32 at 16 kHz -> LLM rows [n / 1600, d])."""
 
-    def __init__(self, llm: Context, tokenizer,
-                 config: SessionConfig | None = None):
+    def __init__(self, llm: Context, tokenizer, config: SessionConfig | None = None,
+                 *, tts_ctx: Context | None = None, tts_extras: dict | None = None,
+                 token2wav=None, audio_encoder: Callable | None = None):
         self.cfg = config or SessionConfig()
-        if self.cfg.duplex or self.cfg.use_tts:
+        if self.cfg.duplex:
             raise NotImplementedError(
-                "duplex and TTS sessions are not ported yet")
+                "duplex sessions (and their <unit> window) are not ported yet")
+        if self.cfg.use_tts and (tts_ctx is None or tts_extras is None
+                                 or token2wav is None):
+            raise ValueError("use_tts needs tts_ctx, tts_extras and token2wav")
         self.llm = llm
         self.tok = tokenizer
+        self.tts_ctx = tts_ctx
+        self.tts_extras = tts_extras
+        self.t2w = token2wav
+        self.audio_encoder = audio_encoder
         self.special = {}
         for s in SPECIALS:
             tid = tokenizer.vocab.token_to_id.get(s)
@@ -99,6 +161,62 @@ class OmniPipeline:
         self.n_keep = 0  # cells of the system prompt, never evicted
         self.rounds: list[RoundBoundary] = []
         self.current_round = 0
+        # the workers, their queues and their flags
+        self.embed_queue: queue.Queue = queue.Queue(PREFILL_QUEUE_CAP)
+        self.tts_queue: queue.Queue = queue.Queue(TTS_QUEUE_CAP)
+        self.t2w_queue: queue.Queue = queue.Queue(T2W_QUEUE_CAP)
+        self.wav_out: queue.Queue = queue.Queue()
+        self.session_stop = threading.Event()
+        self.prefill_done = threading.Event()
+        self.prefill_done.set()
+        self._prefill_pending = 0  # chunks queued or being prefilled
+        self._prefill_mtx = threading.Lock()
+        self.llama_mtx = threading.RLock()  # the LLM context's (omni.h:287)
+        self._threads: list[threading.Thread] = []
+        self._workers_started = False
+        # work handed to the TTS and Token2Wav workers and not yet done
+        # (a queue's emptiness cannot see an item a worker has taken)
+        self._tts_pending = 0
+        self._t2w_pending = 0
+        self._counts_changed = threading.Condition(self._prefill_mtx)
+        self.last_error: Exception | None = None  # a worker's error
+        # the TTS: the speaker embedding prepended at chunk 0 (the default
+        # voice until a reference audio sets it at session init), the
+        # sampler's generator (the JAX pipeline's PRNGKey(0)), Token2Wav's
+        # window primed with 3 silence codes
+        self.spk_embed: torch.Tensor | None = None
+        if tts_extras is not None:
+            self.spk_embed = tts_mod.speaker_embed(tts_extras)
+        self._tts_gen = (torch.Generator(device=tts_ctx.device).manual_seed(0)
+                         if tts_ctx is not None else None)
+        self._t2w_buffer: list[int] = [SILENCE_TOKEN] * T2W_LOOKAHEAD
+        self._wav_index = 0
+
+    @property
+    def speaking(self) -> bool:
+        """The turn's text goes to the TTS."""
+        return self.cfg.use_tts and self.tts_ctx is not None
+
+    def busy(self) -> bool:
+        """True while a stage holds queued or in-flight work."""
+        with self._prefill_mtx:
+            return (self._prefill_pending + self._tts_pending
+                    + self._t2w_pending) > 0
+
+    def _count(self, name: str, delta: int) -> None:
+        with self._counts_changed:
+            setattr(self, name, getattr(self, name) + delta)
+            self._counts_changed.notify_all()
+
+    def _wake_waiters(self) -> None:
+        with self._counts_changed:
+            self._counts_changed.notify_all()
+
+    def _put(self, q: queue.Queue, name: str, item) -> None:
+        """Count the item as pending, then enqueue it (blocking at the
+        queue's capacity: the back-pressure)."""
+        self._count(name, 1)
+        q.put(item)
 
     # ------------------------------------------------------------------ util
     def _encode(self, text: str) -> np.ndarray:
@@ -107,9 +225,17 @@ class OmniPipeline:
     def _eval_text(self, text: str):
         toks = self._encode(text)
         if len(toks):
-            logits, _ = self.llm.decode(Batch(tokens=toks), block=False)
+            with self.llama_mtx:
+                logits, _ = self.llm.decode(Batch(tokens=toks), block=False)
             return logits[-1]
         return None
+
+    def _eval_embeds(self, emb, return_hidden: bool = False):
+        """LLM rows [T, d] into the KV; their hidden states where asked."""
+        with self.llama_mtx:
+            _, hidden = self.llm.decode(Batch(embeds=emb),
+                                        return_hidden=return_hidden, block=False)
+        return hidden
 
     def is_end_token(self, tid: int) -> bool:
         return any(self.special.get(n) == tid
@@ -138,16 +264,76 @@ class OmniPipeline:
         return self._end_ids_cache
 
     # ------------------------------------------------------------- prefill
-    def stream_prefill(self, index: int = 0, system_prompt: str = "") -> None:
-        """Session init (index 0): evaluate the simplex system prompt. Later
-        indices carry audio/image chunks, which need the encoders."""
-        if index != 0:
+    def stream_prefill(self, audio: np.ndarray | None = None,
+                       image: np.ndarray | None = None, index: int = 0,
+                       system_prompt: str = "",
+                       ref_audio: np.ndarray | None = None,
+                       frames: list | None = None) -> None:
+        """One 1 s chunk of the session (omni.cpp:8637). Index 0 is session
+        init: the system prompt with the reference voice's audio (`ref_audio`,
+        else the chunk's audio) between <|audio_start|> and <|audio_end|>,
+        whose hidden states also set the TTS speaker embedding; the
+        workers start. A later index's audio is encoded here and queued
+        for the LLM worker. Images (`image`, `frames`) are refused."""
+        if image is not None or frames:
             raise NotImplementedError(
-                "audio/image prefill chunks need the encoders (later slice)")
-        self._eval_text("<|im_start|>system\n" + (system_prompt or "")
-                        + "\n<|audio_start|>")
-        self._eval_text("<|audio_end|><|im_end|>\n<|im_start|>user\n")
-        self.n_keep = self.llm.n_past.get(0, 0)
+                "images are not ported yet: the VPM (siglip.py), "
+                "omni/image.py and the <image>/<slice> protocol")
+        if index == 0:
+            if ref_audio is None and audio is not None:
+                ref_audio = audio  # the server passes the voice as chunk 0
+            self._eval_text("<|im_start|>system\n" + (system_prompt or "")
+                            + "\n<|audio_start|>")
+            if ref_audio is not None and self.audio_encoder is not None:
+                hid = self._eval_embeds(self.audio_encoder(ref_audio),
+                                        return_hidden=True)
+                if self.tts_extras is not None:
+                    self.spk_embed = tts_mod.speaker_embed(self.tts_extras, hid)
+            self._eval_text("<|audio_end|><|im_end|>\n<|im_start|>user\n")
+            self.n_keep = self.llm.n_past.get(0, 0)
+            self._start_workers()
+            return
+        if audio is None or self.audio_encoder is None:
+            raise ValueError("a prefill chunk past index 0 needs audio and the "
+                             "audio encoder")
+        item: dict[str, Any] = {"index": index,
+                                "audio_embeds": self.audio_encoder(audio)}
+        with self._prefill_mtx:
+            self._prefill_pending += 1
+            self.prefill_done.clear()
+        self._start_workers()
+        self.embed_queue.put(item)
+
+    def _llm_prefill_worker(self) -> None:
+        """Audio embeddings into the LLM's KV between the simplex markers
+        (llm_thread_func, omni.cpp:4229-4425)."""
+        while not self.session_stop.is_set():
+            try:
+                item = self.embed_queue.get(timeout=0.01)
+            except queue.Empty:
+                continue
+            try:
+                with self.llama_mtx:
+                    self._eval_text("<|audio_start|>")
+                    self._eval_embeds(item["audio_embeds"])
+                    self._eval_text("<|audio_end|>")
+            except Exception as e:  # noqa: BLE001 - surfaced on the session
+                self.last_error = e
+            finally:
+                with self._prefill_mtx:
+                    self._prefill_pending -= 1
+                    if self._prefill_pending == 0:
+                        self.prefill_done.set()
+
+    def _wait_prefill(self) -> None:
+        """Wait until every queued chunk is in the KV; a worker's error is
+        raised here."""
+        while not self.prefill_done.wait(timeout=0.05):
+            if self.last_error is not None:
+                break
+        if self.last_error is not None:
+            err, self.last_error = self.last_error, None
+            raise RuntimeError("a pipeline worker failed") from err
 
     def prefill_text(self, text: str) -> None:
         """The words of the open user turn, evaluated into the KV: the text
@@ -163,19 +349,22 @@ class OmniPipeline:
         become one round of the window; past max_preserved_context the
         oldest rounds are evicted (`_slide_window_if_needed`)."""
         limit = max_new_tokens or self.cfg.max_new_tokens
+        self._wait_prefill()
         self.break_event.clear()
         if round_idx >= 0:
             self.current_round = round_idx
+        self._wav_index = 0
         round_start = self.llm.n_past.get(0, 0)
         last_logits = self._eval_text(SIMPLEX_ASSISTANT_PROMPT)
         chunk_tokens: list[int] = []
+        chunk_hiddens: list[np.ndarray] = []
         if self.cfg.fused_decode and self.llm.sampler.mirostat == 0:
             _, ended_with_listen = self._decode_loop_fused(
-                last_logits, limit, chunk_tokens)
+                last_logits, limit, chunk_tokens, chunk_hiddens)
         else:
             _, ended_with_listen = self._decode_loop_host(
-                last_logits, limit, chunk_tokens)
-        self._emit_chunk(chunk_tokens)
+                last_logits, limit, chunk_tokens, chunk_hiddens)
+        self._emit_chunk(chunk_tokens, chunk_hiddens, True)
         if not ended_with_listen:
             self._eval_text(SIMPLEX_TURN_END)
         self.rounds.append(RoundBoundary(round_start, self.llm.n_past.get(0, 0)))
@@ -183,8 +372,8 @@ class OmniPipeline:
         self.text_out.put({"content": "", "stop": True,
                            "end_of_turn": not ended_with_listen})
 
-    def _decode_loop_host(self, last_logits, limit: int,
-                          chunk_tokens: list[int]) -> tuple[int, bool]:
+    def _decode_loop_host(self, last_logits, limit: int, chunk_tokens: list[int],
+                          chunk_hiddens: list[np.ndarray]) -> tuple[int, bool]:
         """One decode and one sample per token (`Context.sample_token`,
         which carries mirostat's mu); the protocol of the fused loop.
         Returns (tokens sampled, ended on <|listen|>)."""
@@ -192,10 +381,13 @@ class OmniPipeline:
         tok = None
         while n_new < limit and not self.break_event.is_set():
             if tok is not None:
-                logits, _ = self.llm.decode(Batch(tokens=np.array([tok])))
+                with self.llama_mtx:
+                    logits, hidden = self.llm.decode(
+                        Batch(tokens=np.array([tok])), return_hidden=True)
                 last_logits = logits[0]
                 if self.is_valid_tts_token(tok):
                     chunk_tokens.append(tok)
+                    chunk_hiddens.append(hidden[0].cpu().numpy())
             tok = self.llm.sample_token(last_logits)
             n_new += 1
             if self.special.get("<|listen|>") == tok:
@@ -205,8 +397,8 @@ class OmniPipeline:
             if self.is_end_token(tok):
                 return n_new, False
             if len(chunk_tokens) >= STEP_SIZE:
-                self._emit_chunk(chunk_tokens)
-                del chunk_tokens[:]
+                self._emit_chunk(chunk_tokens, chunk_hiddens)
+                del chunk_tokens[:], chunk_hiddens[:]
         return n_new, False
 
     def _issue(self, st: dict, stop_feed: int, inflight: list[int],
@@ -222,19 +414,20 @@ class OmniPipeline:
                                 + inflight[0] + STEP_SIZE) > kvb:
             kvb = turn_kvb[0] = llm.kv_bucket(
                 max(llm.kv_high, llm.cells_used) + inflight[0] + STEP_SIZE)
-        packed, hiddens, st["logits"], llm.cache, st["prev"], \
-            st["pos"], st["done"] = omni_decode_scan(
-                llm._forward, llm._embed, llm.cfg, llm.params, llm.cache,
-                st["logits"], st["pos"], 0, st["prev"],
-                n_steps=STEP_SIZE, sp=llm.sampler, end_ids=self._end_ids(),
-                listen_id=self.special.get("<|listen|>", -3),
-                stop_after=min(stop_feed, STEP_SIZE), done_in=st["done"],
-                kv_limit=kvb, generator=llm.generator)
+        with self.llama_mtx:
+            packed, hiddens, st["logits"], llm.cache, st["prev"], \
+                st["pos"], st["done"] = omni_decode_scan(
+                    llm._forward, llm._embed, llm.cfg, llm.params, llm.cache,
+                    st["logits"], st["pos"], 0, st["prev"],
+                    n_steps=STEP_SIZE, sp=llm.sampler, end_ids=self._end_ids(),
+                    listen_id=self.special.get("<|listen|>", -3),
+                    stop_after=min(stop_feed, STEP_SIZE), done_in=st["done"],
+                    kv_limit=kvb, generator=llm.generator)
         inflight[0] += STEP_SIZE
         return packed, hiddens
 
-    def _decode_loop_fused(self, last_logits, limit: int,
-                           chunk_tokens: list[int]) -> tuple[int, bool]:
+    def _decode_loop_fused(self, last_logits, limit: int, chunk_tokens: list[int],
+                           chunk_hiddens: list[np.ndarray]) -> tuple[int, bool]:
         """The served hot loop: STEP_SIZE-token chunks, each issued before
         the previous one's tokens are read (one host sync per chunk, none
         per token). Returns (tokens sampled, ended on <|listen|>)."""
@@ -277,15 +470,19 @@ class OmniPipeline:
                     >= STEP_SIZE):
                 spec = self._issue(st, b_spec, inflight, turn_kvb)
             packed_np = pending[0].cpu().numpy()  # the chunk's one sync
+            # the hidden taps, read only for the TTS
+            hid_np = pending[1].cpu().numpy() if self.speaking else None
             n_fed = account(packed_np)
             n_new += n_fed
-            for t in packed_np[0][:n_fed]:
+            for j, t in enumerate(packed_np[0][:n_fed]):
                 t = int(t)
                 if self.is_valid_tts_token(t):
                     chunk_tokens.append(t)
+                    if hid_np is not None:
+                        chunk_hiddens.append(hid_np[j])
                 if len(chunk_tokens) >= STEP_SIZE:
-                    self._emit_chunk(chunk_tokens)
-                    del chunk_tokens[:]
+                    self._emit_chunk(chunk_tokens, chunk_hiddens)
+                    del chunk_tokens[:], chunk_hiddens[:]
             if n_fed < STEP_SIZE:  # the chunk froze on its stop token
                 if spec is not None:  # its successor fed nothing
                     inflight[0] -= STEP_SIZE
@@ -309,10 +506,210 @@ class OmniPipeline:
         llm.prev_tokens = st["prev"]
         return n_new, ended_with_listen
 
-    def _emit_chunk(self, tokens: list[int]) -> None:
+    def _emit_chunk(self, tokens: list[int], hiddens: list[np.ndarray],
+                    final: bool = False) -> None:
+        """The chunk's text to `text_out`; with TTS, the chunk and its
+        hidden taps to the TTS worker (the queue holds one: back-pressure on
+        the LLM)."""
         text = self.tok.decode(tokens) if tokens else ""
         if text:
             self.text_out.put({"content": text, "stop": False})
+        if self.speaking:
+            self._put(self.tts_queue, "_tts_pending", LLMOut(
+                text=text, token_ids=list(tokens),
+                hidden_states=(np.stack(hiddens) if hiddens else
+                               np.zeros((0, self.llm.cfg.d_model), np.float32)),
+                end_of_turn=final, is_final=final))
+
+    # ------------------------------------------------------------------ TTS
+    def _tts_worker(self) -> None:
+        """LLMOut chunks -> audio codes to the Token2Wav queue
+        (tts_thread_func, omni.cpp:6093); a final chunk ends the turn."""
+        first_chunk = True
+        while not self.session_stop.is_set():
+            try:
+                out: LLMOut = self.tts_queue.get(timeout=0.01)
+            except queue.Empty:
+                continue
+            try:
+                if self.break_event.is_set():
+                    first_chunk = True
+                    continue
+                self._tts_generate(out, first_chunk, emit=self._emit_code)
+                first_chunk = out.is_final
+                if out.is_final:
+                    self._emit_code(None)  # the turn's end
+            except Exception as e:  # noqa: BLE001 - surfaced on the session
+                self.last_error = e
+            finally:
+                self._count("_tts_pending", -1)
+
+    def _emit_code(self, code) -> None:
+        self._put(self.t2w_queue, "_t2w_pending", code)
+
+    def _tts_generate(self, out: LLMOut, first_chunk: bool, emit=None) -> list[int]:
+        """One text chunk's audio codes: its condition prefilled into the
+        TTS context (cleared at chunk 0, whose condition starts with the
+        speaker embedding), then 25-code scans, each issued before the
+        previous one's codes are read (after the first chunk; in it, the
+        second scan waits for the first window), until audio_eos or
+        SIMPLEX_AUDIO_CAP codes. The codes go to `emit` as each scan is
+        read."""
+        if not out.token_ids and not out.is_final:
+            return []
+        ex, ctx = self.tts_extras, self.tts_ctx
+        cond = tts_mod.build_condition(
+            ex, torch.as_tensor(np.asarray(out.token_ids, np.int64)),
+            torch.as_tensor(out.hidden_states), end_of_turn=out.end_of_turn,
+            spk_embed=self.spk_embed if first_chunk else None)
+        if first_chunk:
+            # the chunk-0 condition [spk, cond..., (text_eos), audio_bos] is
+            # what the reference re-forwards for the first code
+            # (omni.cpp:2504-2518): prefilling it once into a clear KV
+            # builds the same cells
+            ctx.clear_kv()
+        _, hidden = ctx.decode(Batch(embeds=cond), return_hidden=True, block=False)
+        cap = SIMPLEX_AUDIO_CAP
+        st = {"h": hidden[-1], "prev": None, "done": None,
+              "pos": _scalar(ctx.n_past.get(0, 0), ctx.device)}
+        first_scan = [True]
+
+        def issue(n_steps):
+            codes, ctx.cache, st["h"], st["prev"], st["pos"], st["done"] = \
+                tts_mod.tts_decode_scan(
+                    ctx.params, ctx.cfg, ex, ctx.cache, st["h"], st["pos"],
+                    n_steps, first_chunk=first_chunk and first_scan[0],
+                    prev0=st["prev"], done_in=st["done"], generator=self._tts_gen)
+            first_scan[0] = False
+            return codes, n_steps
+
+        all_codes: list[int] = []
+        pending = issue(min(T2W_MAIN, cap))
+        inflight = issued = pending[1]
+        while pending is not None and not self.break_event.is_set():
+            spec = None
+            nxt = min(T2W_MAIN, cap - issued)
+            # the first chunk reads each scan before issuing the next, so
+            # its codes reach Token2Wav before more TTS work is queued
+            if (not first_chunk and nxt > 0
+                    and ctx.cache.size - ctx.cells_used - inflight >= nxt):
+                spec = issue(nxt)
+                inflight += nxt
+                issued += nxt
+            codes_np = pending[0].cpu().numpy()  # the scan's one read
+            n_valid = int((codes_np >= 0).sum())
+            inflight -= pending[1]
+            ctx.n_past[0] = ctx.n_past.get(0, 0) + n_valid
+            ctx.cells_used += n_valid  # the scan's writes bypass decode()
+            ctx.kv_high = max(ctx.kv_high, ctx.cells_used)
+            codes = codes_np[:n_valid].tolist()
+            all_codes.extend(codes)
+            if emit is not None:
+                for c in codes:
+                    emit(c)
+            if n_valid < pending[1]:  # audio_eos: a successor is a no-op
+                break
+            if spec is not None:
+                pending = spec
+                continue
+            nxt = min(T2W_MAIN, cap - issued)
+            if nxt <= 0:
+                break
+            if first_chunk and issued == T2W_MAIN and not self._hold_for_token2wav():
+                break
+            pending = issue(nxt)
+            inflight += nxt
+            issued += nxt
+        return all_codes
+
+    def _hold_for_token2wav(self) -> bool:
+        """Wait until Token2Wav has taken every code emitted so far and
+        rendered its window (3 silence codes + the first scan's 25 make the
+        turn's first window), or the turn or the session is stopped; False
+        if it was."""
+        def stopped():
+            return self.break_event.is_set() or self.session_stop.is_set()
+
+        with self._counts_changed:
+            self._counts_changed.wait_for(lambda: self._t2w_pending == 0 or stopped())
+        return not stopped()
+
+    # ------------------------------------------------------------ Token2Wav
+    def _t2w_worker(self) -> None:
+        """The 25 + 3 sliding window (t2w_thread_func, omni.cpp:8284): every
+        28 buffered codes make a window, 25 consumed; the turn's end
+        flushes the rest as the final window and primes the next turn with
+        3 silence codes."""
+        while not self.session_stop.is_set():
+            try:
+                item = self.t2w_queue.get(timeout=0.01)
+            except queue.Empty:
+                continue
+            final = item is None
+            try:
+                if not final:
+                    self._t2w_buffer.append(int(item))
+                dt = T2W_MAIN + T2W_LOOKAHEAD
+                while len(self._t2w_buffer) >= dt or (
+                        final and len(self._t2w_buffer) > T2W_LOOKAHEAD):
+                    last = final and len(self._t2w_buffer) <= dt
+                    wave = self.t2w.feed_window(
+                        np.asarray(self._t2w_buffer[:dt], np.int64), is_final=last)
+                    self.wav_out.put(wave)
+                    self._write_wav_file(wave, final=last)
+                    del self._t2w_buffer[:min(T2W_MAIN, len(self._t2w_buffer))]
+                    if last:
+                        self._t2w_buffer = [SILENCE_TOKEN] * T2W_LOOKAHEAD
+                        break
+            except Exception as e:  # noqa: BLE001 - surfaced on the session
+                self.last_error = e
+            finally:
+                self._count("_t2w_pending", -1)
+
+    def _write_wav_file(self, wave, final: bool) -> None:
+        """round_XXX/tts_wav/wav_N.wav, and generation_done.flag after the
+        turn's last window (the reference t2w thread and omni-cli)."""
+        if not self.cfg.output_dir:
+            return
+        from .audio import write_wav
+
+        rd = os.path.join(self.cfg.output_dir, f"round_{self.current_round:03d}")
+        os.makedirs(os.path.join(rd, "tts_wav"), exist_ok=True)
+        write_wav(os.path.join(rd, "tts_wav", f"wav_{self._wav_index}.wav"),
+                  np.asarray(wave, np.float32), rate=24000)
+        self._wav_index += 1
+        if final:
+            open(os.path.join(rd, "generation_done.flag"), "w").close()
+
+    # ----------------------------------------------------------- lifecycle
+    def _start_workers(self) -> None:
+        """The prefill worker where audio comes in, the TTS and Token2Wav
+        workers where the session speaks; a text session starts none."""
+        if self._workers_started:
+            return
+        fns = ([self._llm_prefill_worker] if self.audio_encoder is not None else []) + (
+            [self._tts_worker, self._t2w_worker] if self.speaking else [])
+        self._workers_started = bool(fns)
+        for fn in fns:
+            t = threading.Thread(target=fn, daemon=True)
+            t.start()
+            self._threads.append(t)
+
+    def wait_idle(self) -> None:
+        """Wait until every stage is idle (the turn's last wave out); a
+        worker's error is raised here."""
+        while self.busy() and self.last_error is None:
+            time.sleep(0.005)
+        if self.last_error is not None:
+            err, self.last_error = self.last_error, None
+            raise RuntimeError("a pipeline worker failed") from err
+
+    def shutdown(self) -> None:
+        """Stop the workers and wait for them."""
+        self.session_stop.set()
+        self._wake_waiters()
+        for t in self._threads:
+            t.join(timeout=5.0)
 
     def warm_decode(self) -> None:
         """Run one no-op chunk (done_in=True feeds nothing) at every
@@ -335,18 +732,25 @@ class OmniPipeline:
                 stop_after=0, done_in=done, kv_limit=kvb, generator=gen)
 
     def stop_speak(self) -> None:
-        """Break: stop the turn's generation at its next chunk and drop the
-        text not yet read (omni.cpp:9548)."""
+        """Break: stop the turn's generation at its next chunk (the TTS at
+        its next scan) and drop what the queues hold (omni.cpp:9548)."""
         self.break_event.set()
-        try:
-            while True:
-                self.text_out.get_nowait()
-        except queue.Empty:
-            pass
+        self._wake_waiters()
+        for q, name in ((self.tts_queue, "_tts_pending"),
+                        (self.t2w_queue, "_t2w_pending"), (self.text_out, None)):
+            try:
+                while True:
+                    q.get_nowait()
+                    if name is not None:
+                        self._count(name, -1)
+            except queue.Empty:
+                pass
 
     def clean_kvcache(self) -> None:
-        """Forget the session: the KV pool, n_keep and the round window."""
+        """Forget the session: the KV pools, n_keep and the round window."""
         self.llm.clear_kv()
+        if self.tts_ctx is not None:
+            self.tts_ctx.clear_kv()
         self.n_keep = 0
         self.rounds.clear()
 

@@ -63,6 +63,7 @@ from __future__ import annotations
 
 import collections
 import functools
+import os
 from pathlib import Path
 
 import numpy as np
@@ -551,3 +552,241 @@ def synth_qwen3_dense_params(cfg: Qwen3Config = QWEN3_8B, device=None,
             "w_gate": dense(ff, d), "w_up": dense(ff, d),
             "w_down": dense(d, ff)})
     return params
+
+
+# ---------------------------------------------------------------------------
+# the spoken round's modules at MiniCPM-o 4.5's widths: the APM, the TTS and
+# Token2Wav's four files and prompt cache, F16 weights (the reference's
+# "Full omni (NVIDIA) Q4_K_M" set keeps these modules F16), random from a
+# torch.Generator, under the names the loaders read
+# ---------------------------------------------------------------------------
+
+class _F16Writer:
+    """GGUFWriter helpers: random F16 tensors made on the generator's
+    device when written, F32 ones and zeros."""
+
+    def __init__(self, path, generator: torch.Generator):
+        self.w = GGUFWriter(path)
+        self.gen = generator
+
+    def rand(self, name: str, *shape: int, s: float = 0.02) -> None:
+        gen = self.gen
+
+        def make():
+            x = torch.randn(shape, generator=gen, device=gen.device) * s
+            return x.to(torch.float16).cpu().numpy()
+
+        self.w.add_tensor(name, make, GGMLType.F16, shape)
+
+    def const(self, name: str, n: int, value: float) -> None:
+        self.w.add_tensor(name, np.full(n, value, np.float32))
+
+    def ln(self, prefix: str, n: int) -> None:
+        self.const(prefix + ".weight", n, 1.0)
+        self.const(prefix + ".bias", n, 0.0)
+
+
+def write_apm_gguf(path, generator: torch.Generator, n_layers: int = 24,
+                   d_model: int = 1024, n_heads: int = 16, d_ff: int = 4096,
+                   n_mels: int = 80, n_audio_ctx: int = 1500,
+                   d_out: int = 4096) -> None:
+    """The Whisper-style APM (convert_apm.py's names): two convs, the
+    1,500-row positional table, 24 pre-LN layers, the final LN and the
+    1024 -> 4096 -> 4096 projector; a positive random mel filterbank."""
+    f = _F16Writer(path, generator)
+    w = f.w
+    w.add_kv("general.architecture", "whisper")
+    for key, v in (("encoder_layers", n_layers), ("d_model", d_model),
+                   ("encoder_attention_heads", n_heads), ("n_mel", n_mels),
+                   ("n_audio_ctx", n_audio_ctx), ("audio_projection_dim", d_out)):
+        w.add_kv(key, v)
+    filt = torch.rand((n_mels, 201), generator=torch.Generator().manual_seed(0)) * 0.02
+    w.add_kv("filters", filt.reshape(-1).numpy().astype(np.float32))
+    f.rand("encoder.conv1.weight", d_model, n_mels, 3, s=0.1)
+    f.rand("encoder.conv1.bias", d_model)
+    f.rand("encoder.conv2.weight", d_model, d_model, 3)
+    f.rand("encoder.conv2.bias", d_model)
+    f.rand("encoder.positional_embedding", n_audio_ctx, d_model, s=0.1)
+    f.ln("encoder.ln_post", d_model)
+    f.rand("audio_projector.linear1.weight", d_out, d_model)
+    f.rand("audio_projector.linear1.bias", d_out)
+    f.rand("audio_projector.linear2.weight", d_out, d_out)
+    f.rand("audio_projector.linear2.bias", d_out)
+    for i in range(n_layers):
+        b = f"encoder.blocks.{i}."
+        f.ln(b + "attn_ln", d_model)
+        for nm in ("query", "key", "value", "out"):
+            f.rand(b + f"attn.{nm}.weight", d_model, d_model)
+            if nm != "key":  # Whisper's k has no bias
+                f.rand(b + f"attn.{nm}.bias", d_model)
+        f.ln(b + "mlp_ln", d_model)
+        f.rand(b + "mlp.0.weight", d_ff, d_model)
+        f.rand(b + "mlp.0.bias", d_ff)
+        f.rand(b + "mlp.2.weight", d_model, d_ff)
+        f.rand(b + "mlp.2.bias", d_model)
+    w.write()
+
+
+def write_tts_gguf(path, generator: torch.Generator, n_layers: int = 20,
+                   d_model: int = 768, n_heads: int = 12, d_ff: int = 3072,
+                   d_llm: int = 4096, n_text: int = 152064,
+                   n_codes: int = 6562) -> None:
+    """The TTS: a `minicpmtts` LLaMA decoder under llama.cpp's blk.N names
+    (its token_embd the 6,562 codes, the tied head) and the side weights
+    emb_text, emb_code, head_code, projector_semantic and projector_spk."""
+    f = _F16Writer(path, generator)
+    w = f.w
+    arch = "minicpmtts"
+    w.add_kv("general.architecture", arch)
+    for key, v in (("block_count", n_layers), ("embedding_length", d_model),
+                   ("feed_forward_length", d_ff), ("attention.head_count", n_heads),
+                   ("attention.head_count_kv", n_heads),
+                   ("attention.layer_norm_rms_epsilon", 1e-6),
+                   ("rope.freq_base", 10000.0)):
+        w.add_kv(f"{arch}.{key}", v)
+    f.rand("token_embd.weight", n_codes, d_model)
+    f.const("output_norm.weight", d_model, 1.0)
+    for i in range(n_layers):
+        p = f"blk.{i}."
+        f.const(p + "attn_norm.weight", d_model, 1.0)
+        for nm in ("attn_q", "attn_k", "attn_v", "attn_output"):
+            f.rand(p + nm + ".weight", d_model, d_model)
+        f.const(p + "ffn_norm.weight", d_model, 1.0)
+        f.rand(p + "ffn_gate.weight", d_ff, d_model)
+        f.rand(p + "ffn_up.weight", d_ff, d_model)
+        f.rand(p + "ffn_down.weight", d_model, d_ff)
+    f.rand("emb_text.weight", n_text, d_model, s=0.1)
+    f.rand("emb_code.0.weight", n_codes, d_model, s=0.1)
+    f.rand("head_code.0.weight", n_codes, d_model, s=0.1)
+    for proj in ("projector_semantic", "projector_spk"):
+        f.rand(f"{proj}.linear1.weight", d_model, d_llm)
+        f.rand(f"{proj}.linear1.bias", d_model)
+        f.rand(f"{proj}.linear2.weight", d_model, d_model)
+        f.rand(f"{proj}.linear2.bias", d_model)
+    w.write()
+
+
+def write_token2wav_ggufs(dir_path, generator: torch.Generator,
+                          n_prompt_tokens: int = 50) -> dict:
+    """Token2Wav's encoder (conformer d 512, 8 heads, ffn 2048, 6 + 4
+    blocks), flow_matching (DiT depth 16, hidden 512, 8 x 64 heads, 320 ->
+    80 channels, conv k3), flow_extra (input embedding of the 6,561 speech
+    tokens, speaker affine 192 -> 80, encoder_proj 512 -> 80), hifigan2
+    (HiFT at 24 kHz: conv_pre 80 -> 512, upsampling 8, 5, 3 to 256, 128,
+    64 channels with kernels 16, 11, 7, resblocks of kernels 3, 7, 11 with
+    dilations 1, 3, 5, source resblocks of kernels 7, 7, 11, source downs
+    of kernels 29, 5, 1, an F0 predictor of five 512-wide convs) and a
+    prompt cache with a speaker x-vector and prompt tokens (primed by
+    replay). Returns the path dict, keyed as `resolve_model_paths`."""
+    os.makedirs(dir_path, exist_ok=True)
+    paths = {k: os.path.join(dir_path, f"minicpmo-{n}.gguf") for k, n in (
+        ("t2w_encoder", "encoder"), ("t2w_flow", "flow_matching"),
+        ("t2w_extra", "flow_extra"), ("t2w_vocoder", "hifigan2"),
+        ("t2w_prompt", "prompt_cache"))}
+    d, heads, ff = 512, 8, 2048
+    f = _F16Writer(paths["t2w_encoder"], generator)
+    for pre in ("embed", "up_embed"):
+        f.rand(f"{pre}.out.0.weight", d, d)
+        f.rand(f"{pre}.out.0.bias", d)
+        f.ln(f"{pre}.out.1", d)
+    for nm, k in (("pre_lookahead_layer.conv1", 4), ("pre_lookahead_layer.conv2", 3),
+                  ("up_layer.conv", 5)):
+        f.rand(nm + ".weight", d, d, k)
+        f.rand(nm + ".bias", d)
+    f.ln("after_norm", d)
+    for prefix, n in (("encoders", 6), ("up_encoders", 4)):
+        for i in range(n):
+            b = f"{prefix}.{i}."
+            f.ln(b + "norm_ff", d)
+            f.ln(b + "norm_mha", d)
+            for nm in ("q", "k", "v", "out"):
+                f.rand(b + f"self_attn.linear_{nm}.weight", d, d)
+                f.rand(b + f"self_attn.linear_{nm}.bias", d)
+            f.rand(b + "self_attn.linear_pos.weight", d, d)
+            f.rand(b + "self_attn.pos_bias_u", heads, d // heads)
+            f.rand(b + "self_attn.pos_bias_v", heads, d // heads)
+            f.rand(b + "feed_forward.w_1.weight", ff, d)
+            f.rand(b + "feed_forward.w_1.bias", ff)
+            f.rand(b + "feed_forward.w_2.weight", d, ff)
+            f.rand(b + "feed_forward.w_2.bias", d)
+    f.w.write()
+
+    hidden, mel, hd = 512, 80, 64
+    f = _F16Writer(paths["t2w_flow"], generator)
+    e = "estimator."
+    for nm, n, k in (("in_proj", hidden, mel * 4), ("t_embedder.mlp.0", hidden, 256),
+                     ("t_embedder.mlp.2", hidden, hidden),
+                     ("final_layer.adaLN_modulation.1", 2 * hidden, hidden),
+                     ("final_layer.linear", mel, hidden)):
+        f.rand(e + nm + ".weight", n, k)
+        f.rand(e + nm + ".bias", n)
+    for i in range(16):
+        b = f"{e}blocks.{i}."
+        f.rand(b + "adaLN_modulation.1.weight", 9 * hidden, hidden)
+        f.rand(b + "adaLN_modulation.1.bias", 9 * hidden)
+        for nm in ("to_q", "to_k", "to_v", "proj"):
+            f.rand(b + f"attn.{nm}.weight", hidden, hidden)
+            f.rand(b + f"attn.{nm}.bias", hidden)
+        f.ln(b + "attn.q_norm", hd)
+        f.ln(b + "attn.k_norm", hd)
+        for j in (1, 6):
+            f.rand(b + f"conv.block.{j}.weight", hidden, hidden, 3)
+            f.rand(b + f"conv.block.{j}.bias", hidden)
+        f.ln(b + "conv.block.3", hidden)
+        f.rand(b + "mlp.fc1.weight", 4 * hidden, hidden)
+        f.rand(b + "mlp.fc1.bias", 4 * hidden)
+        f.rand(b + "mlp.fc2.weight", hidden, 4 * hidden)
+        f.rand(b + "mlp.fc2.bias", hidden)
+    f.w.write()
+
+    f = _F16Writer(paths["t2w_extra"], generator)
+    f.rand("input_embedding.weight", 6561, d, s=0.5)
+    f.rand("spk_embed_affine_layer.weight", mel, 192, s=0.1)
+    f.rand("spk_embed_affine_layer.bias", mel)
+    f.rand("encoder_proj.weight", mel, d)
+    f.rand("encoder_proj.bias", mel)
+    f.w.write()
+
+    f = _F16Writer(paths["t2w_vocoder"], generator)
+    ch = [512, 256, 128, 64]
+    f.rand("conv_pre.weight", ch[0], mel, 7)
+    f.rand("conv_pre.bias", ch[0])
+    f.rand("conv_post.weight", 18, ch[3], 7)
+    f.rand("conv_post.bias", 18)
+    c = mel
+    for i in range(5):
+        f.rand(f"f0_predictor.condnet.{2 * i}.weight", 512, c, 3)
+        f.rand(f"f0_predictor.condnet.{2 * i}.bias", 512)
+        c = 512
+    f.rand("f0_predictor.proj.weight", 1, 512, s=0.1)
+    f.rand("f0_predictor.proj.bias", 1)
+    f.rand("m_source.l_linear.weight", 1, 9, s=0.3)
+    f.rand("m_source.l_linear.bias", 1)
+
+    def resblock(prefix, c, k):
+        for i in range(3):
+            for conv in ("convs1", "convs2"):
+                f.rand(f"{prefix}.{conv}.{i}.weight", c, c, k)
+                f.rand(f"{prefix}.{conv}.{i}.bias", c)
+            f.const(f"{prefix}.activations1.{i}.alpha", c, 1.0)
+            f.const(f"{prefix}.activations2.{i}.alpha", c, 1.0)
+
+    for s, (up_k, sd_k, src_k) in enumerate(((16, 29, 7), (11, 5, 7), (7, 1, 11))):
+        f.rand(f"ups.{s}.weight", ch[s], ch[s + 1], up_k)
+        f.rand(f"ups.{s}.bias", ch[s + 1])
+        f.rand(f"source_downs.{s}.weight", ch[s + 1], 18, sd_k)
+        f.rand(f"source_downs.{s}.bias", ch[s + 1])
+        resblock(f"source_resblocks.{s}", ch[s + 1], src_k)
+    for r in range(9):
+        resblock(f"resblocks.{r}", ch[r // 3 + 1], (3, 7, 11)[r % 3])
+    f.w.write()
+
+    w = GGUFWriter(paths["t2w_prompt"])
+    dev = generator.device
+    w.add_tensor("prompt_cache.spk_cb", torch.randn(
+        (1, 192), generator=generator, device=dev).cpu().numpy())
+    w.add_tensor("prompt_cache.prompt_tokens", torch.randint(
+        0, 6561, (n_prompt_tokens,), generator=generator, device=dev)
+        .cpu().numpy().astype(np.int32))
+    w.write()
+    return paths

@@ -17,17 +17,20 @@ patterns are hand scanners over `unicodedata`, since Python's `re` has no
 Each scanner takes the first alternative that matches at a position, as
 the regex engine does. \\p{L} is a character of category L*, \\p{N} of N*;
 \\s is Unicode White_Space (`str.isspace()` less U+001C..U+001F, which
-Python counts as space and the regex engine does not). Both follow the
-Unicode version of Python's `unicodedata`; a code point that a newer
-Unicode assigns and Python's does not (category Cn) is neither a letter
-nor a number here.
+Python counts as space and the regex engine does not). The classes
+follow the JAX package's `regex` module, whose Unicode is newer than
+Python's `unicodedata`: the code points where the two differ (letters and
+numbers that `unicodedata` leaves unassigned) are listed in
+`unicode_ln.RANGES`, which `_kind` reads before `unicodedata`.
 """
 
 from __future__ import annotations
 
+import bisect
 import functools
 import unicodedata
 
+from .unicode_ln import RANGES
 from .vocab import Vocab
 
 # character kinds of the split patterns
@@ -36,8 +39,11 @@ _NOT_WHITE_SPACE = frozenset("\x1c\x1d\x1e\x1f")
 _CONTRACTIONS = ("s", "t", "re", "ve", "m", "ll", "d")
 
 
-@functools.lru_cache(maxsize=1 << 16)
-def _kind(c: str) -> int:
+_RANGE_FIRST = [a for a, _, _ in RANGES]
+
+
+def _kind_unicodedata(c: str) -> int:
+    """The kind by Python's `unicodedata` alone."""
     cat = unicodedata.category(c)
     if cat[0] == "L":
         return _L
@@ -46,6 +52,17 @@ def _kind(c: str) -> int:
     if c.isspace() and c not in _NOT_WHITE_SPACE:
         return _S
     return _O
+
+
+@functools.lru_cache(maxsize=1 << 16)
+def _kind(c: str) -> int:
+    """The kind as the `regex` module's patterns see it: the table of the
+    code points where it differs from `unicodedata`, then `unicodedata`."""
+    cp = ord(c)
+    i = bisect.bisect_right(_RANGE_FIRST, cp) - 1
+    if i >= 0 and cp <= RANGES[i][1]:
+        return RANGES[i][2]
+    return _kind_unicodedata(c)
 
 
 def _run(kinds: list[int], i: int, kind: int) -> int:

@@ -340,8 +340,8 @@ def _port_session(tiny, sampler, fused=True, turns=2, stop_at=None,
         if stop_at == r:  # a break from another thread at the first chunk
             emit = pipe._emit_chunk
 
-            def stopping(tokens, _emit=emit):
-                _emit(tokens)
+            def stopping(*a, _emit=emit):
+                _emit(*a)
                 pipe.stop_speak()
             pipe._emit_chunk = stopping
         pipe.stream_decode(round_idx=r, max_new_tokens=budget)

@@ -3,10 +3,14 @@ omni_tpu_torch.chat) against omni_tpu's: the same ids on the tiny Qwen3
 fixture's byte vocabulary and on a small synthesised Qwen2-style vocabulary
 (with both the qwen2 and the gpt2 split), the hand-written splitters
 against the `regex` patterns, decode as the inverse of encode, and the same
-ChatML text. The hypothesis texts draw from every code point that Python's
-Unicode database assigns (category Cn left out: the `regex` module's
-newer Unicode tables call some of those letters or numbers, Python's call
-them unassigned)."""
+ChatML text. The hypothesis texts draw from every code point but the
+surrogates, and also from the code points that the `regex` module's newer
+Unicode counts as letters or numbers and Python's `unicodedata` leaves
+unassigned (`unicode_ln.RANGES`, which the port's scanners read first)."""
+
+import sys
+from pathlib import Path
+
 
 import pytest
 from hypothesis import HealthCheck, given, settings
@@ -21,7 +25,11 @@ from omni_tpu_torch import chat
 from omni_tpu_torch.core.gguf import GGUFReader
 from omni_tpu_torch.testing_synth import learn_merges, qwen2_vocab_kv
 from omni_tpu_torch.tokenizer import build_tokenizer
+from omni_tpu_torch.tokenizer import unicode_ln
 from omni_tpu_torch.tokenizer.bpe import split_gpt2, split_qwen2
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
+from torch_unicode_table import regex_ranges  # noqa: E402
 
 SMALL_VOCAB = (2048, 600)  # tokens, merges of the synthesised vocabulary
 
@@ -92,10 +100,42 @@ FRAGMENTS = st.sampled_from([
     "½", "é", "́", "̀́", "A", "Word", "word", " word",
     "123", " 45", "!!", " ?", "<|im_start|>", "<|im_end|>", " ",
     "　", "\x1c", "😀", "‍", "ß", "İ"])
+# code points of the table: letters and numbers by `regex` only
+TABLE_CHARS = st.sampled_from(unicode_ln.RANGES).flatmap(
+    lambda r: st.integers(r[0], r[1])).map(chr)
 TEXT = st.lists(st.one_of(
-    FRAGMENTS,
-    st.text(st.characters(exclude_categories=("Cs", "Cn")), max_size=8)),
+    FRAGMENTS, st.text(TABLE_CHARS, min_size=1, max_size=4),
+    st.text(st.characters(exclude_categories=("Cs",)), max_size=8)),
     max_size=12).map("".join)
+
+
+def test_table_is_the_installed_regex():
+    """The committed table is what the installed `regex` gives, and holds
+    the 9,661 code points of regex 2026.7.19 against unicodedata 15.0.0,
+    every one a letter or a number by `regex` alone."""
+    import unicodedata
+
+    version, ranges = regex_ranges()
+    assert (version, unicodedata.unidata_version) == (
+        unicode_ln.REGEX_VERSION, unicode_ln.UNICODEDATA_VERSION)
+    assert tuple(ranges) == unicode_ln.RANGES
+    assert sum(b - a + 1 for a, b, _ in ranges) == 9661
+    assert {k for _, _, k in ranges} <= {0, 1}
+
+
+@pytest.mark.parametrize("first,last,kind", unicode_ln.RANGES[::3])
+def test_table_ranges_encode_as_jax(first, last, kind):
+    """One character of every third range of the table (its first, its
+    last, one between), alone, in a word and beside digits: the same ids
+    in both packages on both splits of the synthesised vocabulary."""
+    js, ts = _synth_tokenizers()
+    for cp in {first, (first + last) // 2, last}:
+        c = chr(cp)
+        for text in (c, f"ab{c}{c}cd", f" {c}1 2{c}", f"'s{c} ,{c}\n{c}!"):
+            assert split_qwen2(text) == js[0].engine._pre_tokenize(text)
+            assert split_gpt2(text) == js[1].engine._pre_tokenize(text)
+            for j, t in zip(js, ts):
+                assert t.encode(text) == j.encode(text), (hex(cp), text)
 
 
 @settings(max_examples=200, deadline=None,
