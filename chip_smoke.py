@@ -27,8 +27,9 @@ regimes (T = 1 and 2 decode, 3, 8 and 64 prefill at G = 4), a repeat
 launch bit-identical. Then it drives these
 paths at full width and depth (all 36 layers, random weights made on the
 card from seed S, 0 by default; cut, earlier slices' paths, so that the
-run stays inside its time limit: the Q8_0, codebook, Q2_K and Q3_K models
-of paths 5, 6 and 7 at 18 layers, CUT_LAYERS), one model resident at a
+run stays inside its time limit: the Q5_K_M, Q4_0, Q5_0, Q8_0, codebook,
+Q2_K and Q3_K models of paths 3 to 7 at 18 layers, CUT_LAYERS), one
+model resident at a
 time, each through
 `OmniPipeline.stream_prefill` / `stream_decode`:
 1. an all-Q4_K Qwen3-8B synthesised in the port's planes, fused QKV and
@@ -55,14 +56,24 @@ time, each through
    audio in, 10 text tokens, the TTS to audio_eos or its 500-code cap and
    every Token2Wav window, its waves, sync-free TTS scan, card-vs-CPU
    TTS and Token2Wav, and A-D launches checked, and four short rounds
-   that time the first wave with and without the first-window hold;
-3. a Q5_K_M Qwen3-8B GGUF (about 5.8 GB, deleted before the next path),
+   that time the first wave with and without the first-window hold; then
+   vision and duplex (`vision_duplex_phase`): the full-width VPM written
+   beside the spoken modules, omni-cli's `build_pipeline` with --omni
+   --duplex taking them over, a duplex session of a 1344 x 1008 image (7
+   parts), five 640 x 480 frames under high_refresh and audio chunks, a
+   60-token turn with the TTS past the 26-token cap twice, the unit window
+   dropping the oldest unit, the session saved and loaded and one more
+   unit; the cap, the window's cells and K against the f64 law, the TTS
+   chunks, the waves, a VPM part against the CPU and A-D launches checked;
+3. a Q5_K_M Qwen3-8B GGUF at 18 layers (CUT_LAYERS; about 2.9 GB,
+   deleted before the next path),
    loaded the same way, on the bf16 pool: Q5_K through kernel G
    (`q5k_gemv`) and kernel B's Q5_K branch (`q5k_gemm`), Q6_K through
    kernels C and D;
 4. a Q4_0 and a Q5_0 Qwen3-8B GGUF in llama.cpp's importance-matrix
-   layout (about 4.8 and 5.7 GB, each deleted before the next path; the
-   ffn_down of layers 0-3 Q4_1 / Q5_1, the head Q6_K), loaded the same way,
+   layout at 18 layers (CUT_LAYERS; about 2.4 and 2.9 GB, each deleted
+   before the next path; the ffn_down of layers 0-1 Q4_1 / Q5_1, the
+   head Q6_K), loaded the same way,
    on the bf16 pool: decode through kernel A's Q4_0/Q4_1 (Q5_0/Q5_1)
    branches, prefill through kernel B's, the head through C and D; the
    Q4_0 model serves once more with the dispatcher's gp and sh routes
@@ -93,7 +104,7 @@ Three models serve once more with the fused FFN switched on
 (`qwen3.FUSED_FFN`: the JAX package's OMNI_FUSED_FFN=1), every layer's
 gated FFN one launch of kernel I (`qffn`, `csrc/qffn.cu`): the all-Q4_K
 model of path 1 (Q4_K/Q4_K), and the Q4_0 (Q4_0/Q4_0, and Q4_0/Q4_1 on
-layers 0-3) and Q8_0 (Q8_0/Q8_0) models, fused in place (`fuse_layer`)
+layers 0-1) and Q8_0 (Q8_0/Q8_0) models, fused in place (`fuse_layer`)
 after their unfused turns. Kernel I is held against its plain version and
 its law in f64 at the Qwen3-8B FFN shape for every same-format pair of the
 thirteen formats and the mixed pairs Q4_K/Q6_K, Q5_K/Q6_K, Q4_0/Q4_1 and
@@ -326,21 +337,27 @@ N_LAYERS = 36  # full depth, on every path but those cut to CUT_LAYERS
 # inside its time limit, their kernels still held and timed at the full
 # model's shapes: the IQ4_NL, IQ4_XS and MXFP4 files (kernel E's codebook
 # entries, D's codebook branches; 38-103 s each of a 997-s run at 36
-# layers), and since the spoken round the Q8_0, Q2_K and Q3_K files
+# layers), since the spoken round the Q8_0, Q2_K and Q3_K files
 # (kernels E, H, D's branches; the run read 1,041.8 s with them at 18
 # layers, and their phases took 109 s more at 36 in the slice before:
-# ~1,150 s; NVIDIA H100 80GB HBM3, 700.00 W)
+# ~1,150 s), and since the vision-duplex phase the Q5_K_M, Q4_0 and Q5_0
+# files (a run read 1,191.6 s with them and F16 at 36 layers, those
+# phases 281.1 s of it; NVIDIA H100 80GB HBM3, 700.00 W). The F16 model,
+# whose latency the reference quotes, serves at 36 layers
 CUT_LAYERS = 18
 # Q4_K_M Qwen3-8B (llama.cpp's rules): the output head and attn_v, ffn_down
 # of 18 of the 36 layers are Q6_K, the other weights Q4_K
 N_Q6K, N_Q4K = 37, 216
-# Q5_K_M (the same rules): 216 Q5_K weights where Q4_K_M has its Q4_K ones
-N_Q5K = 216
+# Q5_K_M at CUT_LAYERS (the same rules): attn_v and ffn_down of the 9
+# use_more_bits layers of 18, and the head, Q6_K; the other 108 weights Q5_K
+N_Q6K_CUT, N_Q5K_CUT = 19, 108
 # Q4_0 / Q5_0 in the importance-matrix layout: 248 weights of the recipe's
-# type, 4 of Q4_1 / Q5_1, 1 Q6_K head
+# type, 4 of Q4_1 / Q5_1 (the ffn_down of layers i < n_layers / 8), 1 Q6_K
+# head; at CUT_LAYERS 124 and 2
 N_LEGACY, N_LEGACY_MIN = 248, 4
-# unfused Qwen3-8B: 36 x (wq, wk, wv, wo, gate, up, down) + output
-N_UNFUSED = 7 * N_LAYERS + 1
+N_LEGACY_CUT, N_LEGACY_MIN_CUT = 7 * CUT_LAYERS - CUT_LAYERS // 8, CUT_LAYERS // 8
+# unfused Qwen3-8B at CUT_LAYERS: 18 x (wq, wk, wv, wo, gate, up, down) + output
+N_UNFUSED = 7 * CUT_LAYERS + 1
 # the codebook and low-bit files: the layer weights in the recipe's type
 # (252 at 36 layers; 126 at CUT_LAYERS), 1 Q6_K head
 N_CUT = 7 * CUT_LAYERS
@@ -1113,10 +1130,16 @@ def rerotation_excess(before, after, layers, rot, base: float) -> float:
     """Largest error of `after`'s K (a KVCache) on `layers` against the f64
     rotation of the K `before` (f64 [H, S, D] per layer, dequantized as the
     pool does) by each cell's delta `rot` ([S]), over its limit: one code
-    step (the code times the row's f32 scale, in f64) on a quantized pool,
-    2^-7 of the value on a bf16 one (with a floor of 2^-24 of the row's
-    largest value). <= 1 holds. Runs on the tensors' device (the card
-    here, the CPU in tests/test_torch_kv_shift.py)."""
+    step (the code times the row's f32 scale, in f64) on a quantized pool;
+    on a bf16 one 2^-7 of the value plus the rotation's f32 arithmetic,
+    (2^-20 |angle| + 2^-22) of its pair's norm (the rotation, as the JAX
+    cache's, takes its angle and cos/sin in f32: an angle error of about
+    2^-21 of the angle, a trig error of an f32 ulp; near a cancellation, a
+    value small against its pair, this outweighs 2^-7 of the value: the JAX
+    cache's own shift of a 2,048-cell pool by -474 reads 150 times 2^-7
+    alone). An empty cell (zero limit) holds while it stays zero. <= 1
+    holds. Runs on the tensors' device (the card here, the CPU in
+    tests/test_torch_kv_shift.py)."""
     import torch
 
     from omni_tpu_torch.runtime.kv_cache import unpack4
@@ -1136,8 +1159,14 @@ def rerotation_excess(before, after, layers, rot, base: float) -> float:
             got = codes.double() * limit
         else:
             got = after.k[li].double()
-            limit = 2.0 ** -7 * want.abs() + 2.0 ** -24 * want.abs().amax(-1, keepdim=True)
-        worst = max(worst, float(((got - want).abs() / limit).max()))
+            norm = torch.sqrt(x1 * x1 + x2 * x2).repeat(1, 1, 2)
+            f32 = (2.0 ** -20 * ang.abs() + 2.0 ** -22).repeat(1, 2)  # [S, D]
+            limit = 2.0 ** -7 * want.abs() + f32 * norm
+        # an empty cell (zeros, a zero scale) has a zero limit: it holds
+        # when it is still zero, and fails otherwise (0 / 0 would be NaN,
+        # which max() passes over)
+        err = (got - want).abs()
+        worst = max(worst, float(torch.where(err == 0, 0.0, err / limit).max()))
     return worst
 
 
@@ -1492,11 +1521,11 @@ SPOKEN_APM_ITERS = 5
 SPOKEN_HOLD_ROUNDS = (False, True, True, False)
 
 
-def spoken_phase(cfg, params, qts, tok, dev, qwen3, smi: str, seed: int):
+def spoken_phase(cfg, params, qts, tok, dev, qwen3, smi: str, seed: int, tmp: str):
     """A spoken round on the Q4_K_M model (MiniCPM-o 4.5's "Full omni"
     layout: the LLM Q4_K_M, the rest F16): the APM (24 x 1024), the TTS (20
     x 768), Token2Wav (conformer 6 + 4, DiT 16 x 512, HiFiGAN2) written at
-    full width to a temporary model directory (`testing_synth`), loaded by
+    full width to the model directory `tmp` (`testing_synth`), loaded by
     omni-cli's `build_pipeline` beside the loaded LLM, then one
     `run_test_cases` round: SPOKEN_AUDIO_S s of 16 kHz audio in,
     SPOKEN_TOKENS text tokens out (one TTS chunk), the TTS to audio_eos or
@@ -1516,7 +1545,8 @@ def spoken_phase(cfg, params, qts, tok, dev, qwen3, smi: str, seed: int):
     (SPOKEN_HOLD_ROUNDS). Prints ms a 1 s APM chunk, ms an audio code, ms
     a Token2Wav window and its RTF, the time from the end of prefill to
     the first wave and the peak memory, each with the card. Returns
-    (launches, stats)."""
+    (launches, stats, the pipeline, whose modules the vision-duplex phase
+    takes over)."""
     import argparse
 
     import numpy as np
@@ -1524,7 +1554,6 @@ def spoken_phase(cfg, params, qts, tok, dev, qwen3, smi: str, seed: int):
 
     from omni_tpu_torch.cli import omni_cli
     from omni_tpu_torch.core.gguf import GGUFReader
-    from omni_tpu_torch.kernels import dequant_matmul as dm
     from omni_tpu_torch.models import tts as tts_mod
     from omni_tpu_torch.models import whisper
     from omni_tpu_torch.models.token2wav import Token2Wav
@@ -1542,110 +1571,109 @@ def spoken_phase(cfg, params, qts, tok, dev, qwen3, smi: str, seed: int):
     torch.cuda.reset_peak_memory_stats()
     resident_gib = torch.cuda.memory_allocated() / 2**30
     llm_gib = (sum(w.nbytes for w in qts) + params["token_embd"].nbytes) / 2**30
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_spoken_") as tmp:
-        t0 = time.perf_counter()
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        for sub in ("audio", "tts"):
-            os.makedirs(os.path.join(tmp, sub))
-        write_apm_gguf(os.path.join(tmp, "audio", "minicpmo-audio-apm-f16.gguf"), gen)
-        write_tts_gguf(os.path.join(tmp, "tts", "minicpmo-tts-f16.gguf"), gen)
-        write_token2wav_ggufs(os.path.join(tmp, "token2wav"), gen)
-        paths = omni_cli.resolve_model_paths(os.path.join(tmp, "llm.gguf"))
-        write_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        llm = Context(cfg, params, qwen3.forward, qwen3.embed, n_ctx=N_CTX,
-                      device=dev, sampler=SamplerParams(temp=0.7))
-        args = argparse.Namespace(ctx_size=N_CTX, temp=0.7, no_audio=False,
-                                  no_tts=False, omni=False, duplex=False)
-        pipe = omni_cli.build_pipeline(paths, args, dev, llm=llm, tokenizer=tok)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for sub in ("audio", "tts"):
+        os.makedirs(os.path.join(tmp, sub))
+    write_apm_gguf(os.path.join(tmp, "audio", "minicpmo-audio-apm-f16.gguf"), gen)
+    write_tts_gguf(os.path.join(tmp, "tts", "minicpmo-tts-f16.gguf"), gen)
+    write_token2wav_ggufs(os.path.join(tmp, "token2wav"), gen)
+    paths = omni_cli.resolve_model_paths(os.path.join(tmp, "llm.gguf"))
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    llm = Context(cfg, params, qwen3.forward, qwen3.embed, n_ctx=N_CTX,
+                  device=dev, sampler=SamplerParams(temp=0.7))
+    args = argparse.Namespace(ctx_size=N_CTX, temp=0.7, no_audio=False,
+                              no_tts=False, omni=False, duplex=False)
+    pipe = omni_cli.build_pipeline(paths, args, dev, llm=llm, tokenizer=tok)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    x = np.arange(16000 * SPOKEN_AUDIO_S) / 16000
+    noise = np.random.default_rng(seed).standard_normal(len(x))
+    audio_mod.write_wav(os.path.join(tmp, "case_1.wav"),
+                        0.3 * np.sin(2 * np.pi * 220 * x) + 0.02 * noise, rate=16000)
+
+    # the round, instrumented: the LLM's forward calls by rows, the
+    # Token2Wav windows and their times, the end of prefill, the first wave
+    rows, windows, marks, tts_runs = [], [], {}, []
+    forward = llm._forward
+
+    def counted(p, c, xx, *a, **kw):
+        rows.append(int(xx.shape[0]))
+        return forward(p, c, xx, *a, **kw)
+
+    llm._forward = counted
+    feed = pipe.t2w.feed_window
+
+    def timed_window(tokens, is_final=False):
+        t = time.perf_counter()
+        wave = feed(tokens, is_final=is_final)
+        windows.append((np.asarray(tokens), is_final, wave,
+                        time.perf_counter() - t))
+        return wave
+
+    pipe.t2w.feed_window = timed_window
+    wait_prefill, put = pipe._wait_prefill, pipe.wav_out.put
+
+    def marked_wait():
+        wait_prefill()
         torch.cuda.synchronize()
-        load_s = time.perf_counter() - t0
-        x = np.arange(16000 * SPOKEN_AUDIO_S) / 16000
-        noise = np.random.default_rng(seed).standard_normal(len(x))
-        audio_mod.write_wav(os.path.join(tmp, "case_1.wav"),
-                            0.3 * np.sin(2 * np.pi * 220 * x) + 0.02 * noise, rate=16000)
+        marks["prefilled"] = time.perf_counter()
 
-        # the round, instrumented: the LLM's forward calls by rows, the
-        # Token2Wav windows and their times, the end of prefill, the first wave
-        rows, windows, marks, tts_runs = [], [], {}, []
-        forward = llm._forward
+    def marked_put(item):
+        marks.setdefault("first_wave", time.perf_counter())
+        put(item)
 
-        def counted(p, c, xx, *a, **kw):
-            rows.append(int(xx.shape[0]))
-            return forward(p, c, xx, *a, **kw)
+    pipe._wait_prefill, pipe.wav_out.put = marked_wait, marked_put
+    generate = pipe._tts_generate
 
-        llm._forward = counted
-        feed = pipe.t2w.feed_window
+    def timed_generate(out, first_chunk, emit=None):
+        t = time.perf_counter()
+        codes = generate(out, first_chunk, emit=emit)
+        tts_runs.append((len(out.token_ids), len(codes), time.perf_counter() - t))
+        return codes
 
-        def timed_window(tokens, is_final=False):
-            t = time.perf_counter()
-            wave = feed(tokens, is_final=is_final)
-            windows.append((np.asarray(tokens), is_final, wave,
-                            time.perf_counter() - t))
-            return wave
-
-        pipe.t2w.feed_window = timed_window
-        wait_prefill, put = pipe._wait_prefill, pipe.wav_out.put
-
-        def marked_wait():
-            wait_prefill()
-            torch.cuda.synchronize()
-            marks["prefilled"] = time.perf_counter()
-
-        def marked_put(item):
-            marks.setdefault("first_wave", time.perf_counter())
-            put(item)
-
-        pipe._wait_prefill, pipe.wav_out.put = marked_wait, marked_put
-        generate = pipe._tts_generate
-
-        def timed_generate(out, first_chunk, emit=None):
-            t = time.perf_counter()
-            codes = generate(out, first_chunk, emit=emit)
-            tts_runs.append((len(out.token_ids), len(codes), time.perf_counter() - t))
-            return codes
-
-        pipe._tts_generate = timed_generate
-        reset_launches()
-        t0 = time.perf_counter()
+    pipe._tts_generate = timed_generate
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        res = omni_cli.run_test_cases(pipe, os.path.join(tmp, "case_"), 1,
+                                      os.path.join(tmp, "out"), SPOKEN_TOKENS)
+        round_s = time.perf_counter() - t0
+        launches = launch_counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        first_wave_ms = 1e3 * (marks["first_wave"] - marks["prefilled"])
+        n_main = len(rows), len(windows), len(tts_runs)
+        # the first wave with and without the hold, in rounds of two scans
+        held_ms, cap = {True: [], False: []}, pipeline_mod.SIMPLEX_AUDIO_CAP
+        pipeline_mod.SIMPLEX_AUDIO_CAP = 2 * pipeline_mod.T2W_MAIN
         try:
-            res = omni_cli.run_test_cases(pipe, os.path.join(tmp, "case_"), 1,
-                                          os.path.join(tmp, "out"), SPOKEN_TOKENS)
-            round_s = time.perf_counter() - t0
-            launches = launch_counts()
-            peak_gib = torch.cuda.max_memory_allocated() / 2**30
-            first_wave_ms = 1e3 * (marks["first_wave"] - marks["prefilled"])
-            n_main = len(rows), len(windows), len(tts_runs)
-            # the first wave with and without the hold, in rounds of two scans
-            held_ms, cap = {True: [], False: []}, pipeline_mod.SIMPLEX_AUDIO_CAP
-            pipeline_mod.SIMPLEX_AUDIO_CAP = 2 * pipeline_mod.T2W_MAIN
-            try:
-                for k, held in enumerate(SPOKEN_HOLD_ROUNDS):
-                    if not held:
-                        pipe._hold_for_token2wav = lambda: True
-                    marks.clear()
-                    omni_cli.run_test_cases(pipe, os.path.join(tmp, "case_"), 1,
-                                            os.path.join(tmp, f"hold_{k}"), SPOKEN_TOKENS)
-                    held_ms[held].append(1e3 * (marks["first_wave"] - marks["prefilled"]))
-                    pipe.__dict__.pop("_hold_for_token2wav", None)
-            finally:
-                pipeline_mod.SIMPLEX_AUDIO_CAP = cap
-            for lst, n in zip((rows, windows, tts_runs), n_main):
-                del lst[n:]  # the short rounds' records
+            for k, held in enumerate(SPOKEN_HOLD_ROUNDS):
+                if not held:
+                    pipe._hold_for_token2wav = lambda: True
+                marks.clear()
+                omni_cli.run_test_cases(pipe, os.path.join(tmp, "case_"), 1,
+                                        os.path.join(tmp, f"hold_{k}"), SPOKEN_TOKENS)
+                held_ms[held].append(1e3 * (marks["first_wave"] - marks["prefilled"]))
+                pipe.__dict__.pop("_hold_for_token2wav", None)
         finally:
-            pipe.shutdown()
-        llm._forward = forward
-        files = sorted(os.listdir(os.path.join(tmp, "out", "round_000", "tts_wav")))
-        # the copies the checks compare with: the TTS on the CPU, Token2Wav
-        # fresh on the card and on the CPU
-        t0 = time.perf_counter()
-        tcfg = pipe.tts_ctx.cfg
-        tts_cpu = tts_mod.load_params(GGUFReader(paths["tts"]), device="cpu")
-        t2w_files = [paths[k] for k in ("t2w_encoder", "t2w_flow", "t2w_extra",
-                                         "t2w_vocoder", "t2w_prompt")]
-        t2w_cpu = Token2Wav.from_gguf(*t2w_files, device="cpu")
-        t2w_card = Token2Wav.from_gguf(*t2w_files, device=dev)
-        cpu_s = time.perf_counter() - t0
+            pipeline_mod.SIMPLEX_AUDIO_CAP = cap
+        for lst, n in zip((rows, windows, tts_runs), n_main):
+            del lst[n:]  # the short rounds' records
+    finally:
+        pipe.shutdown()
+    llm._forward = forward
+    files = sorted(os.listdir(os.path.join(tmp, "out", "round_000", "tts_wav")))
+    # the copies the checks compare with: the TTS on the CPU, Token2Wav
+    # fresh on the card and on the CPU
+    t0 = time.perf_counter()
+    tcfg = pipe.tts_ctx.cfg
+    tts_cpu = tts_mod.load_params(GGUFReader(paths["tts"]), device="cpu")
+    t2w_files = [paths[k] for k in ("t2w_encoder", "t2w_flow", "t2w_extra",
+                                     "t2w_vocoder", "t2w_prompt")]
+    t2w_cpu = Token2Wav.from_gguf(*t2w_files, device="cpu")
+    t2w_card = Token2Wav.from_gguf(*t2w_files, device=dev)
+    cpu_s = time.perf_counter() - t0
 
     # ---- the waves and the launches ----------------------------------------
     waves = res["waves"]
@@ -1660,14 +1688,7 @@ def spoken_phase(cfg, params, qts, tok, dev, qwen3, smi: str, seed: int):
                 or np.abs(wave).max() > 0.99):
             raise SystemExit(f"spoken: window {i} has {len(wave)} samples (want "
                              f"{want}), max |x| {np.abs(wave).max()}")
-    want_l = {}
-    for m in rows:
-        for w in qts:
-            name = dm.kernel_for(m, w).__name__
-            want_l[name] = want_l.get(name, 0) + 1
-            if name == "qgemm":
-                key = f"qgemm {w.ggml_type.name}"
-                want_l[key] = want_l.get(key, 0) + 1
+    want_l = kernel_launches(rows, qts)
     if nonzero(launches) != want_l:
         raise SystemExit(f"spoken: launches {nonzero(launches)}, the LLM's "
                          f"{len(rows)} forward calls make {want_l}")
@@ -1768,7 +1789,404 @@ def spoken_phase(cfg, params, qts, tok, dev, qwen3, smi: str, seed: int):
           f"write {write_s:.1f} s, load {load_s:.1f} s, CPU copies {cpu_s:.1f} s; "
           f"LLM launches {nonzero(launches)} = its {len(rows)} forward calls'",
           flush=True)
+    return launches, stats, pipe
+
+
+# the vision-duplex phase: a 1344 x 1008 image (an overview of 518 x 392
+# and 3 x 2 slices of 420 x 476: 7 parts, 448 LLM rows), then five 640 x
+# 480 frames under high_refresh (the main frame, 3 parts, and a 2 x 2 stack
+# of 1280 x 960, 7 parts), a duplex turn of VISION_TURN tokens (the 26-token
+# cap twice) with the TTS on
+VISION_IMAGE_HW = (1008, 1344)
+VISION_FRAME_HW = (480, 640)
+VISION_FRAMES = 5
+VISION_TURN = 60
+# tokens of the turn after the session's save and load, the TTS off: the
+# cap once, every fused chunk under `no_host_sync` (the sync debug mode is
+# global, so it would catch the TTS worker's own copies in a spoken turn)
+VISION_SHORT = 30
+VISION_PART_ITERS = 5
+# the VPM's card-vs-CPU limit on one 224 x 224 part, of max|row|, between
+# the sound port's largest gap and the smallest gap of a fault planted on
+# the card, over seeds 0-4 (`python -m omni_tpu_torch.vision_limits`,
+# NVIDIA H100 80GB HBM3, 700.00 W): sound 1.12e-6-1.30e-6, TF32 products
+# 3.64e-4-4.29e-4, the sincos grid transposed 0.0655-0.0819, the bucket
+# ids a row off 0.115-0.166
+VISION_RTOL = 2e-5
+
+
+def vision_duplex_phase(cfg, params, qts, tok, dev, qwen3, smi: str, seed: int,
+                        tmp: str, spoken):
+    """Vision and duplex on the Q4_K_M model beside the spoken phase's
+    modules (`spoken`: its pipeline, whose APM, TTS and Token2Wav are taken
+    over): the full-width VPM (26 x 1152 SigLip2, the 64 x 4096 resampler)
+    written to the model directory `tmp` and loaded by omni-cli's
+    `build_pipeline` with --omni --duplex. The session: the duplex system
+    prompt with 1 s of reference voice; chunk 1, 1 s of audio and a
+    1344 x 1008 image from the seed (7 parts, 448 image rows, prefilled
+    through kernels B and D); chunk 2, five 640 x 480 frames under
+    high_refresh (the main frame and a 2 x 2 stack of 1280 x 960, 10
+    parts); chunk 3, audio alone; a duplex turn of VISION_TURN tokens with
+    the TTS on, past the 26-token cap twice, whose end drops the oldest
+    unit (the water marks set for it); the session saved, loaded into a
+    fresh pipeline, one more unit and a VISION_SHORT-token turn. Fails unless one
+    224 x 224 VPM part on the card agrees with the port on the CPU within
+    VISION_RTOL of max|row| (`vision_limits` reads the gap over seeds and
+    planted faults); no speak segment feeds more than 25 sampled tokens
+    before <|chunk_eos|></unit>; after the unit window the KV positions are
+    0..n_past-1, the n_keep cells hold the same bits, and the re-rotated K
+    is within the f64 law (`rerotation_excess`); every duplex TTS chunk
+    has at most 26 codes; every wave is finite and within +-0.99; the
+    loaded session's books equal the saved ones, and its turn (the TTS
+    off) runs every fused chunk under `no_host_sync` and feeds 25 tokens
+    before its forced chunk end; and the launches of kernels A-D equal those of
+    the LLM's forward calls (`kernel_launches`): the VPM, the APM, the TTS
+    and Token2Wav launch none. Prints ms a VPM part and a sliced image, the
+    LLM's image-prefill ms, ms from the end of a chunk to the first text
+    and the first wave, and the peak memory, each with the card. Returns
+    (launches, stats)."""
+    import argparse
+
+    import numpy as np
+    import torch
+
+    from omni_tpu_torch.cli import omni_cli
+    from omni_tpu_torch.core.gguf import GGUFReader
+    from omni_tpu_torch.models import siglip
+    from omni_tpu_torch.omni import image as image_mod
+    from omni_tpu_torch.omni import pipeline as pipeline_mod
+    from omni_tpu_torch.runtime import Context, SamplerParams
+    from omni_tpu_torch.testing_synth import write_vpm_gguf
+    from omni_tpu_torch.vision_limits import check_inputs, encode, gap
+
+    t_phase = time.perf_counter()
+    check_sync_guard(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident_gib = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(tmp, "vision"), exist_ok=True)
+    write_vpm_gguf(os.path.join(tmp, "vision", "minicpmo-vision-vpm-f16.gguf"),
+                   torch.Generator(device=dev).manual_seed(seed))
+    paths = omni_cli.resolve_model_paths(os.path.join(tmp, "llm.gguf"))
+    write_s = time.perf_counter() - t0
+    spoken.audio_encoder.state.n_cached = 0  # a fresh audio stream
+    args = argparse.Namespace(ctx_size=N_CTX, temp=0.7, no_audio=False, no_tts=False,
+                              omni=True, duplex=True, max_slice_nums=9)
+    rows = []
+
+    def build():
+        llm = Context(cfg, params, qwen3.forward, qwen3.embed, n_ctx=N_CTX,
+                      device=dev, sampler=SamplerParams(temp=0.7, seed=seed))
+        forward = llm._forward
+
+        def counted(p, c, xx, *a, **kw):
+            rows.append(int(xx.shape[0]))
+            return forward(p, c, xx, *a, **kw)
+
+        llm._forward = counted
+        return omni_cli.build_pipeline(paths, args, dev, llm=llm, tokenizer=tok,
+                                       modules=spoken)
+
+    t0 = time.perf_counter()
+    pipe = build()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    enc = pipe.vision_encoder
+    if not (pipe.cfg.duplex and enc is not None and pipe.speaking):
+        raise SystemExit("vision-duplex: build_pipeline made no duplex pipeline "
+                         "with the VPM and the TTS")
+    llm, cache = pipe.llm, pipe.llm.cache
+    vcfg = enc.cfg
+
+    # the inputs, from the seed
+    rng = np.random.default_rng(seed)
+    x = np.arange(16000) / 16000
+    voices = [(0.3 * np.sin(2 * np.pi * f * x) + 0.02 * rng.standard_normal(16000))
+              .astype(np.float32) for f in (150, 220, 330, 260)]
+    image = rng.integers(0, 256, VISION_IMAGE_HW + (3,), dtype=np.uint8)
+    frames = [rng.integers(0, 256, VISION_FRAME_HW + (3,), dtype=np.uint8)
+              for _ in range(VISION_FRAMES)]
+
+    # instruments: prefill items, forced chunk ends, the fused loop's span,
+    # TTS chunks, the first text and wave, the window's seq_add
+    marks, items, forces, spans, tts_chunks, slides = {}, [], [], [], [], []
+
+    def instrument(p):
+        prefill_item = p._prefill_item
+
+        def timed_item(item):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            prefill_item(item)
+            torch.cuda.synchronize()
+            parts = [q for im in item.get("image_parts") or [] for q in im]
+            items.append((len(parts), sum(int(q.shape[0]) for q in parts),
+                          time.perf_counter() - t))
+
+        p._prefill_item = timed_item
+        force, loop, generate = p._force_chunk_end, p._decode_loop_fused, p._tts_generate
+        wait_prefill, text_put, wav_put = p._wait_prefill, p.text_out.put, p.wav_out.put
+
+        def counted_force(lg):
+            forces.append(p.llm.n_past[0])
+            return force(lg)
+
+        def spanned_loop(*a, **kw):
+            start = p.llm.n_past[0]
+            out = loop(*a, **kw)
+            spans.append((start, p.llm.n_past[0], list(forces)))
+            forces.clear()
+            return out
+
+        def counted_generate(out, first_chunk, emit=None):
+            codes = generate(out, first_chunk, emit=emit)
+            tts_chunks.append((len(out.token_ids), out.is_final, len(codes)))
+            return codes
+
+        def marked_wait():
+            wait_prefill()
+            torch.cuda.synchronize()
+            marks["prefilled"] = time.perf_counter()
+
+        def marked_text(ev):
+            if ev.get("content"):
+                marks.setdefault("first_text", time.perf_counter())
+            text_put(ev)
+
+        def marked_wave(w):
+            marks.setdefault("first_wave", time.perf_counter())
+            wav_put(w)
+
+        p._force_chunk_end, p._decode_loop_fused = counted_force, spanned_loop
+        p._tts_generate, p._wait_prefill = counted_generate, marked_wait
+        p.text_out.put, p.wav_out.put = marked_text, marked_wave
+
+    instrument(pipe)
+    real_scan, synced = pipeline_mod.omni_decode_scan, [0]
+
+    def sync_free_scan(*a, **kw):
+        with no_host_sync():
+            out = real_scan(*a, **kw)
+        synced[0] += 1
+        return out
+
+    seq_add = llm.seq_add
+
+    def checked_seq_add(seq_id, p0, p1, delta):
+        before = [cache.read_layer(li)[0].double() for li in SESSION_CHECK_LAYERS]
+        rot = cache.seq_add_delta(seq_id, p0, p1, delta)
+        seq_add(seq_id, p0, p1, delta)
+        slides.append(rerotation_excess(before, cache, SESSION_CHECK_LAYERS, rot,
+                                        cfg.rope_base))
+
+    llm.seq_add = checked_seq_add
+
+    def turn(p, budget):
+        p.stream_decode(round_idx=0, max_new_tokens=budget)
+        text = ""
+        while True:
+            ev = p.text_out.get(timeout=600)
+            text += ev.get("content", "")
+            if ev.get("stop"):
+                break
+        p.wait_idle()
+        waves = []
+        while True:
+            try:
+                waves.append(p.wav_out.get_nowait())
+            except queue.Empty:
+                return text, waves
+
+    reset_launches()  # the phase's main path starts here
+    try:
+        pipe.stream_prefill(index=0, system_prompt="You are a helpful assistant.",
+                            ref_audio=voices[0])
+        n_keep = pipe.n_keep
+        pipe.stream_prefill(audio=voices[1], image=image, index=1)
+        pipe.cfg.high_refresh = True
+        pipe.stream_prefill(frames=frames, index=2)
+        pipe.stream_prefill(audio=voices[2], index=3)
+        pipe._wait_prefill()
+        # the marks: the turn's end (at most VISION_TURN + 5 cells on) must
+        # drop the oldest unit, and only it
+        n_pre = llm.n_past[0]
+        first = pipe.units[0]
+        pipe.cfg.high_water = n_pre
+        pipe.cfg.low_water = n_pre + VISION_TURN + 8 - (first.end_pos - first.start_pos)
+        units_before = [(u.start_pos, u.end_pos) for u in pipe.units]
+        keep_cells = torch.nonzero((cache.seq_mask != 0) & (cache.pos < n_keep))[:, 0]
+        keep = [(cache.k[li][:, keep_cells].clone(), cache.v[li][:, keep_cells].clone())
+                for li in SESSION_CHECK_LAYERS]
+        keep_pos = cache.pos[keep_cells].clone()
+        t0 = time.perf_counter()
+        text, waves = turn(pipe, VISION_TURN)
+        turn_s = time.perf_counter() - t0
+        first_text_ms = 1e3 * (marks["first_text"] - marks["prefilled"])
+        first_wave_ms = 1e3 * (marks["first_wave"] - marks["prefilled"])
+        main_chunks = list(tts_chunks)
+        turn_span = spans[-1]
+        units_after = [(u.start_pos, u.end_pos) for u in pipe.units]
+        occupied = torch.nonzero(cache.seq_mask != 0)[:, 0]
+        pos = torch.sort(cache.pos[occupied]).values.cpu().numpy()
+        contiguous = bool(np.array_equal(pos, np.arange(llm.n_past[0])))
+        kept = torch.equal(cache.pos[keep_cells], keep_pos) and all(
+            torch.equal(cache.k[li][:, keep_cells], k)
+            and torch.equal(cache.v[li][:, keep_cells], v)
+            for li, (k, v) in zip(SESSION_CHECK_LAYERS, keep))
+        n_past_after = llm.n_past[0]
+        # the session saved, loaded into a fresh pipeline; one more unit
+        pipe.shutdown()
+        llm.sync_cells_used()
+        t0 = time.perf_counter()
+        state = pipe.session_state_bytes()
+        save_s = time.perf_counter() - t0
+        pipe2 = build()
+        instrument(pipe2)
+        t0 = time.perf_counter()
+        pipe2.load_session_state_bytes(state)
+        torch.cuda.synchronize()
+        load_state_s = time.perf_counter() - t0
+        books = [(p.n_keep, dict(p.llm.n_past), [(u.start_pos, u.end_pos) for u in p.units],
+                  [(r.start_pos, r.end_pos) for r in p.rounds], p.cfg.duplex)
+                 for p in (pipe, pipe2)]
+        pipe2.stream_prefill(audio=voices[3], index=4)
+        pipe2._wait_prefill()
+        units_loaded = [(u.start_pos, u.end_pos) for u in pipe2.units]
+        pipe2.cfg.use_tts = False
+        pipeline_mod.omni_decode_scan = sync_free_scan
+        text2, _ = turn(pipe2, VISION_SHORT)
+        short_span = spans[-1]
+        torch.cuda.synchronize()
+        launches = launch_counts()  # the phase's main path ends here
+    finally:
+        pipeline_mod.omni_decode_scan = real_scan
+        pipe.shutdown()
+        if "pipe2" in locals():
+            pipe2.shutdown()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    # ---- the checks ---------------------------------------------------------
+    start, end, at = turn_span
+    fed = [f - s for f, s in zip(at, [start] + [f + 2 for f in at[:-1]])]
+    fed.append(end - (at[-1] + 2 if at else start))
+    if len(at) < 2 or max(fed) > 25 or len(short_span[2]) != 1 or \
+            short_span[2][0] - short_span[0] != 25:
+        raise SystemExit(f"vision-duplex: the turn's speak segments fed {fed} sampled "
+                         f"tokens ({len(at)} forced chunk ends; want >= 2, each "
+                         f"after at most 25); the short turn's span {short_span}")
+    if not (len(units_after) < len(units_before) and contiguous and kept
+            and slides and max(slides) <= 1.0):
+        raise SystemExit(f"vision-duplex: the unit window left units {units_after} "
+                         f"of {units_before}; positions contiguous {contiguous}; "
+                         f"n_keep cells intact {kept}; K vs the f64 law {slides}")
+    if books[0] != books[1] or len(units_loaded) != len(books[1][2]) + 1:
+        raise SystemExit(f"vision-duplex: the loaded session {books[1]}, saved "
+                         f"{books[0]}; units after one more chunk {units_loaded}")
+    if not main_chunks or any(c > pipeline_mod.DUPLEX_CHUNK_CAP for _, _, c in tts_chunks):
+        raise SystemExit(f"vision-duplex: TTS chunks (tokens, final, codes) {tts_chunks}")
+    for w in waves:
+        if not np.isfinite(w).all() or np.abs(w).max() > 0.99:
+            raise SystemExit(f"vision-duplex: a wave of {len(w)} samples, max |x| "
+                             f"{np.abs(w).max()}")
+    if not waves or not synced[0]:
+        raise SystemExit(f"vision-duplex: {len(waves)} waves; {synced[0]} fused chunks "
+                         "checked for host syncs")
+    want_l = kernel_launches(rows, qts)
+    if nonzero(launches) != want_l or not all(launches.get(k) for k in (
+            "q4k_gemv", "q4k_gemm", "q6k_gemv", "qgemm")):
+        raise SystemExit(f"vision-duplex: launches {nonzero(launches)}, the LLM's "
+                         f"{len(rows)} forward calls make {want_l}")
+
+    # ---- one 224 x 224 VPM part: the card against the CPU --------------------
+    t0 = time.perf_counter()
+    reader = GGUFReader(paths["vision"])
+    cpu_params = siglip.load_params(reader, device="cpu")
+    reader.close()
+    inputs = check_inputs(vcfg, seed)
+    vpm_gap = gap(encode(enc.params, vcfg, *inputs, dev), encode(cpu_params, vcfg,
+                                                                 *inputs, "cpu"))
+    cpu_s = time.perf_counter() - t0
+    del cpu_params
+    if not vpm_gap <= VISION_RTOL:
+        raise SystemExit(f"vision-duplex: a VPM part on the card differs from the "
+                         f"CPU's by {vpm_gap:.3g} of max|row| (limit {VISION_RTOL})")
+
+    # ---- times: a VPM part, a sliced image -----------------------------------
+    parts = image_mod.preprocess_uhd(image, enc.mean, enc.std)
+    px = torch.from_numpy(parts[0]).to(dev)
+    hp, wp = px.shape[0] // vcfg.patch_size, px.shape[1] // vcfg.patch_size
+    ids = torch.from_numpy(siglip.bucket_positions(hp, wp).astype(np.int64)).to(dev)
+    pe = torch.from_numpy(siglip.sincos_pos_embed_2d(vcfg.d_out, wp, hp)).to(dev)
+    part_ms = cuda_ms(lambda: siglip.encode_image(enc.params, vcfg, px, ids, pe),
+                      VISION_PART_ITERS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    enc(image)
+    torch.cuda.synchronize()
+    image_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    image_mod.preprocess_uhd(image, enc.mean, enc.std)
+    slicing_ms = 1e3 * (time.perf_counter() - t0)
+
+    image_items = [(n, r, 1e3 * s) for n, r, s in items if n]
+    stats = {
+        "write_s": write_s, "load_s": load_s, "cpu_check_s": cpu_s, "turn_s": turn_s,
+        "vpm_ms_per_part": part_ms, "vpm_part_patches": hp * wp,
+        "vpm_ms_per_sliced_image": image_ms, "host_slicing_ms": slicing_ms,
+        "image_prefill_ms": image_items, "n_keep": n_keep,
+        "chunk_end_to_first_text_ms": first_text_ms,
+        "chunk_end_to_first_wave_ms": first_wave_ms,
+        "segments_fed": fed, "tts_chunks": tts_chunks, "waves": len(waves),
+        "units_before": units_before, "units_after": units_after,
+        "n_past_before_turn": n_pre, "n_past_after_window": n_past_after,
+        "rerotation_excess": slides, "sync_free_chunks": synced[0],
+        "state_mb": len(state) / 1e6, "save_s": save_s, "load_state_s": load_state_s,
+        "vpm_card_vs_cpu": vpm_gap, "peak_gib": peak_gib, "resident_gib": resident_gib,
+        "llm_forward_calls": len(rows), "text_chars": len(text) + len(text2),
+        "phase_s": time.perf_counter() - t_phase}
+    print(f"  vision VPM ({smi}): {part_ms:.3f} ms a part of {hp * wp} patches "
+          f"({wp * vcfg.patch_size} x {hp * vcfg.patch_size}; CUDA events over "
+          f"{VISION_PART_ITERS}); {image_ms:.1f} ms a sliced "
+          f"{VISION_IMAGE_HW[1]} x {VISION_IMAGE_HW[0]} image of {len(parts)} parts "
+          f"(wall, its host slicing {slicing_ms:.1f} ms included); card vs CPU "
+          f"{vpm_gap:.3g} of max|row| on 224 x 224 (limit {VISION_RTOL})", flush=True)
+    print(f"  vision prefill ({smi}): chunks with images (parts, rows, ms) "
+          f"{[(n, r, round(ms, 1)) for n, r, ms in image_items]}, each with its "
+          f"markers and audio rows; n_keep {n_keep}, n_past {n_pre} before the turn",
+          flush=True)
+    print(f"  duplex turn ({smi}): end of the chunks to the first text "
+          f"{first_text_ms:.1f} ms, to the first wave {first_wave_ms:.1f} ms; speak "
+          f"segments fed {fed} sampled tokens; TTS chunks (tokens, final, codes) "
+          f"{tts_chunks}; {len(waves)} waves; after the load a {VISION_SHORT}-token turn "
+          f"with the TTS off, {synced[0]} fused chunks with no host sync, the cap "
+          f"after {short_span[2][0] - short_span[0]}; turn {turn_s:.2f} s; peak "
+          f"memory {peak_gib:.3f} GiB "
+          f"({resident_gib:.3f} resident at the phase's start)", flush=True)
+    print(f"  duplex window ({smi}): units {units_before} -> {units_after}, n_past "
+          f"{n_past_after} after; K vs f64 law {[round(v, 3) for v in slides]} of its "
+          f"limit; the {len(keep_cells)} n_keep cells intact; state "
+          f"{len(state) / 1e6:.1f} MB saved in {save_s:.3f} s, loaded in "
+          f"{load_state_s:.3f} s, units then {units_loaded}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches, stats
+
+
+def kernel_launches(rows, qts) -> dict:
+    """The launches the LLM's forward calls of `rows` rows each make over
+    its quantized weights `qts`, by `kernel_for` (kernel D also per
+    format, as "qgemm Q6_K")."""
+    from omni_tpu_torch.kernels import dequant_matmul as dm
+
+    want = {}
+    for m in rows:
+        for w in qts:
+            name = dm.kernel_for(m, w).__name__
+            want[name] = want.get(name, 0) + 1
+            if name == "qgemm":
+                key = f"qgemm {w.ggml_type.name}"
+                want[key] = want.get(key, 0) + 1
+    return want
 
 
 def teacher_forced(cfg, params, dev, dm, qwen3, prompts, against: str,
@@ -2459,60 +2877,74 @@ def main() -> int:
 
     # ---- the same model: a spoken round (APM, TTS, Token2Wav) --------------
     t0 = time.perf_counter()
-    launches, stats = spoken_phase(cfg, params, qts, tok, dev, qwen3, smi, args.seed)
-    finish("q4_k_m_spoken", "spoken-round", launches, stats, None, t0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_omni_") as omni_dir:
+        launches, stats, spoken = spoken_phase(cfg, params, qts, tok, dev, qwen3, smi,
+                                               args.seed, omni_dir)
+        finish("q4_k_m_spoken", "spoken-round", launches, stats, None, t0)
+
+        # ---- the same model and modules: vision and duplex (the VPM) -------
+        t0 = time.perf_counter()
+        launches, stats = vision_duplex_phase(cfg, params, qts, tok, dev, qwen3, smi,
+                                              args.seed, omni_dir, spoken)
+        finish("q4_k_m_vision_duplex", "vision-duplex", launches, stats, None, t0)
+        del spoken
     del params, qts, tok
 
-    # ---- path 3: Q5_K_M Qwen3-8B from a GGUF file (G, B's Q5_K branch, C, D)
+    # ---- path 3: Q5_K_M Qwen3-8B from a GGUF file (G, B's Q5_K branch, C,
+    # D), at CUT_LAYERS
+    cut_cfg = dataclasses.replace(cfg, n_layers=CUT_LAYERS)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        params, qts, io, _ = write_and_load(cfg, "Q5_K_M", dev, qwen3, tmp, args.seed)
+        params, qts, io, _ = write_and_load(cut_cfg, "Q5_K_M", dev, qwen3, tmp,
+                                            args.seed)
     n_q6 = sum(w.ggml_type == GGMLType.Q6_K for w in qts)
     n_q5 = sum(w.ggml_type == GGMLType.Q5_K for w in qts)
-    if (n_q6, n_q5) != (N_Q6K, N_Q5K):
+    if (n_q6, n_q5) != (N_Q6K_CUT, N_Q5K_CUT):
         raise SystemExit(f"{n_q6} Q6_K and {n_q5} Q5_K weights, want "
-                         f"{N_Q6K} and {N_Q5K}")
+                         f"{N_Q6K_CUT} and {N_Q5K_CUT}")
     phase("gguf-q5km", t0, f"{json.dumps(io)}; {n_q5} Q5_K + {n_q6} Q6_K "
           f"weights, {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
     t0 = time.perf_counter()
     rng = torch.Generator().manual_seed(0)
-    launches, stats = serve_turn("Q5_K_M from GGUF", cfg, params, dev, qwen3,
-                                 {**zero, "q5k_gemv": N_Q5K, "q6k_gemv": N_Q6K},
-                                 {**zero, "q5k_gemm": N_Q5K, "qgemm": N_Q6K,
-                                  "qgemm Q6_K": N_Q6K}, rng)
+    launches, stats = serve_turn("Q5_K_M from GGUF", cut_cfg, params, dev, qwen3,
+                                 {**zero, "q5k_gemv": N_Q5K_CUT, "q6k_gemv": N_Q6K_CUT},
+                                 {**zero, "q5k_gemm": N_Q5K_CUT, "qgemm": N_Q6K_CUT,
+                                  "qgemm Q6_K": N_Q6K_CUT}, rng)
     prompts = [torch.randint(0, 1000, (N_PREFILL,), generator=rng).numpy()
                for _ in range(args.prompts)]
-    tf = teacher_forced(cfg, params, dev, dm, qwen3, prompts, "f64")
+    tf = teacher_forced(cut_cfg, params, dev, dm, qwen3, prompts, "f64")
     del params, qts
     finish("q5_k_m_gguf", "served-turn-q5km", launches, {**stats, **io}, tf, t0)
 
     # ---- path 4: Q4_0 and Q5_0 Qwen3-8B from GGUF files, importance-matrix
-    # layout (kernel A's and B's legacy branches, C, D) ----------------------
+    # layout (kernel A's and B's legacy branches, C, D), at CUT_LAYERS -------
     for recipe, with_min in LEGACY_RECIPES.items():
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-            params, qts, io, _ = write_and_load(cfg, recipe, dev, qwen3, tmp, args.seed,
-                                             imatrix=True)
+            params, qts, io, _ = write_and_load(cut_cfg, recipe, dev, qwen3, tmp,
+                                                args.seed, imatrix=True)
         fmt, fmt_min = GGMLType[recipe], GGMLType[with_min]
         counts = [sum(w.ggml_type == t for w in qts)
                   for t in (fmt, fmt_min, GGMLType.Q6_K)]
-        if counts != [N_LEGACY, N_LEGACY_MIN, 1]:
+        if counts != [N_LEGACY_CUT, N_LEGACY_MIN_CUT, 1]:
             raise SystemExit(f"{counts} {recipe}, {with_min} and Q6_K weights, want "
-                             f"{[N_LEGACY, N_LEGACY_MIN, 1]}")
+                             f"{[N_LEGACY_CUT, N_LEGACY_MIN_CUT, 1]}")
         phase(f"gguf-{recipe.lower()}", t0,
-              f"{json.dumps(io)}; {N_LEGACY} {recipe} + {N_LEGACY_MIN} {with_min} "
+              f"{json.dumps(io)}; {N_LEGACY_CUT} {recipe} + {N_LEGACY_MIN_CUT} {with_min} "
               f"+ 1 Q6_K weights, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
               "on the card")
         t0 = time.perf_counter()
         rng = torch.Generator().manual_seed(0)
         launches, stats = serve_turn(
-            f"{recipe} (importance-matrix layout) from GGUF", cfg, params, dev, qwen3,
-            {**zero, dm.HALVES_GEMV[fmt]: N_LEGACY,
-             dm.HALVES_GEMV[fmt_min]: N_LEGACY_MIN, "q6k_gemv": 1},
-            {**zero, dm.HALVES_GEMM[fmt]: N_LEGACY,
-             dm.HALVES_GEMM[fmt_min]: N_LEGACY_MIN, "qgemm": 1, "qgemm Q6_K": 1},
+            f"{recipe} (importance-matrix layout) from GGUF", cut_cfg, params, dev,
+            qwen3,
+            {**zero, dm.HALVES_GEMV[fmt]: N_LEGACY_CUT,
+             dm.HALVES_GEMV[fmt_min]: N_LEGACY_MIN_CUT, "q6k_gemv": 1},
+            {**zero, dm.HALVES_GEMM[fmt]: N_LEGACY_CUT,
+             dm.HALVES_GEMM[fmt_min]: N_LEGACY_MIN_CUT, "qgemm": 1, "qgemm Q6_K": 1},
             rng)
-        tf = teacher_forced(cfg, params, dev, dm, qwen3, tf_prompts(rng, "f64"), "f64")
+        tf = teacher_forced(cut_cfg, params, dev, dm, qwen3, tf_prompts(rng, "f64"),
+                            "f64")
         finish(f"{recipe.lower()}_imatrix_gguf", f"served-turn-{recipe.lower()}",
                launches, {**stats, **io}, tf, t0)
         if recipe == SWITCHED_RECIPE:
@@ -2523,14 +2955,14 @@ def main() -> int:
             saved = dm.GP_DECODE, dm.SH_PREFILL
             dm.GP_DECODE = dm.SH_PREFILL = False
             try:
-                want = {**zero, "qgemm": N_UNFUSED, f"qgemm {recipe}": N_LEGACY,
-                        f"qgemm {with_min}": N_LEGACY_MIN, "qgemm Q6_K": 1}
+                want = {**zero, "qgemm": N_UNFUSED, f"qgemm {recipe}": N_LEGACY_CUT,
+                        f"qgemm {with_min}": N_LEGACY_MIN_CUT, "qgemm Q6_K": 1}
                 rng = torch.Generator().manual_seed(0)
                 launches, stats = serve_turn(
                     f"{recipe} (importance-matrix layout), gp and sh routes off",
-                    cfg, params, dev, qwen3, want, want, rng)
-                tf = teacher_forced(cfg, params, dev, dm, qwen3, tf_prompts(rng, "f64"),
-                                    "f64")
+                    cut_cfg, params, dev, qwen3, want, want, rng)
+                tf = teacher_forced(cut_cfg, params, dev, dm, qwen3,
+                                    tf_prompts(rng, "f64"), "f64")
             finally:
                 dm.GP_DECODE, dm.SH_PREFILL = saved
             finish(f"{recipe.lower()}_imatrix_gguf_switched",
@@ -2540,14 +2972,14 @@ def main() -> int:
             # kernel I every FFN (Q4_0/Q4_1 where ffn_down is Q4_1)
             del qts
             fuse_in_place(params)
-            ffn = ffn_launches({f"{recipe}/{recipe}": cfg.n_layers - N_LEGACY_MIN,
-                                f"{recipe}/{with_min}": N_LEGACY_MIN})
+            ffn = ffn_launches({f"{recipe}/{recipe}": CUT_LAYERS - N_LEGACY_MIN_CUT,
+                                f"{recipe}/{with_min}": N_LEGACY_MIN_CUT})
             fused_ffn_turn(f"{recipe.lower()}_imatrix_gguf_fused_ffn",
                            f"{recipe} (importance-matrix layout)", params,
-                           {**zero, dm.HALVES_GEMV[fmt]: 2 * cfg.n_layers,
+                           {**zero, dm.HALVES_GEMV[fmt]: 2 * CUT_LAYERS,
                             "q6k_gemv": 1, **ffn},
-                           {**zero, dm.HALVES_GEMM[fmt]: 2 * cfg.n_layers, "qgemm": 1,
-                            "qgemm Q6_K": 1, **ffn}, "f64", args.prompts)
+                           {**zero, dm.HALVES_GEMM[fmt]: 2 * CUT_LAYERS, "qgemm": 1,
+                            "qgemm Q6_K": 1, **ffn}, "f64", args.prompts, cut_cfg)
             del params
             continue
         del params, qts

@@ -11,7 +11,8 @@ the port's nibble-index planes through the inverse codebook
 same way: the APM's, the TTS decoder's and its extras (then
 `tts.with_bf16`), the conformer's, the DiT's, the flow extras' and
 HiFiGAN's (its resblocks' lists of (weight, bias) tuples), f32 arrays as
-f32 tensors. It imports nothing of the JAX package.
+f32 tensors; the VPM's through `vpm_from_jax_params`. It imports nothing
+of the JAX package.
 """
 
 from __future__ import annotations
@@ -60,3 +61,13 @@ def from_jax_params(params_np, device=None):
         return _tensor(x, device)
 
     return conv(params_np)
+
+
+def vpm_from_jax_params(params_np, device=None) -> dict:
+    """omni_tpu's VPM tree (`siglip.load_params`, numpy leaves; None where
+    the file has no pre-LN or bias) -> the port's (`siglip.load_params`):
+    f32 tensors, the patch weight [d, 3, p, p] viewed as the product's
+    [d, 3 * p * p]."""
+    p = from_jax_params(params_np, device)
+    p["patch_w"] = p["patch_w"].reshape(p["patch_w"].shape[0], -1)
+    return p

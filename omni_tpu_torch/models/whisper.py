@@ -11,8 +11,10 @@ AvgPool1d(5, 5) over time. One second of 16 kHz audio is 100 mel frames,
 Streaming: a K/V cache of `n_audio_ctx` (1,500) conv frames a layer lets
 each chunk attend over up to 30 s of audio, with full (non-causal)
 attention inside the cached window. The weights are f32, as the JAX
-package keeps them; on the card the products run in f32 (TF32 off is the
-caller's choice, `torch.backends.cuda.matmul.allow_tf32`).
+package keeps them; on the card the products and the convolutions must
+run in f32: `omni_cli.main` and chip_smoke.py turn TF32 off for both
+(`torch.backends.cuda.matmul.allow_tf32`, and
+`torch.backends.cudnn.allow_tf32`, whose default is True).
 """
 
 from __future__ import annotations

@@ -627,6 +627,52 @@ def write_apm_gguf(path, generator: torch.Generator, n_layers: int = 24,
     w.write()
 
 
+def write_vpm_gguf(path, generator: torch.Generator, n_layers: int = 26,
+                   d_model: int = 1152, n_heads: int = 16, d_ff: int = 4304,
+                   patch_size: int = 14, pos_buckets: int = 70,
+                   d_out: int = 4096, n_queries: int = 64) -> None:
+    """The VPM (convert_vpm.py's names, the clip.vision.* keys of
+    omni_tpu/testing_gguf.py's `write_tiny_vpm`): the patch embedding, the
+    70 x 70 = 4,900-row positional table, 26 pre-LN SigLip layers, the
+    post-LN and the resampler (64 queries x 4096, kv_proj, q/k/v/out, three
+    LNs, proj); image mean and std 0.5. At full width ~491 M parameters."""
+    f = _F16Writer(path, generator)
+    w = f.w
+    w.add_kv("general.architecture", "clip")
+    for key, v in (("block_count", n_layers), ("embedding_length", d_model),
+                   ("attention.head_count", n_heads), ("feed_forward_length", d_ff),
+                   ("patch_size", patch_size), ("image_size", 448),
+                   ("projection_dim", d_out)):
+        w.add_kv(f"clip.vision.{key}", v)
+    w.add_kv("clip.minicpmv_query_num", n_queries)
+    w.add_kv("clip.vision.image_mean", [0.5, 0.5, 0.5])
+    w.add_kv("clip.vision.image_std", [0.5, 0.5, 0.5])
+    f.rand("v.patch_embd.weight", d_model, 3, patch_size, patch_size)
+    f.rand("v.patch_embd.bias", d_model)
+    f.rand("v.position_embd.weight", pos_buckets * pos_buckets, d_model, s=0.1)
+    f.ln("v.post_ln", d_model)
+    f.rand("resampler.query", n_queries, d_out, s=0.1)
+    f.rand("resampler.kv.weight", d_out, d_model)
+    for nm in ("q", "k", "v", "out"):
+        f.rand(f"resampler.attn.{nm}.weight", d_out, d_out)
+        f.rand(f"resampler.attn.{nm}.bias", d_out)
+    for nm in ("ln_q", "ln_kv", "ln_post"):
+        f.ln(f"resampler.{nm}", d_out)
+    f.rand("resampler.proj.weight", d_out, d_out)
+    for i in range(n_layers):
+        b = f"v.blk.{i}."
+        f.ln(b + "ln1", d_model)
+        for nm in ("q", "k", "v", "out"):
+            f.rand(b + f"attn_{nm}.weight", d_model, d_model)
+            f.rand(b + f"attn_{nm}.bias", d_model)
+        f.ln(b + "ln2", d_model)
+        f.rand(b + "ffn_up.weight", d_ff, d_model)
+        f.rand(b + "ffn_up.bias", d_ff)
+        f.rand(b + "ffn_down.weight", d_model, d_ff)
+        f.rand(b + "ffn_down.bias", d_model)
+    w.write()
+
+
 def write_tts_gguf(path, generator: torch.Generator, n_layers: int = 20,
                    d_model: int = 768, n_heads: int = 12, d_ff: int = 3072,
                    d_llm: int = 4096, n_text: int = 152064,

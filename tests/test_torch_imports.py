@@ -29,7 +29,7 @@ def _run(code, cwd=ROOT, env_extra=None):
 def test_port_imports_with_jax_and_omni_tpu_blocked():
     code = """
 import sys
-for name in ("jax", "jaxlib", "omni_tpu", "regex"):
+for name in ("jax", "jaxlib", "omni_tpu", "regex", "PIL"):
     sys.modules[name] = None  # any import of them raises ImportError
 import importlib, pkgutil
 import omni_tpu_torch
@@ -48,7 +48,9 @@ for name in ("omni_tpu_torch.tokenizer", "omni_tpu_torch.tokenizer.bpe",
              "omni_tpu_torch.models.token2wav.dit",
              "omni_tpu_torch.models.token2wav.hifigan",
              "omni_tpu_torch.models.token2wav.prompt_cache",
-             "omni_tpu_torch.cli.omni_cli", "omni_tpu_torch.spoken_limits"):
+             "omni_tpu_torch.cli.omni_cli", "omni_tpu_torch.spoken_limits",
+             "omni_tpu_torch.omni.image", "omni_tpu_torch.models.siglip",
+             "omni_tpu_torch.vision_limits"):
     assert name in names, name
 # the spoken round's pieces work without them: a mel, a TTS draw, a code
 # window's conformer chunk at a tiny width
@@ -92,6 +94,20 @@ assert tok.decode(tok.encode(text)) == text
 assert 0 <= int(sample(torch.randn(64), SamplerParams(mirostat=0),
                        generator=torch.Generator().manual_seed(0))) < 64
 assert SessionConfig().fused_decode and RoundBoundary(0, 1).end_pos == 1
+# the vision path without Pillow: slicing, the VPM's positions; decoding a
+# file names what it needs
+from omni_tpu_torch.omni.image import load_image, preprocess_uhd
+from omni_tpu_torch.models import siglip
+from omni_tpu_torch.omni.pipeline import UnitEntry
+parts = preprocess_uhd(np.zeros((500, 700, 3), np.uint8), [0.5] * 3, [0.5] * 3)
+assert len(parts) > 1 and parts[0].dtype == np.float32
+assert siglip.sincos_pos_embed_2d(16, 3, 2).shape == (6, 16)
+assert not UnitEntry(0).closed
+try:
+    load_image("x.jpg")
+    raise AssertionError("load_image decoded without Pillow")
+except ImportError as e:
+    assert "Pillow" in str(e)
 import chip_smoke
 assert not any(k == "jax" or k.startswith(("jax.", "omni_tpu."))
                for k, v in sys.modules.items() if v is not None)

@@ -168,6 +168,50 @@ def test_own_trig_holds_the_f64_law(kv):
         np.testing.assert_array_equal(tc.pos.numpy(), np.asarray(jc.pos))
 
 
+@pytest.mark.parametrize("kv", list(JDT))
+def test_f64_law_sees_a_wrong_rotation_beside_empty_cells(kv):
+    """`rerotation_excess` on a pool whose upper half is empty (zero K,
+    zero scales: a real session's unused cells): the shift holds, and the
+    same cells held to twice its angle fail; an empty cell's 0 / 0 must not
+    hide them."""
+    _, tc = _pools(kv, seed=5)
+    tc.k[:, :, S // 2:] = 0
+    if tc.quantized:
+        tc.k_scale[:, :, S // 2:] = 0
+    op = ("seq_add", 0, 10, -1, -7)
+    before, rot = _before_and_rot(tc, op)
+    _apply(tc, op)
+    assert rerotation_excess(before, tc, range(L), rot, BASE) <= 1.0
+    assert rerotation_excess(before, tc, range(L), 2 * rot, BASE) > 1.0
+
+
+def test_f64_law_holds_the_reference_at_scale():
+    """A Qwen3-8B layer's bf16 pool (2,048 cells, 8 heads of 128) shifted by
+    -474, as the unit window shifts one: the JAX cache's own shift and the
+    port's hold the law (whose f32-arithmetic term covers the values near a
+    cancellation, where 2^-7 of the value alone reads ~150 on the JAX
+    cache), and the same cells held to a delta one off fail it."""
+    s_, h_, d_ = 2048, 8, 128
+    rng = np.random.default_rng(7)
+    k = jnp.asarray(rng.standard_normal((s_, h_, d_)) * 2.0, jnp.bfloat16)
+    jc = jkv.KVCache.create(1, s_, h_, d_, dtype=jnp.bfloat16, rope_base=BASE)
+    jc = jc.write(0, jnp.arange(s_, dtype=jnp.int32), k, k)
+    jc = dataclasses.replace(jc, pos=jnp.arange(s_, dtype=jnp.int32),
+                             seq_mask=jnp.ones(s_, jnp.uint32))
+    tc = KVCache.create(1, s_, h_, d_, "cpu", dtype=torch.bfloat16, rope_base=BASE)
+    tc.write(0, torch.arange(s_), _t(k), _t(k))
+    tc.pos.copy_(torch.arange(s_, dtype=tc.pos.dtype))
+    tc.seq_mask.fill_(1)
+    op = ("seq_add", 0, 500, -1, -474)
+    before, rot = _before_and_rot(tc, op)
+    _apply(tc, op)
+    assert rerotation_excess(before, tc, [0], rot, BASE) <= 1.0
+    assert rerotation_excess(before, tc, [0], rot + (rot != 0).long(), BASE) > 1.0
+    jc = _apply(jc, op)
+    tc.k.copy_(_t(jc.k))
+    assert rerotation_excess(before, tc, [0], rot, BASE) <= 1.0
+
+
 def test_own_trig_is_within_one_ulp_of_f64():
     deltas = torch.arange(-4096, 4097, dtype=torch.float32)
     for d, base in ((128, 1e6), (64, 1e6), (128, 1e4)):

@@ -13,7 +13,8 @@ same waves; both write the same round files. The TTS draws its codes from
 each package's own generator, so the two rounds' codes differ: the cap
 (SIMPLEX_AUDIO_CAP, 60 here in both pipelines instead of 500, since the
 tiny head has no audio_eos) makes their counts equal. Images, duplex and a
-saved duplex session are refused by name."""
+saved duplex session are held in tests/test_torch_vision.py and
+tests/test_torch_duplex.py."""
 
 import argparse
 import os
@@ -243,37 +244,6 @@ def test_round_files_as_jax(rounds):
     for f in want[1:]:
         assert (open(base / "port_out" / f, "rb").read()
                 == open(base / "port_out_pipeline" / f, "rb").read())
-
-
-def test_refused_by_name(rounds, tmp_path):
-    """Images, duplex and a saved duplex session raise NotImplementedError
-    naming what is missing."""
-    paths = tcli.resolve_model_paths(rounds["llm"])
-    with pytest.raises(NotImplementedError, match="VPM"):
-        tcli.build_pipeline(paths, argparse.Namespace(**{**vars(ARGS), "omni": True}),
-                            device="cpu")
-    with pytest.raises(NotImplementedError, match="duplex"):
-        tcli.build_pipeline(paths, argparse.Namespace(**{**vars(ARGS), "duplex": True}),
-                            device="cpu")
-    pipe = tcli.build_pipeline(paths, argparse.Namespace(**{**vars(ARGS), "no_tts": True}),
-                               device="cpu")
-    with pytest.raises(NotImplementedError, match="VPM"):
-        pipe.stream_prefill(image=np.zeros((8, 8, 3), np.uint8), index=1)
-    with pytest.raises(NotImplementedError, match="duplex"):
-        tpipeline.OmniPipeline(pipe.llm, pipe.tok, tpipeline.SessionConfig(duplex=True))
-    import io
-    import pickle
-
-    blob = {"meta": {"n_keep": 0, "rounds": [], "units": [(0, 4)], "current_round": 0,
-                     "cfg": {"duplex": True}}, "llm": b""}
-    buf = io.BytesIO()
-    pickle.dump(blob, buf)
-    with pytest.raises(NotImplementedError, match="duplex"):
-        pipe.load_session_state_bytes(buf.getvalue())
-    open(str(tmp_path / "c_1.jpg"), "wb").close()
-    with pytest.raises(NotImplementedError, match="VPM"):
-        tcli.run_test_cases(pipe, str(tmp_path / "c_"), 1, str(tmp_path / "o"))
-    pipe.shutdown()
 
 
 def test_second_scan_waits_for_first_window(rounds, tmp_path, monkeypatch):
