@@ -49,7 +49,16 @@ time, each through
    the re-rotated K within one code step of the rotation law in f64; a
    fresh context from the same seed must repeat the first turn, a turn
    after a session load the turn before it, and 20,000 draws of `sample()`
-   must follow softmax of the filtered row (chi-square p > 1e-4); then a
+   must follow softmax of the filtered row (chi-square p > 1e-4); then the
+   server (`server_phase`): the port's OpenAI-style server on a q8_0 pool
+   with 8 slots, driven over HTTP from several threads: 2, 4 and 8
+   step-path requests at once (continuous batching: each step's A/C or
+   B/D launches checked, each stream equal to its run alone or parting at
+   a teacher-forced near tie), kernel F held at 2, 4 and 8 rows of
+   different sequences, two fused-path chats at once, SSE, a JSON schema,
+   a forced tool call, embeddings, /metrics, a slot saved, erased and
+   restored, a text-only /v1/stream turn and a request past its slot's
+   budget; then a
    spoken round (`spoken_phase`): the full-width APM, TTS and Token2Wav
    (F16 files written beside it) loaded by omni-cli's `build_pipeline`
    around the loaded Q4_K_M LLM, one `run_test_cases` round of 2 s of
@@ -703,13 +712,16 @@ def flash_law_f64(q, k, v, mask, k_scale=None, v_scale=None, scale=None,
     return out.float()
 
 
-def flash_inputs(bits: int, t: int, s: int, dev, gen, heads=FLASH_HEADS):
+def flash_inputs(bits: int, t: int, s: int, dev, gen, heads=FLASH_HEADS,
+                 mixed: bool = False):
     """Attention inputs over S cells, Qwen3-8B's `heads` (Hq, Hkv, D) by
     default: q [T, 32, 128], K/V [8, S, 128] drawn N(0, 1) and stored as the pool stores them (bf16, or
     quantized by the port's q8_0 / q4_0 codec), a causal mask from real
     positions (cell c holds position c; the T queries sit just before a
     masked tail of 16 cells) and, for T > 1, a first row masked everywhere.
-    Returns (q, k, v, mask, k_scale, v_scale)."""
+    mixed: each row a sequence of its own, as a server step's decode rows
+    (cell c belongs to sequence c mod T; row i sees its sequence's cells
+    before the tail). Returns (q, k, v, mask, k_scale, v_scale)."""
     import torch
 
     from omni_tpu_torch.runtime.kv_cache import quant_rows, quant_rows4
@@ -721,7 +733,10 @@ def flash_inputs(bits: int, t: int, s: int, dev, gen, heads=FLASH_HEADS):
     cell = torch.arange(s, device=dev)
     qpos = torch.arange(t, device=dev) + max(s - tail - t, 0)
     mask = (cell[None] <= qpos[:, None]) & (cell[None] < s - tail)
-    if t > 1:
+    if mixed:
+        mask = (cell[None] % t == torch.arange(t, device=dev)[:, None]) & (
+            cell[None] < s - tail)
+    elif t > 1:
         mask[0] = False
     if bits == 16:
         return q, kf.to(torch.bfloat16), vf.to(torch.bfloat16), mask, None, None
@@ -730,7 +745,8 @@ def flash_inputs(bits: int, t: int, s: int, dev, gen, heads=FLASH_HEADS):
     return q, k, v, mask, ks, vs
 
 
-def check_flash(bits: int, t: int, s: int, dev, gen, max_err) -> None:
+def check_flash(bits: int, t: int, s: int, dev, gen, max_err,
+                mixed: bool = False) -> None:
     """Kernel F (`flash_decode`, or `flash_decode4` for int4 cells) against
     its plain version within FLASH_RTOL x Σ p|v| (+ FLASH_FLOOR), finite,
     its RMS distance from the f64 law within F64_FACTOR of the plain
@@ -740,7 +756,7 @@ def check_flash(bits: int, t: int, s: int, dev, gen, max_err) -> None:
 
     from omni_tpu_torch.kernels import flash_attention as fa
 
-    args = flash_inputs(bits, t, s, dev, gen)
+    args = flash_inputs(bits, t, s, dev, gen, mixed=mixed)
     name = "flash_decode4" if bits == 4 else "flash_decode"
     got = fa.flash_decode(*args)
     again = fa.flash_decode(*args)
@@ -757,6 +773,7 @@ def check_flash(bits: int, t: int, s: int, dev, gen, max_err) -> None:
     ok = bool(torch.isfinite(got).all()) and worst <= 1.0 and ratio <= F64_FACTOR and same
     plan = fa.split_plan(t * FLASH_HEADS[0] // FLASH_HEADS[1], FLASH_HEADS[1], s)
     print(f"  {name} {({16: 'bf16', 8: 'int8', 4: 'int4'})[bits]} T={t} S={s} "
+          + ("(a sequence a row) " if mixed else "") +
           f"{plan.regime}, {plan.nsplit} splits of {plan.per_split}: "
           f"max|d|={err:.3g}, worst |d|/limit {worst:.3g} (limit {FLASH_RTOL:g} "
           f"sum p|v| + {FLASH_FLOOR:g} max); rms vs the f64 law kernel {rms[0]:.3g}, "
@@ -2172,6 +2189,469 @@ def vision_duplex_phase(cfg, params, qts, tok, dev, qwen3, smi: str, seed: int,
     return launches, stats
 
 
+SERVER_CTX, SERVER_SLOTS = 2048, 8  # n_ctx and -np of the server phase
+SERVER_TOKENS = 32  # tokens of each step-path request (n_probs 2, greedy)
+SERVER_CONCURRENCY = (2, 4, 8)  # step-path requests sent at once
+SERVER_WAVE_STEPS = 6  # the 8-request round's second wave, steps after the first
+SERVER_CHAT_TOKENS = 24  # tokens of each fused-path chat
+# prompt and new tokens of the request past its budget: 244 + 16 > 256, so
+# the fused path shifts before its first chunk
+SERVER_SHIFT = (244, 16)
+SERVER_FLASH_TS = (2, 4, 8)  # kernel F at a server step's decode rows
+SERVER_PROMPTS = tuple(f"Request {i}: " + s for i, s in enumerate(
+    (SESSION_SYSTEM,) + SESSION_USER))[:max(SERVER_CONCURRENCY)]
+SERVER_SCHEMA = {"type": "object", "properties": {"ok": {"type": "boolean"},
+                                                   "c": {"enum": ["a", "b"]}},
+                 "required": ["ok", "c"], "additionalProperties": False}
+SERVER_TOOLS = [{"type": "function", "function": {
+    "name": "get_weather", "description": "Get the weather",
+    "parameters": {"type": "object",
+                   "properties": {"city": {"type": "string", "maxLength": 4}},
+                   "required": ["city"], "additionalProperties": False}}}]
+# A stream that parts from the same request served alone is a rounding flip
+# where the teacher-forced logits at the first parting (the prompt and the
+# common tokens fed through Context.decode) hold both tokens within
+# SERVER_TIE_REL of max|logit| of the row's best. A mixed step sends a decode
+# row through kernels B/D (or kernel F's prefill regime) where alone it went
+# through A/C: two routes of one law, each within ~1.3e-3 of max|logit| of
+# the f64 law on this model (F64_FACTOR's note), so up to ~2.6e-3 apart;
+# with F64_FACTOR's margin, 5e-3.
+SERVER_TIE_REL = 5e-3
+
+
+def flip_proof(state, prompt_ids, a_toks, b_toks, what: str) -> dict:
+    """The first parting of two token streams of one prompt on the server
+    `state`, teacher-forced: the prompt and the common tokens through
+    `Context.decode` on the scratch sequence (under the server's lock);
+    both tokens must lie within SERVER_TIE_REL of max|logit| of the row's
+    best, else the run fails. Returns the reading."""
+    import numpy as np
+
+    from omni_tpu_torch.runtime import Batch
+    from omni_tpu_torch.server.main import SCRATCH_SEQ
+
+    ctx = state.ctx
+    i = next(j for j, (x, y) in enumerate(zip(a_toks, b_toks)) if x != y)
+    ids = list(prompt_ids) + list(a_toks[:i])
+    with state.sched_lock:
+        lg, _ = ctx.decode(Batch(tokens=np.asarray(ids, np.int32),
+                                 pos=np.arange(len(ids), dtype=np.int32),
+                                 seq_id=np.full(len(ids), SCRATCH_SEQ, np.int32)))
+        ctx.seq_rm(SCRATCH_SEQ, -1, -1)
+        ctx.n_past.pop(SCRATCH_SEQ, None)
+        row = lg[-1].float()
+        best, scale = row.max().item(), row.abs().max().item()
+        gaps = [best - row[x].item() for x in (a_toks[i], b_toks[i])]
+    ok = max(gaps) <= SERVER_TIE_REL * scale
+    print(f"  server {what}: parts from its run alone at token {i} "
+          f"({a_toks[i]} vs {b_toks[i]}); teacher-forced gaps to the best "
+          f"{gaps[0]:.4g}, {gaps[1]:.4g} of max|logit| {scale:.4g} (band "
+          f"{SERVER_TIE_REL * scale:.4g}) {'a rounding flip' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise SystemExit(f"server {what}: parts from its run alone at token "
+                         f"{i}, no near tie")
+    return {"at": i, "gaps": gaps, "max_logit": scale}
+
+
+def server_phase(cfg, params, qts, tok, dev, qwen3, smi: str, gen, max_err):
+    """The port's OpenAI-style server (`omni_tpu_torch.server.main`) on the
+    Q4_K_M model: `serve(ServerState(...))` on 127.0.0.1:0 in a thread,
+    n_ctx SERVER_CTX on a q8_0 pool, SERVER_SLOTS slots, driven over HTTP
+    from several threads. Kernel F is first held at SERVER_FLASH_TS rows of
+    different sequences (`check_flash(mixed=True)`, with its device kernels
+    a call). Every launch count is set to 0 just before the requests and
+    read just after. Checks:
+    - batching: SERVER_PROMPTS served alone, then 2, 4 and 8 of them at
+      once on the step path (n_probs 2, greedy, SERVER_TOKENS tokens): each
+      stream equals its run alone, or parts at a rounding flip
+      (SERVER_TIE_REL, teacher-forced); every step launches A and C (M <= 8
+      rows) or B and D (more) as `kernel_for` says, and kernel F once a
+      layer; ms a step and tokens/s summed over the slots by live slots;
+    - the fused path: two greedy chats at once, each equal to its run alone
+      (or a proven flip), interleaved by chunk;
+    - an SSE chat ending with [DONE], a json_schema chat whose content
+      parses against its schema, a forced tool call that returns
+      tool_calls, /v1/embeddings of norm 1 +- 1e-3, /metrics, the
+      vocabulary trie's build time and the host ms a constrained token;
+    - /slots/0 save, erase, restore: a continuation of slot 0's sequence
+      after the round trip equals the one before it;
+    - /v1/stream/omni_init (text only), a prefill and a decode SSE ending
+      with stop;
+    - one request past its slot's budget (n_ctx / slots), which shifts the
+      context.
+    The server is shut down at the end with no thread of it left. Returns
+    (launches, stats)."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from omni_tpu_torch.grammar import gbnf
+    from omni_tpu_torch.kernels import flash_attention as fa
+    from omni_tpu_torch.runtime import Batch, Context
+    from omni_tpu_torch.server import main as srv
+
+    t_phase = time.perf_counter()
+    flash_calls = {}
+    for t in SERVER_FLASH_TS:
+        check_flash(8, t, SERVER_CTX, dev, gen, max_err, mixed=True)
+        args = flash_inputs(8, t, SERVER_CTX, dev, gen, mixed=True)
+        flash_calls[t] = kernels_per_call(lambda: fa.flash_decode(*args),
+                                          ("flash_kernel", "merge_kernel"))
+        print(f"  flash_decode T={t} (a sequence a row): "
+              f"{flash_calls[t] if flash_calls[t] is not None else 'not measured'} "
+              "device kernels a call", flush=True)
+
+    flash_s = time.perf_counter() - t_phase
+    threads_before = set(threading.enumerate())
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_slots_")
+    ctx = Context(cfg, params, qwen3.forward, qwen3.embed, n_ctx=SERVER_CTX,
+                  device=dev, kv_dtype="q8_0")
+    state = srv.ServerState(ctx, tok, n_slots=SERVER_SLOTS, slot_save_path=tmp)
+    t = time.perf_counter()
+    state._trie()
+    trie_s = time.perf_counter() - t
+
+    # every step: its rows, live decode rows, ms and launches; every served
+    # completion: its prompt and tokens (for the teacher-forced proof)
+    steps, served, rows, book = [], [], [], threading.Lock()
+    orig_step, orig_decode, orig_complete = (state.sched.step, ctx.decode,
+                                             state.complete)
+
+    def decode(batch, **kw):
+        rows.append(len(batch))
+        return orig_decode(batch, **kw)
+
+    def step():  # runs under sched_lock
+        rows.clear()
+        live = sum(s.state.name == "GENERATING" and bool(s.out_tokens)
+                   for s in state.sched.slots)
+        before = launch_counts()
+        t = time.perf_counter()
+        orig_step()
+        ms = (time.perf_counter() - t) * 1e3
+        after = launch_counts()
+        steps.append({"rows": rows[0] if rows else 0, "live": live, "ms": ms,
+                      "launches": {k: after[k] - before.get(k, 0) for k in after
+                                   if after[k] != before.get(k, 0)}})
+
+    def complete(prompt_tokens, *a, **kw):
+        r = orig_complete(prompt_tokens, *a, **kw)
+        with book:
+            served.append((list(map(int, prompt_tokens)), list(r[0])))
+        return r
+
+    allowed_s = [0.0, 0]
+    orig_allowed = gbnf.Grammar.allowed_tokens
+
+    def allowed(self, trie):
+        t = time.perf_counter()
+        out = orig_allowed(self, trie)
+        allowed_s[0] += time.perf_counter() - t
+        allowed_s[1] += 1
+        return out
+
+    state.sched.step, ctx.decode, state.complete = step, decode, complete
+    gbnf.Grammar.allowed_tokens = allowed
+    httpd = srv.serve(state, "127.0.0.1", 0)
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def post(route, body, raw=False):
+        req = urllib.request.Request(url + route, json.dumps(body).encode(),
+                                     {"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            data = r.read()
+        return data if raw else json.loads(data)
+
+    def at_once(route, bodies, delays=None):
+        """The requests from one thread each, released together (request i
+        after delays[i] s)."""
+        out = [None] * len(bodies)
+        go = threading.Barrier(len(bodies))
+
+        def hit(i):
+            go.wait()
+            time.sleep(delays[i] if delays else 0.0)
+            out[i] = post(route, bodies[i])
+
+        ts = [threading.Thread(target=hit, args=(i,)) for i in range(len(bodies))]
+        for th in ts:
+            th.start()
+        for th in ts:
+            th.join(timeout=600)
+        if any(o is None for o in out):
+            raise SystemExit("server: a concurrent request got no answer")
+        return out
+
+    stats = {"trie_s": trie_s, "flash_check_s": flash_s,
+             "flash_kernels_per_call": flash_calls}
+    stage_s, t_stage = {}, [time.perf_counter()]
+
+    def stage(name):
+        now = time.perf_counter()
+        stage_s[name] = now - t_stage[0]
+        t_stage[0] = now
+
+    reset_launches()
+    try:
+        # ---- batching on the step path -----------------------------------
+        body = {"n_predict": SERVER_TOKENS, "n_probs": 2, "temperature": 0.0}
+        prompts = [list(map(int, tok.encode(p))) for p in SERVER_PROMPTS]
+        alone = [post("/completion", {**body, "prompt": p}) for p in SERVER_PROMPTS]
+        alone_ids = [[c["id"] for c in r["completion_probabilities"]] for r in alone]
+        n_alone_steps = len(steps)
+        flips = []
+        step_ms = float(np.median([s["ms"] for s in steps if s["rows"] == 1]))
+        for n in SERVER_CONCURRENCY:
+            # the last round in two waves: the second half's prompts join a
+            # step of the first half's decode rows (a mixed ubatch)
+            delays = ([0.0] * (n // 2) + [SERVER_WAVE_STEPS * step_ms / 1e3] * (n - n // 2)
+                      if n == max(SERVER_CONCURRENCY) else None)
+            outs = at_once("/completion", [{**body, "prompt": p}
+                                           for p in SERVER_PROMPTS[:n]], delays)
+            for i, r in enumerate(outs):
+                got = [c["id"] for c in r["completion_probabilities"]]
+                if len(got) != SERVER_TOKENS or not all(
+                        len(c["top_logprobs"]) == 2 for c in r["completion_probabilities"]):
+                    raise SystemExit(f"server: request {i} of {n} gave {len(got)} "
+                                     "tokens or a wrong n_probs row")
+                if got != alone_ids[i]:
+                    flips.append({"n": n, "request": i, **flip_proof(
+                        state, prompts[i], alone_ids[i], got, f"request {i} of {n}")})
+        bad = []
+        for s in steps:
+            want = {**{k: v for k, v in kernel_launches([s["rows"]], qts).items() if v},
+                    "flash_decode": cfg.n_layers}
+            if s["launches"] != want:
+                bad.append((s["rows"], s["launches"], want))
+        if bad:
+            raise SystemExit(f"server: {len(bad)} steps launched other kernels "
+                             f"than kernel_for says, e.g. {bad[0]}")
+        small = [s for s in steps if s["rows"] <= 8]
+        big = [s for s in steps if s["rows"] > 8]
+        if not small or not big or any(
+                (s["launches"].get("q4k_gemv"), s["launches"].get("q6k_gemv"))
+                != (N_Q4K, N_Q6K) for s in small) or any(
+                (s["launches"].get("q4k_gemm"), s["launches"].get("qgemm Q6_K"))
+                != (N_Q4K, N_Q6K) for s in big):
+            raise SystemExit("server: a step of <= 8 rows must launch A and C "
+                             f"({N_Q4K}, {N_Q6K}), a larger one B and D")
+        by_live = {}
+        for s in steps:
+            if s["rows"] == s["live"] and s["live"]:  # decode rows only
+                by_live.setdefault(s["live"], []).append(s["ms"])
+        timing = {n: {"steps": len(v), "ms_per_step": float(np.median(v)),
+                      "tokens_per_s": n / (float(np.median(v)) / 1e3)}
+                  for n, v in sorted(by_live.items())}
+        for n in (1, 2, 4, 8):
+            if n not in timing:
+                raise SystemExit(f"server: no decode-only step at {n} live slots")
+        prompt_steps = [s for s in steps if s["rows"] > s["live"]]
+        mixed = [s for s in prompt_steps if s["live"]]
+        if not mixed:
+            raise SystemExit("server: no step mixed prompt rows with decode rows")
+        print(f"  server batching ({smi}): {len(steps)} steps ({n_alone_steps} "
+              f"alone), {len(small)} of <= 8 rows (A, C), {len(big)} of more (B, "
+              f"D), {len(prompt_steps)} with prompt rows (median "
+              f"{np.median([s['ms'] for s in prompt_steps]):.2f} ms, rows "
+              f"{sorted({s['rows'] for s in prompt_steps})}; {len(mixed)} mixed "
+              f"with decode rows: {[(s['rows'], s['live']) for s in mixed]}); "
+              "decode-only steps "
+              + ", ".join(f"{n} live: {v['ms_per_step']:.2f} ms a step, "
+                          f"{v['tokens_per_s']:.1f} tokens/s ({v['steps']} steps)"
+                          for n, v in timing.items())
+              + f"; {len(flips)} streams parted at a flip", flush=True)
+        stats.update(steps_by_live=timing, n_steps=len(steps),
+                     mixed_steps=[(s["rows"], s["live"], s["ms"]) for s in mixed],
+                     steps_small=len(small), steps_big=len(big), flips=flips)
+
+        stage("batching")
+
+        # ---- the fused path: two chats at once ----------------------------
+        chats = [{"messages": [{"role": "user", "content": SESSION_USER[i]}],
+                  "max_tokens": SERVER_CHAT_TOKENS, "temperature": 0.0}
+                 for i in range(2)]
+        n_steps = len(steps)
+        t = time.perf_counter()
+        solo = [post("/v1/chat/completions", c) for c in chats]
+        solo_s = time.perf_counter() - t
+        with book:
+            solo_ids = [o for _, o in served[-2:]]
+            solo_prompts = [p for p, _ in served[-2:]]
+        t = time.perf_counter()
+        both = at_once("/v1/chat/completions", chats)
+        both_s = time.perf_counter() - t
+        with book:
+            both_ids = {tuple(p): o for p, o in served[-2:]}
+        if len(steps) != n_steps:
+            raise SystemExit("server: a plain chat took the step path")
+        for i in range(2):
+            got = both_ids[tuple(solo_prompts[i])]
+            if got != solo_ids[i]:
+                flips.append({"chat": i, **flip_proof(state, solo_prompts[i],
+                                                       solo_ids[i], got, f"chat {i}")})
+            elif both[i]["choices"][0]["message"] != solo[i]["choices"][0]["message"]:
+                raise SystemExit(f"server: chat {i}'s message differs with equal tokens")
+        print(f"  server fused path ({smi}): two {SERVER_CHAT_TOKENS}-token chats "
+              f"alone {solo_s:.2f} s, at once {both_s:.2f} s", flush=True)
+        stats.update(chats_alone_s=solo_s, chats_at_once_s=both_s)
+
+        stage("fused")
+
+        # ---- other routes --------------------------------------------------
+        raw = post("/v1/chat/completions", {**chats[0], "max_tokens": 8,
+                                            "stream": True}, raw=True)
+        events = [json.loads(x[6:]) for x in raw.decode().splitlines()
+                  if x.startswith("data: ") and x != "data: [DONE]"]
+        if not raw.rstrip().endswith(b"data: [DONE]") or \
+                events[-1]["choices"][0]["finish_reason"] != "stop":
+            raise SystemExit("server: the SSE chat did not end with stop and [DONE]")
+        allowed_s[:] = [0.0, 0]
+        t = time.perf_counter()
+        js = post("/v1/chat/completions", {
+            "messages": [{"role": "user", "content": "Answer in JSON."}],
+            "max_tokens": 48, "temperature": 0.0,
+            "response_format": {"type": "json_schema",
+                                "json_schema": {"schema": SERVER_SCHEMA}}})
+        json_s = time.perf_counter() - t
+        doc = json.loads(js["choices"][0]["message"]["content"])
+        if set(doc) != {"ok", "c"} or not isinstance(doc["ok"], bool) or \
+                doc["c"] not in ("a", "b"):
+            raise SystemExit(f"server: json_schema content {doc!r} breaks its schema")
+        grammar_ms = allowed_s[0] / max(allowed_s[1], 1) * 1e3
+        tc = post("/v1/chat/completions", {
+            "messages": [{"role": "user", "content": "What is the weather in Paris?"}],
+            "tools": SERVER_TOOLS, "tool_choice": "required", "max_tokens": 64,
+            "temperature": 0.0})
+        choice = tc["choices"][0]
+        if choice["finish_reason"] != "tool_calls" or \
+                choice["message"]["tool_calls"][0]["function"]["name"] != "get_weather":
+            raise SystemExit(f"server: the forced tool call gave {choice}")
+        json.loads(choice["message"]["tool_calls"][0]["function"]["arguments"])
+        emb = post("/v1/embeddings", {"input": ["hello world", SESSION_USER[0]]})
+        norms = [float(np.linalg.norm(e["embedding"])) for e in emb["data"]]
+        if any(abs(v - 1.0) > 1e-3 for v in norms) or \
+                len(emb["data"][0]["embedding"]) != cfg.d_model:
+            raise SystemExit(f"server: embedding norms {norms}")
+        with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+            metrics = r.read().decode()
+        if f"omni_tpu_kv_cells_total {SERVER_CTX}" not in metrics or \
+                "omni_tpu_tokens_generated_total" not in metrics:
+            raise SystemExit("server: /metrics lacks its counters")
+        print(f"  server routes ({smi}): SSE chat {len(events)} events then "
+              f"[DONE]; json_schema {doc} in {json_s:.2f} s, host "
+              f"{grammar_ms:.3f} ms a constrained token ({allowed_s[1]} tokens), "
+              f"vocabulary trie built in {trie_s:.2f} s over "
+              f"{tok.vocab.n_tokens} tokens; tool call "
+              f"{choice['message']['tool_calls'][0]['function']}; embedding norms "
+              f"{[round(v, 6) for v in norms]}", flush=True)
+        stats.update(grammar_host_ms_per_token=grammar_ms, json_schema_s=json_s,
+                     embedding_norms=norms)
+
+        stage("routes")
+
+        # ---- slot 0 saved, erased, restored --------------------------------
+        post("/completion", {"prompt": SESSION_USER[1], "n_predict": 16,
+                             "temperature": 0.0})
+
+        def continuation():
+            """Four greedy tokens on slot 0's sequence after its cells,
+            undone after."""
+            out = []
+            with state.sched_lock:
+                p0 = ctx.n_past[0]
+                tok_id = int(tok.encode("\n")[0])
+                for j in range(4):
+                    lg, _ = ctx.decode(Batch(tokens=np.asarray([tok_id], np.int32),
+                                             pos=np.asarray([p0 + j], np.int32),
+                                             seq_id=np.zeros(1, np.int32)))
+                    tok_id = int(torch.argmax(lg[-1]))
+                    out.append(tok_id)
+                ctx.seq_rm(0, p0, -1)
+                ctx.n_past[0] = p0
+            return out
+
+        if state.sched.slots[0].n_past == 0:
+            raise SystemExit("server: slot 0 served nothing")
+        with state.sched_lock:
+            blob = ctx.seq_state_bytes(0)
+        save = post("/slots/0?action=save", {"filename": "slot0.bin"})
+        first = continuation()
+        post("/slots/0?action=erase", {})
+        if ctx.n_past.get(0):
+            raise SystemExit("server: erase left slot 0's cells")
+        restore = post("/slots/0?action=restore", {"filename": "slot0.bin"})
+        again = continuation()
+        with state.sched_lock:
+            same_cells = ctx.seq_state_bytes(0) == blob
+        if again != first or not same_cells:
+            raise SystemExit(f"server: after the slot round trip {again} != {first}")
+        print(f"  server slot round trip: saved {save['n_saved']} bytes, restored "
+              f"{restore['n_restored']} cells; the continuation after it equals "
+              f"the one before ({len(first)} tokens)", flush=True)
+
+        stage("slot_round_trip")
+
+        # ---- the text-only /v1/stream session ------------------------------
+        post("/v1/stream/omni_init", {"media_type": 1})
+        post("/v1/stream/update_session_config", {"max_new_tokens": 16})
+        post("/v1/stream/prefill", {"cnt": 0, "system_prompt": SESSION_SYSTEM})
+        raw = post("/v1/stream/decode", {"round_idx": 0}, raw=True)
+        sse = [json.loads(x[6:]) for x in raw.decode().splitlines()
+               if x.startswith("data: ") and x != "data: [DONE]"]
+        if not sse or not sse[-1]["stop"] or b"data: [DONE]" not in raw:
+            raise SystemExit("server: the /v1/stream decode did not end with stop")
+        text = "".join(e["content"] for e in sse)
+        post("/v1/stream/reset", {})
+        print(f"  server /v1/stream session: {len(sse)} events, {text!r}, ended "
+              "with stop", flush=True)
+
+        stage("stream_session")
+
+        # ---- one request past its slot's budget ----------------------------
+        shifted = [s.n_shifted for s in state.sched.slots]
+        words = (SESSION_SYSTEM + " ") * 40
+        ids = tok.encode(words)[:SERVER_SHIFT[0]]
+        long_prompt = tok.decode(ids)
+        r = post("/completion", {"prompt": long_prompt, "n_predict": SERVER_SHIFT[1],
+                                 "temperature": 0.0})
+        moved = [s.n_shifted - b for s, b in zip(state.sched.slots, shifted)]
+        if not any(moved):
+            raise SystemExit(f"server: the request past its budget gave "
+                             f"{r['tokens_predicted']} tokens, shifted {moved}")
+        print(f"  server past the budget ({state.sched.n_ctx_slot} a slot): "
+              f"{len(tok.encode(long_prompt))}-token prompt + {r['tokens_predicted']} "
+              f"tokens, {sum(moved)} positions shifted out", flush=True)
+        stats["shifted"] = sum(moved)
+        stage("past_budget")
+        stats["stage_s"] = stage_s
+    finally:
+        launches = launch_counts()
+        gbnf.Grammar.allowed_tokens = orig_allowed
+        httpd.shutdown()
+        httpd.server_close()
+        server.join(timeout=30)
+        if state.omni is not None:
+            state.omni.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    deadline = time.perf_counter() + 30
+    while set(threading.enumerate()) - threads_before and time.perf_counter() < deadline:
+        time.sleep(0.05)
+    left = set(threading.enumerate()) - threads_before
+    if left:
+        raise SystemExit(f"server: threads left after shutdown: {left}")
+    stats["phase_s"] = time.perf_counter() - t_phase
+    print(f"  server phase ({smi}): {stats['phase_s']:.1f} s (flash checks "
+          f"{flash_s:.1f} s, trie {trie_s:.1f} s; stages "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in stats.get("stage_s", {}).items())
+          + "), no thread left", flush=True)
+    return launches, stats
+
+
 def kernel_launches(rows, qts) -> dict:
     """The launches the LLM's forward calls of `rows` rows each make over
     its quantized weights `qts`, by `kernel_for` (kernel D also per
@@ -2874,6 +3354,11 @@ def main() -> int:
     t0 = time.perf_counter()
     launches, stats = session_phase(cfg, params, tok, dev, qwen3, smi)
     finish("q4_k_m_session", "session", launches, stats, None, t0)
+
+    # ---- the same model: the server and its slots --------------------------
+    t0 = time.perf_counter()
+    launches, stats = server_phase(cfg, params, qts, tok, dev, qwen3, smi, gen, max_err)
+    finish("q4_k_m_server", "server", launches, stats, None, t0)
 
     # ---- the same model: a spoken round (APM, TTS, Token2Wav) --------------
     t0 = time.perf_counter()

@@ -127,6 +127,10 @@ def fuse_layer(layer: dict) -> dict:
     return out
 
 
+_RANK_HEAD = {"cls.weight": "cls", "cls.bias": "cls_b",
+              "cls.output.weight": "cls_out", "cls.output.bias": "cls_out_b"}
+
+
 def load_params(reader, fuse: bool = False, device=None) -> dict:
     """GGUF tensors -> the dense Qwen3 parameter dict on `device` (the
     dense subset of omni_tpu's `qwen3.load_params`): Q8_0, Q4_0, Q4_1, Q5_0,
@@ -139,7 +143,9 @@ def load_params(reader, fuse: bool = False, device=None) -> dict:
     keep_q=False does; the JAX package widens it through its numpy
     dequantiser, whose f32 values the port's `dequant` gives bit for bit),
     norms are f32, and `output` is None
-    when the head is tied to the embedding. Other quantized formats raise
+    when the head is tied to the embedding. The rank head's `cls`, `cls_b`,
+    `cls_out` and `cls_out_b` are dense (bf16 matrices, f32 biases), None
+    where the file has none. Other quantized formats raise
     NotImplementedError, as does a tensor the dense branch would not read.
     fuse=True merges QKV and gate+up, which needs one format per group: on
     a Q4_K_M or Q5_K_M layer (Q4_K or Q5_K wq, Q6_K wv) it raises, as the
@@ -148,7 +154,8 @@ def load_params(reader, fuse: bool = False, device=None) -> dict:
 
     device = resolve_device(device)
     n_layers = int(reader.kv[f"{reader.kv['general.architecture']}.block_count"])
-    read = {"token_embd.weight", "output_norm.weight", "output.weight"} | {
+    read = {"token_embd.weight", "output_norm.weight", "output.weight",
+            *_RANK_HEAD} | {
         f"blk.{i}.{gg}.weight" for i in range(n_layers) for gg in _LAYER_TENSORS}
     extra = sorted(set(reader.tensors) - read)
     if extra:
@@ -166,6 +173,10 @@ def load_params(reader, fuse: bool = False, device=None) -> dict:
     params = {"token_embd": get("token_embd.weight", keep_q=False),
               "output_norm": get("output_norm.weight"),
               "output": get("output.weight", required=False), "layers": []}
+    # the optional classification / rank head (reference LLM_TENSOR_CLS{,_OUT};
+    # read by the server's RANK pooling), dense as the JAX package loads it
+    for name, key in _RANK_HEAD.items():
+        params[key] = get(name, keep_q=False, required=False)
     for i in range(n_layers):
         layer = {nm: get(f"blk.{i}.{gg}.weight", required=nm not in _OPTIONAL)
                  for gg, nm in _LAYER_TENSORS.items()}

@@ -32,6 +32,11 @@ import torch
 from ..kernels.rope import rope_shift
 
 
+# sequences a cell's bitset can name (the JAX cache's MAX_SEQS; the server
+# reserves the top two, 30 and 31); the int64 seq_mask holds bit 31 unsigned
+MAX_SEQS = 32
+
+
 def seq_bits_of(seq: torch.Tensor) -> torch.Tensor:
     """int seq encoding -> membership bitset (int64). seq >= 0: one id;
     seq < 0: a packed multi-membership mask, bits = -seq."""
@@ -110,6 +115,10 @@ class KVCache:
     @property
     def quantized(self) -> bool:
         return self.k_scale is not None
+
+    def n_used(self) -> int:
+        """Occupied cells, read from the device (one sync: cold paths)."""
+        return int((self.seq_mask != 0).sum())
 
     def find_slots(self, n: int) -> torch.Tensor:
         """Indices of the first `n` free cells ([n] int64), lowest first.

@@ -16,7 +16,8 @@ the JAX package: top-k keeps every tie of the k-th logit, top-p keeps the
 smallest prefix whose f32 cumulative probability passes p, sorts are
 stable.
 
-llama.cpp's infill sampler (`apply_infill_host`) comes with the server.
+llama.cpp's infill sampler (`apply_infill_host`) is host numpy, as in the
+JAX package; the server's n_probs step is `top_logprobs`.
 """
 
 from __future__ import annotations
@@ -380,3 +381,61 @@ def sample(logits: torch.Tensor, params: SamplerParams,
 def update_prev_tokens(prev: torch.Tensor, token: torch.Tensor) -> torch.Tensor:
     """Shift the penalty ring by one token."""
     return torch.cat([prev[1:], token.reshape(1).to(prev.dtype)])
+
+
+def top_logprobs(logits: torch.Tensor, n: int):
+    """The n largest log-probabilities of one logits row and their ids
+    (llama-server's n_probs): log_softmax, then top-k, on the row's device.
+    Returns (values [n] f32, ids [n] int64)."""
+    v, i = torch.topk(torch.log_softmax(logits.to(torch.float32), -1), n)
+    return v, i
+
+
+def apply_infill_host(logits, eog_ids, token_text, top_k: int = 40):
+    """Fill-in-middle candidate filter (reference llama_sampler_infill,
+    llama-sampling.cpp:2408-2560), host-side over the top-k candidate set
+    (the reference runs it after the truncating samplers in the chain):
+
+    1. EOG-dominance switch: if 3*p_eog*n > p_txt, keep only EOG tokens.
+    2. Merge candidates whose text is a prefix of another candidate's text
+       into the higher-probability one.
+    3. Drop non-EOG candidates below p=0.2; if none survive, collapse to a
+       single EOG token.
+
+    Returns (ids int32 [m], probs f32 [m]) renormalized, ready to draw.
+    A copy of the JAX package's function (host numpy, no device work).
+    """
+    lg = np.asarray(logits, np.float32)
+    k = min(top_k, lg.shape[0])
+    ids = np.argpartition(-lg, k - 1)[:k]
+    ids = ids[np.argsort(-lg[ids])]
+    z = lg[ids] - lg[ids].max()
+    p = np.exp(z)
+    p /= p.sum()
+    is_eog = np.array([int(i) in eog_ids for i in ids])
+
+    p_eog, p_txt = float(p[is_eog].sum()), float(p[~is_eog].sum())
+    if 3.0 * p_eog * len(ids) > p_txt:
+        ids, p = ids[is_eog], p[is_eog]
+        return ids.astype(np.int32), (p / p.sum()).astype(np.float32)
+
+    texts = [token_text(int(i)) if not e else None
+             for i, e in zip(ids, is_eog)]
+    alive = np.ones(len(ids), bool)
+    for i0 in range(len(ids)):
+        for i1 in range(len(ids)):
+            if i0 == i1 or not alive[i0] or not alive[i1]:
+                continue
+            t0, t1 = texts[i0], texts[i1]
+            if t0 and t1 and len(t0) <= len(t1) and t1.startswith(t0):
+                dst, src = (i0, i1) if p[i0] >= p[i1] else (i1, i0)
+                p[dst] += p[src]
+                p[src] = 0.0
+                alive[src] = False
+
+    keep = alive & (is_eog | (p >= 0.2))
+    if not (keep & ~is_eog).any():  # no non-EOG survivors -> single EOG
+        eid = next(iter(eog_ids)) if eog_ids else int(ids[0])
+        return (np.array([eid], np.int32), np.array([1.0], np.float32))
+    ids, p = ids[keep], p[keep]
+    return ids.astype(np.int32), (p / p.sum()).astype(np.float32)

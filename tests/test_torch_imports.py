@@ -50,7 +50,11 @@ for name in ("omni_tpu_torch.tokenizer", "omni_tpu_torch.tokenizer.bpe",
              "omni_tpu_torch.models.token2wav.prompt_cache",
              "omni_tpu_torch.cli.omni_cli", "omni_tpu_torch.spoken_limits",
              "omni_tpu_torch.omni.image", "omni_tpu_torch.models.siglip",
-             "omni_tpu_torch.vision_limits"):
+             "omni_tpu_torch.vision_limits", "omni_tpu_torch.cli.args",
+             "omni_tpu_torch.grammar", "omni_tpu_torch.grammar.gbnf",
+             "omni_tpu_torch.grammar.json_schema", "omni_tpu_torch.chat_parser",
+             "omni_tpu_torch.runtime.slots", "omni_tpu_torch.server",
+             "omni_tpu_torch.server.main"):
     assert name in names, name
 # the spoken round's pieces work without them: a mel, a TTS draw, a code
 # window's conformer chunk at a tiny width
@@ -108,6 +112,20 @@ try:
     raise AssertionError("load_image decoded without Pillow")
 except ImportError as e:
     assert "Pillow" in str(e)
+# the server's pieces work without them, and without jinja2: a grammar
+# walk, a family renderer, a tool-call parse, the server's state
+sys.modules["jinja2"] = None
+from omni_tpu_torch.grammar import VocabTrie, json_schema_to_gbnf, parse_gbnf
+from omni_tpu_torch.chat import apply_chat_template as family
+from omni_tpu_torch.chat_parser import parse_response
+from omni_tpu_torch.server.main import ServerState
+g = parse_gbnf(json_schema_to_gbnf({"type": "boolean"}))
+allowed = set(g.allowed_tokens(VocabTrie([(0, "t"), (1, "x"), (2, "fal")])))
+assert {0, 2} <= allowed and 1 not in allowed
+assert family("llama3", [{"role": "user", "content": "hi"}]).endswith(
+    "<|start_header_id|>assistant<|end_header_id|>\\n\\n")
+assert parse_response('<tool_call>{"name": "f", "arguments": {}}</tool_call>',
+                      "hermes")["tool_calls"][0]["function"]["name"] == "f"
 import chip_smoke
 assert not any(k == "jax" or k.startswith(("jax.", "omni_tpu."))
                for k, v in sys.modules.items() if v is not None)

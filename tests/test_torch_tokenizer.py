@@ -211,8 +211,8 @@ def test_detect_template_matches_jax():
               "no markers", "[gMASK]<sop>", "<|user|><|endoftext|>"]
     for j in jinjas:
         assert chat.detect_template(j) == jchat.detect_template(j), j
-    with pytest.raises(NotImplementedError, match="item 6"):
-        chat.apply_chat_template("llama3", MESSAGES)
+    assert (chat.apply_chat_template("llama3", MESSAGES)
+            == jchat.apply_chat_template("llama3", MESSAGES))
     with pytest.raises(ValueError):
         chat.apply_chat_template("no markers", MESSAGES)
 
